@@ -4,11 +4,15 @@ The layout mirrors the JAX package, so each module's counterpart sits at the
 same path there:
 
 core      trig32 sin/cos, SE(2) geometry, sensor model, point map and rasters
-io        numpy museum synthesizer and dataset cache
-ops       clamped EDT, correlative matching, correlation volume; the two
+io        numpy tour synthesizer (museum, loop, corridor, building) and
+          dataset cache
+ops       clamped EDT, correlative matching, correlation volume (batched
+          over closure candidates), scan-to-scan odometry; the two
           hand-written CUDA kernels (``csrc/``) and their wrappers
-models    fidelity scan matcher, FastSLAM particle filter, state conversion
-          from the JAX package's pytrees
+models    fidelity scan matcher, FastSLAM particle filter, pose graph, graph
+          SLAM with loop closure (scan-matcher or particle-filter frontend),
+          state conversion from the JAX package's pytrees
+utils     stage timer
 
 Plain tensor code runs on any device. The two kernels (K1 clamped EDT, K2
 correlation volume) launch on CUDA tensors only; CPU tensors take their

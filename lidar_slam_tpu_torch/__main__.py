@@ -2,12 +2,18 @@
 
   python -m lidar_slam_tpu_torch run --mode fidelity --scans 1000
   python -m lidar_slam_tpu_torch run --mode pf --particles 1024 --device cuda
+  python -m lidar_slam_tpu_torch run --mode graph --loop --scans 700
+  python -m lidar_slam_tpu_torch run --mode graph --world building --window 2
+  python -m lidar_slam_tpu_torch run --mode pf-graph --loop --scans 700
 
-Runs the museum tour (synthesized and cached under ``data/``) through the
-fidelity scan matcher or the particle filter and prints the same
-``scans/s`` and ``ATE`` lines as ``python -m lidar_slam_tpu run``.
-``--device`` defaults to ``cuda`` and fails without a card; pass
-``--device cpu`` for the plain PyTorch path.
+Runs a synthesized tour (the museum by default, cached under ``data/``;
+``--loop`` the closed loop in the museum's left room; ``--world building``
+the 60x45 m building with ``BUILDING_CONFIG``) through the fidelity scan
+matcher, the particle filter, graph SLAM with loop closure or the
+particle-filter frontend with loop closure, and prints the same ``scans/s``,
+``ATE`` and ``keyframes … loop closures …`` lines as
+``python -m lidar_slam_tpu run``. ``--device`` defaults to ``cuda`` and
+fails without a card; pass ``--device cpu`` for the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -21,40 +27,91 @@ import numpy as np
 import torch
 
 
+def _load_ranges(args) -> tuple[np.ndarray, np.ndarray]:
+    from lidar_slam_tpu_torch.io import dataset, simulate
+
+    n = args.scans or (simulate.BUILDING_N_SCANS if args.world == "building"
+                       else 1000)
+    if args.loop:
+        return simulate.generate_dataset(n_scans=n, seed=args.seed,
+                                         waypoints=simulate.LOOP_WAYPOINTS)
+    return dataset.ensure_dataset(n_scans=n, seed=args.seed,
+                                  world=args.world)
+
+
+def _config(args):
+    """The grid/map preset of the world, the matcher window (``--window 2``
+    on the building is ``BUILDING_WIDE_CONFIG``) and the particle count.
+    Every other field of the preset is kept."""
+    from lidar_slam_tpu_torch.config import BUILDING_CONFIG, DEFAULT_CONFIG
+
+    cfg = BUILDING_CONFIG if args.world == "building" else DEFAULT_CONFIG
+    if args.window is not None:
+        cfg = dataclasses.replace(cfg, matcher=dataclasses.replace(
+            cfg.matcher, window_t=args.window, window_r=args.window))
+    return dataclasses.replace(cfg, particles=dataclasses.replace(
+        cfg.particles, n_particles=args.particles))
+
+
 def cmd_run(args) -> int:
     from lidar_slam_tpu.utils.metrics import ate
 
-    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, ParticleConfig
     from lidar_slam_tpu_torch.device import resolve_device
-    from lidar_slam_tpu_torch.io import dataset
 
     device = resolve_device(args.device)
-    ranges, gt = dataset.ensure_dataset(n_scans=args.scans, seed=args.seed)
-    cfg = dataclasses.replace(
-        DEFAULT_CONFIG, particles=ParticleConfig(n_particles=args.particles))
+    ranges, gt = _load_ranges(args)
+    cfg = _config(args)
 
+    gs = None
     t0 = time.perf_counter()
     if args.mode == "fidelity":
         from lidar_slam_tpu_torch.models import scan_matcher
 
         path, state = scan_matcher.run_scan(ranges, cfg, device=device)
-    else:
+        path = path.cpu().numpy()   # waits for the device
+    elif args.mode == "pf":
         from lidar_slam_tpu_torch.models import fastslam
 
         path, state = fastslam.run_pf(ranges, cfg, seed=args.seed,
                                       device=device)
-    path = path.cpu().numpy()   # waits for the device
+        path = path.cpu().numpy()
+    elif args.mode == "graph":
+        from lidar_slam_tpu_torch.models.graph_slam import GraphSlam
+
+        gs = GraphSlam(cfg, device=device)
+        path, _ = gs.run(ranges)
+        state = gs.final_state
+    else:
+        from lidar_slam_tpu_torch.models.pf_graph_slam import run_pf_graph
+
+        path, _, gs = run_pf_graph(ranges, cfg, seed=args.seed, device=device)
+        state = gs.final_state
     dt = time.perf_counter() - t0
 
     n = len(path)
     print(f"device: {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host CPU'})")
+    if gs is not None:
+        print(f"keyframes {int(gs.kf.count)}  loop closures {len(gs.closures)}")
     print(f"{args.mode}: {n} scans in {dt:.2f}s = {n / dt:.1f} scans/s")
     print(f"ATE vs ground truth: {ate(path, gt):.4f} m")
+    if gs is not None:
+        print(f"smoothed-path ATE: {ate(gs.smoothed_path(path), gt):.4f} m")
+        print(gs.timer.report())
     if args.render:
         from lidar_slam_tpu.utils import viz
 
-        map_xy = state.pmap.xy[: int(state.pmap.size)].cpu().numpy()
+        if args.mode == "graph":
+            from lidar_slam_tpu_torch.models.graph_slam import (
+                _np_transform_ref)
+
+            k = int(gs.kf.count)
+            wx, wy = _np_transform_ref(gs.kf.x[:k], gs.kf.y[:k],
+                                       np.stack(gs.kf_poses))
+            v = gs.kf.valid[:k]
+            map_xy = np.stack([wx[v], wy[v]], axis=1)
+        else:
+            map_xy = state.pmap.xy[: int(state.pmap.size)].cpu().numpy()
         viz.render_map(map_xy, path=path, out_path=args.render, gt=gt,
                        title=f"{args.mode} | {n} scans")
         print(f"render -> {args.render}")
@@ -65,10 +122,23 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="lidar_slam_tpu_torch",
                                 description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("run", help="run a SLAM pipeline on the museum tour")
-    sp.add_argument("--mode", choices=["fidelity", "pf"], default="fidelity")
-    sp.add_argument("--scans", type=int, default=1000)
+    sp = sub.add_parser("run", help="run a SLAM pipeline on a synthesized "
+                        "tour")
+    sp.add_argument("--mode", choices=["fidelity", "pf", "graph", "pf-graph"],
+                    default="fidelity")
+    sp.add_argument("--scans", type=int, default=None,
+                    help="scans of the tour (default 1000; 3800 on the "
+                    "building)")
     sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--loop", action="store_true",
+                    help="use the loop-closure trajectory")
+    sp.add_argument("--world", choices=["museum", "building"],
+                    default="museum",
+                    help="museum (20x15 m) or building (60x45 m, 3800 "
+                    "scans; selects BUILDING_CONFIG)")
+    sp.add_argument("--window", type=int, default=None,
+                    help="matcher search window in steps per stage (1 = "
+                    "reference-exact; 2 solves the building tour)")
     sp.add_argument("--particles", type=int, default=1024)
     sp.add_argument("--device", type=str, default="cuda",
                     help="cuda (default; fails without a card) or cpu")

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes``. The build happens at first use, into
+Each source compiles with its own ``nvcc``, all started together, and the
+objects link into one shared library with a plain C interface, loaded with
+``ctypes``. The build happens at first use, into
 ``_build/`` beside this file (listed in ``.gitignore``), and again whenever a
 source is newer than the library. Nothing is compiled at import.
 
@@ -26,7 +27,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNEL_LIB = os.path.join(BUILD_DIR, "libslam_kernels.so")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _kernels: ctypes.CDLL | None = None
 
@@ -36,9 +37,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # occ u8 (B,H,W), out f32 (B,H,W), B, H, W, R, stream
     "slam_edt_clamped": (_P, _P, _I, _I, _I, _I, _P),
-    # metric f32 (S,S), S, cx0 i32 (T,N), cy0 i32 (T,N), valid u8 (N,), T, N,
-    # n_rows i32*, n_cols i32*, half, scores f32 (T,W,W), stream
-    "slam_corr_volume": (_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P),
+    # metric f32 (B,S,S), S, cx0 i32 (B,T,N), cy0 i32 (B,T,N), valid u8
+    # (B,N), B, T, N, n_rows i32*, n_cols i32*, half, scores f32 (B,T,W,W),
+    # stream
+    "slam_corr_volume": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P,
+                         _P),
 }
 
 
@@ -57,8 +60,14 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(nvcc: str, sources: list[str], out: str) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", out, *sources]
+def nvcc_compile_command(nvcc: str, source: str, obj: str) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", obj, source]
+
+
+def nvcc_command(nvcc: str, inputs: list[str], out: str) -> list[str]:
+    """The command that builds the shared library from ``inputs`` (the
+    compiled objects, or the sources themselves)."""
+    return [nvcc, *NVCC_FLAGS, "-shared", "-o", out, *inputs]
 
 
 def is_stale(lib: str, sources: list[str]) -> bool:
@@ -88,9 +97,33 @@ def compile_to(cmd_for, out: str) -> None:
 def build_kernels(force: bool = False) -> str:
     """Compile ``csrc/*.cu`` into ``_build/libslam_kernels.so`` if needed."""
     sources = kernel_sources()
-    if force or is_stale(KERNEL_LIB, sources):
-        nvcc = find_nvcc()
-        compile_to(lambda out: nvcc_command(nvcc, sources, out), KERNEL_LIB)
+    if not (force or is_stale(KERNEL_LIB, sources)):
+        return KERNEL_LIB
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o")
+                for s in sources]
+        procs = []
+        try:
+            for src, obj in zip(sources, objs):
+                procs.append(subprocess.Popen(
+                    nvcc_compile_command(nvcc, src, obj),
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+            failed = []
+            for src, proc in zip(sources, procs):
+                out, err = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"{src}:\n{out}\n{err}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("build failed:\n" + "\n".join(failed))
+        compile_to(lambda out: nvcc_command(nvcc, objs, out), KERNEL_LIB)
     return KERNEL_LIB
 
 

@@ -48,6 +48,24 @@ def compose_ref(a: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, a[..., 2] + z[..., 2]], dim=-1)
 
 
+def compose(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Standard-convention pose composition: p1 (+) p2 (p2 in p1's frame)."""
+    ct, st = torch.cos(p1[..., 2]), torch.sin(p1[..., 2])
+    x = p1[..., 0] + ct * p2[..., 0] - st * p2[..., 1]
+    y = p1[..., 1] + st * p2[..., 0] + ct * p2[..., 1]
+    return torch.stack([x, y, p1[..., 2] + p2[..., 2]], dim=-1)
+
+
+def between(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Standard-convention relative pose p1 (-) p2: the transform taking
+    p1's frame to p2's, heading wrapped."""
+    dx = p2[..., 0] - p1[..., 0]
+    dy = p2[..., 1] - p1[..., 1]
+    ct, st = torch.cos(p1[..., 2]), torch.sin(p1[..., 2])
+    return torch.stack([ct * dx + st * dy, -st * dx + ct * dy,
+                        wrap_angle(p2[..., 2] - p1[..., 2])], dim=-1)
+
+
 def between_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Reference-convention relative pose: z with ``compose_ref(a, z) == b``."""
     dx = b[..., 0] - a[..., 0]

@@ -1,7 +1,7 @@
-"""Museum dataset cache (counterpart of ``lidar_slam_tpu.io.dataset``).
+"""Dataset cache (counterpart of ``lidar_slam_tpu.io.dataset``).
 
-``ensure_dataset`` synthesizes the museum tour once and caches it as
-``data/museum_v2_<n>_s<seed>.npz`` at the repository root — the JAX
+``ensure_dataset`` synthesizes a tour once and caches it as
+``data/<world>_v2_<n>_s<seed>.npz`` at the repository root — the JAX
 package's own file name for the same, byte-identical arrays, so either
 package may write the cache and both read it. The write goes through a
 temporary file and an atomic rename, so concurrent test workers never read a
@@ -20,18 +20,31 @@ DEFAULT_DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def ensure_dataset(n_scans: int = 1000, seed: int = 0,
-                   data_dir: str | None = None
+                   data_dir: str | None = None, world: str = "museum"
                    ) -> tuple[np.ndarray, np.ndarray]:
-    """Museum ranges (T, 1079) f32 and ground-truth poses (T, 3) f32."""
+    """Ranges (T, 1079) f32 and ground-truth poses (T, 3) f32.
+
+    world: ``"museum"`` (20x15 m) or ``"building"`` (60x45 m, pair it with
+    ``config.BUILDING_CONFIG``).
+    """
     from lidar_slam_tpu_torch.io import simulate
 
+    if world == "museum":
+        kwargs = {}
+    elif world == "building":
+        kwargs = dict(speed=simulate.BUILDING_SPEED,
+                      waypoints=simulate.BUILDING_WAYPOINTS,
+                      world=simulate.building_world())
+    else:
+        raise ValueError(f"unknown world {world!r}")
     data_dir = os.path.abspath(data_dir or DEFAULT_DATA_DIR)
     os.makedirs(data_dir, exist_ok=True)
-    npz = os.path.join(data_dir, f"museum_v2_{n_scans}_s{seed}.npz")
+    npz = os.path.join(data_dir, f"{world}_v2_{n_scans}_s{seed}.npz")
     if os.path.exists(npz):
         with np.load(npz) as blob:
             return blob["ranges"], blob["gt"]
-    ranges, gt = simulate.generate_dataset(n_scans=n_scans, seed=seed)
+    ranges, gt = simulate.generate_dataset(n_scans=n_scans, seed=seed,
+                                           **kwargs)
     fd, tmp = tempfile.mkstemp(suffix=".npz", dir=data_dir)
     os.close(fd)
     try:

@@ -1,5 +1,6 @@
-"""Synthetic museum lidar dataset, in numpy (counterpart of the museum parts
-of ``lidar_slam_tpu.io.simulate``).
+"""Synthetic lidar datasets, in numpy (counterpart of the scan synthesizer
+of ``lidar_slam_tpu.io.simulate``): the museum, loop, corridor and
+building tours.
 
 The JAX package's synthesizer is numpy too, but it cannot be imported
 without JAX: ``lidar_slam_tpu/io/__init__.py`` imports ``simulate``, which
@@ -9,8 +10,7 @@ no JAX, so the port carries the same code and produces byte-identical
 arrays (pinned by ``tests/test_torch_simulate.py``).
 
 Sensor geometry as the reference (main.c:45-58): 1079 beams, angle_min
--2.351831, increment 0.004363 rad, 10 Hz, in a 20x15 m three-room floor
-plan. Poses use the reference convention ``w = R(-theta) p + t``, so a beam
+-2.351831, increment 0.004363 rad, 10 Hz. Poses use the reference convention ``w = R(-theta) p + t``, so a beam
 at sensor angle a leaves the robot at world angle ``a - theta``.
 """
 
@@ -110,18 +110,96 @@ def raycast(world: World, pose: np.ndarray, angles: np.ndarray,
     return np.where(np.isfinite(r) & (r <= max_range), r, 0.0)
 
 
+def corridor_world() -> World:
+    """A 40x8 m office corridor with side rooms (weak longitudinal
+    constraint along the straight walls)."""
+    segs: list[tuple[float, float, float, float]] = []
+    segs += _box(0.0, 0.0, 40.0, 8.0)                          # shell
+    # corridor walls at y=3 and y=5 with door gaps every ~8 m
+    for x0 in (0.0, 10.0, 20.0, 30.0):
+        segs += [(x0 + 2.0, 3.0, x0 + 10.0, 3.0)]
+        segs += [(x0, 5.0, x0 + 8.0, 5.0)]
+    for x in (10.0, 20.0, 30.0):                               # room dividers
+        segs += [(x, 0.0, x, 3.0), (x, 5.0, x, 8.0)]
+    for cx, cy in [(5.0, 1.0), (15.0, 6.8), (25.0, 1.2), (33.0, 6.5)]:
+        segs += _box(cx, cy - 0.3, cx + 1.2, cy + 0.3)         # cabinets
+    return World(segments=np.asarray(segs, np.float64))
+
+
+# Out-and-back along the corridor: the return leg revisits outbound keyframes.
+CORRIDOR_WAYPOINTS = np.asarray([
+    (2.0, 4.0), (12.0, 4.1), (22.0, 3.9), (27.5, 4.0), (28.0, 4.2),
+    (24.0, 4.1), (14.0, 4.0), (6.0, 4.1), (2.5, 4.0),
+], np.float64)
+
+
+# A closed loop in the museum's left room that revisits the start.
+LOOP_WAYPOINTS = np.asarray([
+    (3.0, 3.0), (2.8, 8.0), (3.0, 12.0), (5.5, 12.5), (6.5, 9.0),
+    (6.2, 5.0), (4.8, 3.2), (3.2, 3.2), (2.9, 7.0), (3.0, 10.0),
+], np.float64)
+
+
+def building_world() -> World:
+    """A 60x45 m multi-hall building: a 60 m central corridor, four flanking
+    halls with pillars, corridor clutter and exhibit stands. Pair it with
+    ``config.BUILDING_CONFIG`` (51.2 m rasters)."""
+    segs: list[tuple[float, float, float, float]] = []
+    segs += _box(0.0, 0.0, 60.0, 45.0)                       # outer shell
+    # central corridor walls (y=19.5 and y=25.5) with hall doors
+    for x0, x1 in [(0.0, 10.0), (14.0, 44.0), (48.0, 60.0)]:
+        segs += [(x0, 19.5, x1, 19.5)]
+    for x0, x1 in [(0.0, 16.0), (20.0, 40.0), (44.0, 60.0)]:
+        segs += [(x0, 25.5, x1, 25.5)]
+    # hall dividers at x=30 with 4 m doors
+    segs += [(30.0, 0.0, 30.0, 8.0), (30.0, 12.0, 30.0, 19.5)]
+    segs += [(30.0, 25.5, 30.0, 33.0), (30.0, 37.0, 30.0, 45.0)]
+    for cx in (8.0, 16.0, 24.0, 38.0, 46.0, 54.0):           # pillars
+        for cy in (6.0, 13.0, 32.0, 39.0):
+            s = 0.3
+            segs += _box(cx - s, cy - s, cx + s, cy + s)
+    # corridor clutter breaking the longitudinal ambiguity
+    for cx, cy in [(6.0, 20.0), (18.0, 24.8), (26.0, 20.1), (36.0, 24.9),
+                   (50.0, 20.2), (56.0, 24.7)]:
+        segs += _box(cx, cy - 0.25, cx + 1.5, cy + 0.25)
+    # exhibit stands inside the visited halls
+    for cx, cy in [(10.0, 9.5), (20.0, 4.0), (14.0, 16.0), (42.0, 9.0),
+                   (52.0, 15.0), (48.0, 4.5)]:
+        segs += _box(cx - 0.6, cy - 0.4, cx + 0.6, cy + 0.4)
+    return World(segments=np.asarray(segs, np.float64))
+
+
+# Building tour: loop hall A, corridor east, dip into hall B, corridor back
+# west (the revisit from about scan 2500), re-enter hall A.
+BUILDING_WAYPOINTS = np.asarray([
+    (6.0, 6.0), (6.0, 14.0), (12.0, 16.0), (16.0, 9.5), (11.0, 4.5),
+    (7.0, 6.0),                                                  # hall A loop
+    (11.5, 13.0), (12.0, 21.5), (24.0, 22.5), (36.0, 22.4), (45.5, 22.2),
+    (47.5, 16.0), (52.0, 13.0), (53.5, 17.0), (49.0, 20.0),      # hall B dip
+    (44.0, 22.6), (32.0, 22.4), (20.0, 22.6), (13.0, 22.3),      # corridor west
+    (11.5, 15.5), (8.5, 10.0), (6.5, 7.0), (6.2, 10.0),          # hall A revisit
+], np.float64)
+
+BUILDING_N_SCANS = 3800    # of the 3894 the tour supports
+BUILDING_SPEED = 0.4       # m/s; 4 cm a scan, below the 5 cm coarse step
+
+
 def generate_dataset(n_scans: int = 1000, seed: int = 0,
                      noise_std: float = 0.008, dropout: float = 0.01,
-                     speed: float = 0.35,
+                     speed: float = 0.35, waypoints: np.ndarray | None = None,
+                     world: World | None = None,
                      cfg: LidarConfig = LidarConfig()
                      ) -> tuple[np.ndarray, np.ndarray]:
-    """Museum tour: (ranges (T, 1079) f32, ground-truth poses (T, 3) f32),
+    """A tour of ``world`` (default the museum) along ``waypoints`` (default
+    the museum tour): (ranges (T, 1079) f32, ground-truth poses (T, 3) f32),
     ground truth relative to the first pose (the pipeline starts at the
     origin, main.c:830)."""
     rng = np.random.default_rng(seed)
-    world = museum_world()
+    world = world or museum_world()
     angles = beam_angles(cfg)
-    traj = smooth_trajectory(DEFAULT_WAYPOINTS, speed=speed)
+    if waypoints is None:
+        waypoints = DEFAULT_WAYPOINTS
+    traj = smooth_trajectory(waypoints, speed=speed)
     if len(traj) < n_scans:
         raise ValueError(f"trajectory supports {len(traj)} scans < {n_scans}")
     traj = traj[:n_scans]

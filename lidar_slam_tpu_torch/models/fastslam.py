@@ -3,12 +3,13 @@
 
 Particles are a leading batch axis. Each step propagates them with constant
 velocity plus Gaussian proposal noise, builds the correlation volume(s)
-around their mean (kernel K2 on CUDA), weights every particle by trilinear
-lookups, resamples systematically under an ESS gate without a host branch,
-refines the weighted-mean estimate with three argmin passes over 27
-candidates, and on keyframe steps appends novel points and rebuilds the fine
-raster and its EDT (kernel K1 on CUDA). The keyframe test is the step's one
-device->host sync.
+around their mean (kernel K2 on CUDA), optionally lets every particle descend
+the interpolated volume (autograd through the lookup), weights every
+particle by trilinear lookups, resamples systematically under an ESS gate
+without a host branch, refines the weighted-mean estimate with three argmin
+passes over 27 candidates, and on keyframe steps appends novel points and
+rebuilds the fine raster and its EDT (kernel K1 on CUDA). The keyframe test
+is the step's one device->host sync.
 
 Reductions over the particles (the mean, softmax, CDF and weighted sums)
 and the volume's cos/sin are evaluated in float64 and rounded to f32: their
@@ -121,10 +122,6 @@ def pf_step(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
     the state's generator for this step.
     """
     pc, g, m, mc = cfg.particles, cfg.grid, cfg.map, cfg.matcher
-    if pc.grad_refine_steps:
-        raise NotImplementedError(
-            "grad_refine_steps > 0 is not ported yet (autograd through the "
-            "volume lookup)")
     dev = state.poses.device
     p = state.poses.shape[0]
     scan = sensor.read_scan(ranges, angles, cfg.lidar)
@@ -143,6 +140,19 @@ def pf_step(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
         state.fine_metric, state.fine, scan.x, scan.y, scan.valid, base,
         n_theta=pc.vol_theta_bins, theta_step=mc.fine_r, half=pc.vol_half,
         levels=pc.cascade_levels)
+    # --- gradient-guided proposal refinement: each particle descends the
+    # interpolated fine volume a few capped steps before weighting. A
+    # particle's distance depends on its own pose only, so the gradient of
+    # the sum is every particle's own gradient.
+    if pc.grad_refine_steps > 0:
+        caps = constant((pc.grad_step_xy, pc.grad_step_xy,
+                         pc.grad_step_theta), dev)
+        for _ in range(pc.grad_refine_steps):
+            with torch.enable_grad():
+                at = prop.detach().requires_grad_(True)
+                d = correlative.lookup_avg_distance(vols[0], at)
+                (grad,) = torch.autograd.grad(d.sum(), at)
+            prop = prop + torch.clamp(-0.01 * grad, -caps, caps)
     avg_dist, fine_escape = correlative.lookup_cascade(vols, prop)
     clamp_frac = fine_escape.to(torch.float32).mean()
 

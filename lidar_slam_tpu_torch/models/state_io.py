@@ -1,6 +1,7 @@
 """Conversion between the JAX package's states and the port's.
 
-The JAX package's ``SlamState`` and ``ParticleState`` are pytrees of arrays;
+The JAX package's ``SlamState``, ``ParticleState``, ``PoseGraph`` and
+``KeyframeStore`` are pytrees of arrays;
 passed through ``numpy.asarray`` leaf by leaf they become plain numpy
 trees with the same field names. These functions turn such a tree into the
 port's state on a given device, and a port state back into numpy arrays
@@ -16,6 +17,8 @@ import torch
 
 from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap
 from lidar_slam_tpu_torch.models.fastslam import ParticleState
+from lidar_slam_tpu_torch.models.graph_slam import KeyframeStore
+from lidar_slam_tpu_torch.models.posegraph import PoseGraph
 from lidar_slam_tpu_torch.models.scan_matcher import SlamState
 
 
@@ -106,3 +109,43 @@ def particle_state_to_numpy(s: ParticleState) -> ParticleState:
         pmap=pointmap_to_numpy(s.pmap), fine=grid_to_numpy(s.fine),
         fine_metric=_n(s.fine_metric), rng=None,
         clamp_frac=np.float32(_n(s.clamp_frac)))
+
+
+def posegraph_from_numpy(g, device) -> PoseGraph:
+    """A JAX ``PoseGraph`` with numpy leaves -> the port's ``PoseGraph``."""
+    return PoseGraph(
+        poses=_t(g.poses, device, torch.float32),
+        node_active=_t(g.node_active, device, torch.bool),
+        n_nodes=_t(np.int32(g.n_nodes), device),
+        edge_i=_t(np.asarray(g.edge_i, np.int32), device),
+        edge_j=_t(np.asarray(g.edge_j, np.int32), device),
+        edge_z=_t(g.edge_z, device, torch.float32),
+        edge_w=_t(g.edge_w, device, torch.float32),
+        edge_active=_t(g.edge_active, device, torch.bool),
+        n_edges=_t(np.int32(g.n_edges), device))
+
+
+def posegraph_to_numpy(g: PoseGraph) -> PoseGraph:
+    """The port's ``PoseGraph`` -> numpy arrays with the JAX dtypes."""
+    return PoseGraph(
+        poses=_n(g.poses), node_active=_n(g.node_active),
+        n_nodes=np.int32(_n(g.n_nodes)), edge_i=_n(g.edge_i),
+        edge_j=_n(g.edge_j), edge_z=_n(g.edge_z), edge_w=_n(g.edge_w),
+        edge_active=_n(g.edge_active), n_edges=np.int32(_n(g.n_edges)))
+
+
+def keyframes_from_numpy(kf, device) -> KeyframeStore:
+    """A ``KeyframeStore`` (either package's, numpy leaves) -> its scans as
+    tensors on ``device``: x, y (K, N) f32, valid (K, N) bool; count an
+    int."""
+    return KeyframeStore(x=_t(kf.x, device, torch.float32),
+                         y=_t(kf.y, device, torch.float32),
+                         valid=_t(kf.valid, device, torch.bool),
+                         count=int(kf.count))
+
+
+def keyframes_to_numpy(kf: KeyframeStore) -> KeyframeStore:
+    """Tensor keyframe scans -> the numpy ``KeyframeStore`` both packages'
+    ``GraphSlam.kf`` return."""
+    return KeyframeStore(x=_n(kf.x), y=_n(kf.y), valid=_n(kf.valid),
+                         count=np.int32(kf.count))

@@ -19,6 +19,10 @@ lookup. A GPU gathers well, so the port computes the semantics directly:
   K2 (``ops/cuda_match.py``), CPU tensors to ``score_volume_plain``.
 - ``lookup_avg_distance``: a direct gather of the 8 trilinear corners.
 
+Loop closure matches a scan against several old keyframes at once: the
+volume, the counts and the lookups then carry a leading batch axis, and the
+kernel builds the whole batch in one launch.
+
 The count volume stays analytic (it separates into row and column tests).
 """
 
@@ -40,16 +44,18 @@ class ScoreVolume(NamedTuple):
     theta_step: float
     ipixel: float
     half: int                # W = 2*half + 1
+    # A batch of volumes (loop closure's candidates) puts a leading axis B
+    # on scores/counts (B, T, W, W) and base_pose (B, 3).
 
 
-def score_volume_plain(metric: torch.Tensor, cx0: torch.Tensor,
-                       cy0: torch.Tensor, valid: torch.Tensor,
-                       n_rows, n_cols, half: int) -> torch.Tensor:
-    """Plain PyTorch version of K2: scores (T, W, W) by direct gather.
+# values gathered per slice of the plain volume: bounds its temporaries to
+# a few tens of MB whatever the batch, bins and window
+_PLAIN_SLICE = 1 << 22
 
-    metric (S, S) f32; cx0/cy0 (T, N) i32 base cells (0-based); valid (N,)
-    bool; n_rows/n_cols the grid's live extent (int or 0-dim tensor).
-    """
+
+def _volume_slice(metric: torch.Tensor, cx0: torch.Tensor, cy0: torch.Tensor,
+                  valid: torch.Tensor, n_rows, n_cols, half: int
+                  ) -> torch.Tensor:
     s = metric.shape[0]
     offs = torch.arange(2 * half + 1, device=metric.device) - half
     rows = cy0[..., None] + offs                            # (T, N, W)
@@ -61,6 +67,27 @@ def score_volume_plain(metric: torch.Tensor, cx0: torch.Tensor,
                   cols.clamp(0, s - 1).long()[..., None, :]]  # (T, N, W, W)
     ok = row_ok[..., :, None] & col_ok[..., None, :]
     return torch.where(ok, vals, 0.0).sum(dim=1)
+
+
+def score_volume_plain(metric: torch.Tensor, cx0: torch.Tensor,
+                       cy0: torch.Tensor, valid: torch.Tensor,
+                       n_rows, n_cols, half: int) -> torch.Tensor:
+    """Plain PyTorch version of K2: scores (T, W, W) by direct gather.
+
+    metric (S, S) f32; cx0/cy0 (T, N) i32 base cells (0-based); valid (N,)
+    bool; n_rows/n_cols the grid's live extent (int or 0-dim tensor). With a
+    leading batch axis — metric (B, S, S), cx0/cy0 (B, T, N), valid (B, N) —
+    it returns (B, T, W, W). The gather runs a few theta bins at a time.
+    """
+    if metric.dim() == 3:
+        return torch.stack([
+            score_volume_plain(metric[b], cx0[b], cy0[b], valid[b], n_rows,
+                               n_cols, half) for b in range(metric.shape[0])])
+    t, n = cx0.shape
+    step = max(1, _PLAIN_SLICE // max(1, n * (2 * half + 1) ** 2))
+    return torch.cat([
+        _volume_slice(metric, cx0[a:a + step], cy0[a:a + step], valid,
+                      n_rows, n_cols, half) for a in range(0, t, step)])
 
 
 def score_volume(metric: torch.Tensor, cx0: torch.Tensor, cy0: torch.Tensor,
@@ -78,34 +105,36 @@ def score_volume(metric: torch.Tensor, cx0: torch.Tensor, cy0: torch.Tensor,
 
 def count_volume(cx0: torch.Tensor, cy0: torch.Tensor, valid: torch.Tensor,
                  n_rows, n_cols, half: int) -> torch.Tensor:
-    """In-bounds beam counts (T, W, W): the bounds test separates into row
-    and column conditions, so this is a small mask product, no kernel."""
+    """In-bounds beam counts (T, W, W), or (B, T, W, W) for batched inputs:
+    the bounds test separates into row and column conditions, so this is a
+    small mask product, no kernel."""
     offs = torch.arange(2 * half + 1, device=cx0.device) - half
     rows = cy0[..., None] + offs
     cols = cx0[..., None] + offs
     row_ok = ((rows >= 1) & (rows < n_rows - 1)
-              & valid[None, :, None]).to(torch.float32)
+              & valid[..., None, :, None]).to(torch.float32)
     col_ok = ((cols >= 1) & (cols < n_cols - 1)).to(torch.float32)
-    return torch.einsum("tnr,tnc->trc", row_ok, col_ok)
+    return torch.einsum("...tnr,...tnc->...trc", row_ok, col_ok)
 
 
 def base_cells(grid: OccGrid, scan_x: torch.Tensor, scan_y: torch.Tensor,
                base_pose: torch.Tensor, n_theta: int, theta_step: float
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """0-based base cells (T, N) of the scan at each theta bin."""
+    """0-based base cells (T, N) of the scan at each theta bin; (B, T, N)
+    for a batch of scans (B, N) and base poses (B, 3) on one grid."""
     ipixel = float(np.float32(1.0 / grid.pixel))
     t_half = n_theta // 2
     bins = torch.arange(n_theta, dtype=torch.float32, device=scan_x.device)
-    thetas = base_pose[2] + (bins - t_half) * theta_step
+    thetas = base_pose[..., 2:3] + (bins - t_half) * theta_step
     # cos/sin in float64, rounded once: the same f32 values on every device
-    ct = torch.cos(thetas.to(torch.float64)).to(torch.float32)[:, None]
-    st = torch.sin(thetas.to(torch.float64)).to(torch.float32)[:, None]
-    px = scan_x * ipixel
-    py = scan_y * ipixel
-    rx = px[None, :] * ct + py[None, :] * st        # reference rotation
-    ry = (-px)[None, :] * st + py[None, :] * ct
-    offx = (base_pose[0] - grid.origin[0]) * ipixel
-    offy = (base_pose[1] - grid.origin[1]) * ipixel
+    ct = torch.cos(thetas.to(torch.float64)).to(torch.float32)[..., None]
+    st = torch.sin(thetas.to(torch.float64)).to(torch.float32)[..., None]
+    px = (scan_x * ipixel)[..., None, :]
+    py = (scan_y * ipixel)[..., None, :]
+    rx = px * ct + py * st                          # reference rotation
+    ry = (-px) * st + py * ct
+    offx = ((base_pose[..., 0] - grid.origin[0]) * ipixel)[..., None, None]
+    offy = ((base_pose[..., 1] - grid.origin[1]) * ipixel)[..., None, None]
     cx0 = roundf_like(rx + offx).to(torch.int32)
     cy0 = roundf_like(ry + offy).to(torch.int32)
     return cx0, cy0
@@ -116,7 +145,9 @@ def build_score_volume(metric: torch.Tensor, grid: OccGrid,
                        valid: torch.Tensor, base_pose: torch.Tensor,
                        n_theta: int = 9, theta_step: float = 0.004363,
                        half: int = 8) -> ScoreVolume:
-    """The (n_theta, W, W) correlation volume around ``base_pose``."""
+    """The (n_theta, W, W) correlation volume around ``base_pose``; with a
+    leading batch axis on metric, scan and base pose, B volumes in one
+    kernel launch."""
     cx0, cy0 = base_cells(grid, scan_x, scan_y, base_pose, n_theta,
                           theta_step)
     scores = score_volume(metric, cx0, cy0, valid, grid.n_rows, grid.n_cols,
@@ -172,17 +203,27 @@ def true_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
     return x / constant(float(divisor), x.device, x.dtype)
 
 
+def _base_for(vol: ScoreVolume, poses: torch.Tensor) -> torch.Tensor:
+    """The volume's base pose, shaped to broadcast against ``poses``: a
+    batched volume's (B, 3) bases meet poses (B, ..., 3)."""
+    if vol.scores.dim() == 4:
+        b = vol.base_pose.shape[0]
+        return vol.base_pose.view((b,) + (1,) * (poses.dim() - 2) + (3,))
+    return vol.base_pose
+
+
 def _fractional_index(vol: ScoreVolume, poses: torch.Tensor):
-    t = vol.scores.shape[0]
-    fdx = (poses[..., 0] - vol.base_pose[0]) * vol.ipixel + vol.half
-    fdy = (poses[..., 1] - vol.base_pose[1]) * vol.ipixel + vol.half
-    fdt = true_div(poses[..., 2] - vol.base_pose[2], vol.theta_step) + t // 2
+    t = vol.scores.shape[-3]
+    base = _base_for(vol, poses)
+    fdx = (poses[..., 0] - base[..., 0]) * vol.ipixel + vol.half
+    fdy = (poses[..., 1] - base[..., 1]) * vol.ipixel + vol.half
+    fdt = true_div(poses[..., 2] - base[..., 2], vol.theta_step) + t // 2
     return fdt, fdy, fdx
 
 
 def _window_inside(vol: ScoreVolume, poses: torch.Tensor) -> torch.Tensor:
     """True where a pose lies inside the volume's interpolation window."""
-    t = vol.scores.shape[0]
+    t = vol.scores.shape[-3]
     fdt, fdy, fdx = _fractional_index(vol, poses)
     w = 2 * vol.half
     return ((fdx >= 0) & (fdx <= w) & (fdy >= 0) & (fdy <= w)
@@ -191,16 +232,20 @@ def _window_inside(vol: ScoreVolume, poses: torch.Tensor) -> torch.Tensor:
 
 def lookup_avg_distance(vol: ScoreVolume, poses: torch.Tensor) -> torch.Tensor:
     """Average field distance for poses (..., 3) by trilinear interpolation
-    of scores and counts (8 direct corner gathers).
+    of scores and counts (8 direct corner gathers); for a batched volume,
+    poses (B, ..., 3) look up volume b.
 
     Out-of-window poses clamp to the edge: the fractional index itself is
     clamped into the window, so every pose beyond an edge evaluates to
     bit-identical inputs and ties exactly with its neighbours there. The
     JAX package clamps the corner indices instead — the same function — and
     its one-hot contraction happens to tie those poses exactly too; the
-    refinement's first-minimum argmin depends on that tie.
+    refinement's first-minimum argmin depends on that tie. The gradient
+    (``grad_refine_steps``) is the same too: beyond an edge both
+    interpolation corners along that axis are the edge cell, so the value
+    does not move with the pose there in either form.
     """
-    t, w, _ = vol.scores.shape
+    t, w, _ = vol.scores.shape[-3:]
     fdt, fdy, fdx = _fractional_index(vol, poses)
     fdt = torch.clamp(fdt, 0.0, float(t - 1))
     fdy = torch.clamp(fdy, 0.0, float(w - 1))
@@ -212,6 +257,12 @@ def lookup_avg_distance(vol: ScoreVolume, poses: torch.Tensor) -> torch.Tensor:
     t0, y0, x0 = t0.long(), y0.long(), x0.long()
     scores = vol.scores.reshape(-1)
     counts = vol.counts.reshape(-1)
+    if vol.scores.dim() == 4:
+        b = vol.scores.shape[0]
+        boff = (torch.arange(b, device=poses.device) * (t * w * w)).view(
+            (b,) + (1,) * (poses.dim() - 2))
+    else:
+        boff = 0
     num = torch.zeros_like(fdx)
     den = torch.zeros_like(fdx)
     for dt_ in (0, 1):
@@ -223,7 +274,7 @@ def lookup_avg_distance(vol: ScoreVolume, poses: torch.Tensor) -> torch.Tensor:
                 ti = torch.clamp(t0 + dt_, 0, t - 1)
                 yi = torch.clamp(y0 + dy_, 0, w - 1)
                 xi = torch.clamp(x0 + dx_, 0, w - 1)
-                idx = (ti * w + yi) * w + xi
+                idx = (ti * w + yi) * w + xi + boff
                 num = num + wgt * scores[idx]
                 den = den + wgt * counts[idx]
     return num / torch.clamp(den, min=1.0)

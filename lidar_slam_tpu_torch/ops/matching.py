@@ -34,35 +34,36 @@ class MatchResult(NamedTuple):
 
 def candidate_grid_ref(pose: torch.Tensor, step_t: float, step_r: float,
                        window_t: int = 1, window_r: int = 1) -> torch.Tensor:
-    """Candidate poses (nr*nt*nt, 3) in the reference's loop order."""
+    """Candidate poses (nr*nt*nt, 3) in the reference's loop order (theta,
+    then tx, then ty); (B, nr*nt*nt, 3) for poses (B, 3)."""
     dev = pose.device
     offs_t = torch.arange(-window_t, window_t + 1, dtype=torch.float32,
                           device=dev)
     offs_r = torch.arange(-window_r, window_r + 1, dtype=torch.float32,
                           device=dev)
     nr, nt = offs_r.shape[0], offs_t.shape[0]
-    thetas = pose[2] + offs_r * step_r
-    txs = pose[0] + offs_t * step_t
-    tys = pose[1] + offs_t * step_t
-    # expand + reshape, not repeat_interleave: on CUDA that reads its output
-    # size back to the host, one sync per call
-    th = thetas[:, None].expand(nr, nt * nt).reshape(-1)
-    tx = txs[:, None].expand(nt, nt).reshape(-1).repeat(nr)
-    ty = tys.repeat(nr * nt)
-    return torch.stack([tx, ty, th], dim=-1)
+    th = (pose[..., 2:3] + offs_r * step_r)[..., :, None, None]
+    tx = (pose[..., 0:1] + offs_t * step_t)[..., None, :, None]
+    ty = (pose[..., 1:2] + offs_t * step_t)[..., None, None, :]
+    # expand, not repeat_interleave: on CUDA that reads its output size back
+    # to the host, one sync per call
+    shape = pose.shape[:-1] + (nr, nt, nt)
+    return torch.stack([tx.expand(shape), ty.expand(shape), th.expand(shape)],
+                       dim=-1).reshape(pose.shape[:-1] + (nr * nt * nt, 3))
 
 
 def project_scan(scan_x: torch.Tensor, scan_y: torch.Tensor,
                  poses: torch.Tensor, grid: OccGrid):
-    """1-based integer cells (C, N) of the scan under each candidate pose."""
+    """1-based integer cells (C, N) of the scan under each candidate pose;
+    (B, C, N) for scans (B, N) and poses (B, C, 3) on one grid."""
     ipixel = float(np.float32(1.0 / grid.pixel))
-    px = scan_x * ipixel
-    py = scan_y * ipixel
-    st, ct = sincos32(poses[:, 2:3])                    # (C, 1)
-    sx = px[None, :] * ct + py[None, :] * st            # (C, N)
-    sy = (-px)[None, :] * st + py[None, :] * ct
-    offx = (poses[:, 0:1] - grid.origin[0]) * ipixel
-    offy = (poses[:, 1:2] - grid.origin[1]) * ipixel
+    px = (scan_x * ipixel)[..., None, :]
+    py = (scan_y * ipixel)[..., None, :]
+    st, ct = sincos32(poses[..., 2:3])                  # (C, 1)
+    sx = px * ct + py * st                              # (C, N)
+    sy = (-px) * st + py * ct
+    offx = (poses[..., 0:1] - grid.origin[0]) * ipixel
+    offy = (poses[..., 1:2] - grid.origin[1]) * ipixel
     cell_x = roundf_like(sx + offx).to(torch.int32) + 1
     cell_y = roundf_like(sy + offy).to(torch.int32) + 1
     return cell_x, cell_y
@@ -71,15 +72,20 @@ def project_scan(scan_x: torch.Tensor, scan_y: torch.Tensor,
 def score_candidates(metric: torch.Tensor, grid: OccGrid,
                      scan_x: torch.Tensor, scan_y: torch.Tensor,
                      valid: torch.Tensor, poses: torch.Tensor):
-    """Scores (C,), gathered hits (C, N) and in-bounds masks (C, N)."""
+    """Scores (C,), gathered hits (C, N) and in-bounds masks (C, N); with a
+    leading batch axis on the field (B, S, S), the scan and the poses, the
+    same per batch element: (B, C), (B, C, N)."""
     cell_x, cell_y = project_scan(scan_x, scan_y, poses, grid)
     inb = ((cell_x > 1) & (cell_y > 1)
            & (cell_x < grid.n_cols) & (cell_y < grid.n_rows)
-           & valid[None, :])
-    iy = torch.clamp(cell_y - 1, 0, metric.shape[0] - 1).long()
-    ix = torch.clamp(cell_x - 1, 0, metric.shape[1] - 1).long()
-    hits = torch.where(inb, metric[iy, ix], 0.0)
-    return hits.sum(dim=1), hits, inb
+           & valid[..., None, :])
+    iy = torch.clamp(cell_y - 1, 0, metric.shape[-2] - 1).long()
+    ix = torch.clamp(cell_x - 1, 0, metric.shape[-1] - 1).long()
+    # a batched field: batch element b gathers from metric[b]
+    batch = tuple(torch.arange(b, device=metric.device).view(b, 1, 1)
+                  for b in metric.shape[:-2])
+    hits = torch.where(inb, metric[batch + (iy, ix)], 0.0)
+    return hits.sum(dim=-1), hits, inb
 
 
 def fast_match(metric: torch.Tensor, grid: OccGrid,

@@ -34,6 +34,11 @@ _BLOCK_JAX = (
     ["run", "--mode", "fidelity", "--scans", "20", "--device", "cpu"],
     ["run", "--mode", "pf", "--scans", "10", "--particles", "32",
      "--device", "cpu"],
+    ["run", "--mode", "graph", "--loop", "--scans", "40", "--device", "cpu"],
+    ["run", "--mode", "pf-graph", "--loop", "--scans", "30", "--particles",
+     "32", "--device", "cpu"],
+    ["run", "--mode", "graph", "--world", "building", "--window", "2",
+     "--scans", "20", "--device", "cpu"],
 ])
 def test_cli_runs_with_jax_blocked(args):
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=REPO)
@@ -41,6 +46,8 @@ def test_cli_runs_with_jax_blocked(args):
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "scans/s" in res.stdout and "ATE vs ground truth" in res.stdout
+    if "graph" in args[2]:
+        assert "loop closures" in res.stdout
 
 
 def _imported_modules(path):

@@ -159,9 +159,89 @@ def test_state_io_round_trip(jax_run):
     assert back.step == s.step
 
 
+GRAD_CFG = dataclasses.replace(CFG, particles=dataclasses.replace(
+    CFG.particles, grad_refine_steps=2))
+
+
 def test_grad_refinement_not_ported_raises(small_dataset):
+    """Gradient refinement is ported: a run with ``grad_refine_steps=2``
+    raises nothing and keeps tracking."""
+    ranges, gt = small_dataset
+    path, _ = tfs.run_pf(ranges[:30], GRAD_CFG, seed=0)
+    assert np.isfinite(path.numpy()).all()
+    assert ate(path.numpy(), gt[:30]) < 0.2
+
+
+@pytest.mark.parametrize("where", ["inside", "edge", "outside"])
+def test_lookup_gradients_match_jax(jax_run, where):
+    """Per-particle gradients of the trilinear lookup against
+    ``jax.vmap(jax.grad(...))`` on one shared volume, to 1e-5: poses inside
+    the window, on its faces and corners (the port clamps the fractional
+    index, JAX the corner indices) and beyond it (zero slope along the
+    clamped axis in both)."""
+    from lidar_slam_tpu.ops import correlative as jc
+    from lidar_slam_tpu_torch.ops import correlative as tc
+
+    _, states, _ = jax_run
+    rng = np.random.default_rng(11)
+    t_bins, half = 5, 4
+    scores = rng.uniform(0, 500, (t_bins, 9, 9)).astype(np.float32)
+    counts = rng.integers(200, 900, (t_bins, 9, 9)).astype(np.float32)
+    base = np.asarray([0.4, -0.3, 0.05], np.float32)
+    ipx, step = np.float32(10.0), 0.004363
+    w = 2 * half
+    if where == "inside":
+        frac = rng.uniform(0.1, w - 0.1, (64, 2))
+        tfrac = rng.uniform(0.1, t_bins - 1.1, 64)
+    elif where == "edge":
+        frac = rng.choice([0.0, float(w)], (64, 2))
+        frac[::2, 1] = rng.uniform(0.2, w - 0.2, 32)
+        tfrac = rng.choice([0.0, float(t_bins - 1)], 64)
+    else:
+        frac = rng.choice([-1.5, w + 0.7], (64, 2))
+        tfrac = rng.uniform(0.3, t_bins - 1.3, 64)
+    poses = np.stack([base[0] + (frac[:, 0] - half) / ipx,
+                      base[1] + (frac[:, 1] - half) / ipx,
+                      base[2] + (tfrac - t_bins // 2) * step],
+                     axis=1).astype(np.float32)
+    jvol = jc.ScoreVolume(scores=jnp.asarray(scores),
+                          counts=jnp.asarray(counts),
+                          base_pose=jnp.asarray(base), theta_step=step,
+                          ipixel=jnp.float32(ipx), half=half)
+    want = np.asarray(jax.vmap(jax.grad(
+        lambda p: jc.lookup_avg_distance(jvol, p[None])[0]))(
+            jnp.asarray(poses)))
+    tvol = tc.ScoreVolume(scores=torch.as_tensor(scores),
+                          counts=torch.as_tensor(counts),
+                          base_pose=torch.as_tensor(base), theta_step=step,
+                          ipixel=float(ipx), half=half)
+    at = torch.as_tensor(poses).requires_grad_(True)
+    (got,) = torch.autograd.grad(tc.lookup_avg_distance(tvol, at).sum(), at)
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * scale, rtol=0)
+
+
+def test_pf_step_grad_refine_matches_jax(small_dataset, jax_run):
+    """One step with ``grad_refine_steps=2`` from JAX's state after scan
+    23, with JAX's draws: estimate, particles and weights within 1e-5."""
     ranges, _ = small_dataset
-    cfg = dataclasses.replace(CFG, particles=dataclasses.replace(
-        CFG.particles, grad_refine_steps=2))
-    with pytest.raises(NotImplementedError):
-        tfs.run_pf(ranges[:3], cfg)
+    draws, states, _ = jax_run
+    t = 24
+    jstate = jax.tree.map(jnp.asarray, states[t - 1])
+    jnew, jpose = jfs.make_pf_step(GRAD_CFG)(jstate, jnp.asarray(ranges[t]))
+    want = to_numpy_tree(jnew)
+    state = state_io.particle_state_from_numpy(states[t - 1], "cpu")
+    new, pose = tfs.pf_step(state, torch.as_tensor(ranges[t]), GRAD_CFG,
+                            tsm.angles_tensor(GRAD_CFG, "cpu"),
+                            draws=draws[t - 1])
+    np.testing.assert_allclose(pose.numpy(), np.asarray(jpose), atol=1e-5,
+                               rtol=0)
+    got = state_io.particle_state_to_numpy(new)
+    for f in ("poses", "prev_poses", "logw"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   atol=1e-5, rtol=0)
+    # the refinement moved the particles: the plain step lands elsewhere
+    plain, _ = tfs.pf_step(state, torch.as_tensor(ranges[t]), CFG,
+                           tsm.angles_tensor(CFG, "cpu"), draws=draws[t - 1])
+    assert not torch.equal(plain.poses, new.poses)
