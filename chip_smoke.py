@@ -22,9 +22,18 @@ results:
 5. fidelity, museum-1000: trajectory bit-identical to the C++ oracle;
 6. PF-1024, museum-1000: ATE < 0.15 m; then 100 scans on the card and on
    the CPU with the same numpy-made draws, max |pose difference| <= 1e-3;
-7. K1 and K2 timed against their plain versions with CUDA events, at the
-   museum shapes and at the graph backend's (K1 (8,256,256) and
-   (8,448,448), K2 B=8 T=21 half=14 on 256^2);
+7. K1 and K2 at every shape the main paths launch them with (K1 200^2,
+   400^2, 256^2, 512^2, (8,256,256), (8,448,448); K2 T=7 half=6 on 400^2,
+   T=13 on 512^2, B=8 T=21 half=14 on 256^2, and the partial batches
+   B = 1..7 of the batched shapes): each equal to its plain version; its
+   device time (100 raw launches captured in a CUDA graph, one replay timed
+   with CUDA events and divided by 100, the median of 5 replays; cross-
+   checked by the kernel rows of a torch.profiler pass); the wrapper's time
+   (back-to-back calls, host included) and the plain version's (plain,
+   kernel, kernel, plain); the least time the card could take (bytes over
+   3.35 TB/s or adds over 67 TFLOP/s) and the share of it reached; for K2
+   one grouped conv2d computing the same sums (TF32 off) and whether it
+   equals K2;
 8. graph SLAM, loop-700: >= 1 closure, graph error per edge < 1, ATE < 0.1 m;
 9. graph SLAM, building-3800 with BUILDING_WIDE_CONFIG: >= 5 closures,
    ATE < 0.2 m, pinned without frontend feedback; then the same tour with
@@ -33,10 +42,11 @@ results:
 10. PF-graph, loop-700, 1024 particles: >= 1 closure, ATE < 0.15 m,
     smoothed-path ATE < ATE + 0.03 m.
 
-Any failed check exits non-zero. The launch counters are zeroed right before
-each main-path run (phases 5-6, 8, 9, 10) and read right after it, so they
-count only the main paths; the kernels line sums them. Every phase prints
-its seconds. The second-to-last line is a JSON object with one entry per
+Any failed check exits non-zero. The launch counters (a total and a count
+by shape for each kernel) are zeroed right before each main-path run
+(phases 5, 6, 8, 9, 10) and read right after it, so they count only the
+main paths; each run prints its counts by shape and its scans/s, and the
+kernels line sums them. Every phase prints its seconds. The second-to-last line is a JSON object with one entry per
 kernel; the last line is the run's result JSON. Without a card, or outside
 a checkout, it fails before printing either.
 """
@@ -56,6 +66,9 @@ K1_SOURCE = "lidar_slam_tpu_torch/csrc/edt.cu"
 K2_SOURCE = "lidar_slam_tpu_torch/csrc/corr_volume.cu"
 K1_REPLACES = "lidar_slam_tpu/ops/pallas_edt.py:119"
 K2_REPLACES = "lidar_slam_tpu/ops/pallas_match.py:120"
+# substrings of the kernels' names in a profiler trace
+K1_KERNEL = "edt_"
+K2_KERNEL = "corr_volume"
 
 PF_ATE_MAX = 0.15          # m, the pin of tests/test_fastslam.py
 CPU_CUDA_MAX_DIFF = 1e-3   # max |pose difference|, injected draws
@@ -94,7 +107,9 @@ def phase_done(tag: str) -> None:
 
 
 def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn()`` over ``iters`` back-to-back calls, by CUDA
+    events. Where the host enqueues more slowly than the card runs, this
+    is the host's time per call (the "wrapper" time)."""
     import torch
 
     for _ in range(warmup):
@@ -108,6 +123,121 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+GRAPH_LAUNCHES = 100   # raw launches captured in one CUDA graph
+GRAPH_REPLAYS = 5      # timed replays; the median is kept
+
+
+def graph_time_ms(launch) -> float:
+    """Device time of one raw launch: ``GRAPH_LAUNCHES`` launches captured
+    in a CUDA graph, one replay timed with CUDA events and divided by the
+    count; the median of ``GRAPH_REPLAYS`` replays. The host does no work
+    between the launches, so this is the card's time, not the enqueue's."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            launch()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(GRAPH_REPLAYS):
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / GRAPH_LAUNCHES)
+    del graph
+    return sorted(times)[GRAPH_REPLAYS // 2]
+
+
+def profiler_kernel_ms(launch, name: str, iters: int = 50):
+    """Mean device time of the kernel rows whose name holds ``name`` over
+    ``iters`` raw launches under ``torch.profiler`` (the cross-check of
+    ``graph_time_ms``; a launcher's memset is not in these rows). None when
+    the profiler saw no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            launch()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            t = getattr(ev, "self_device_time_total", None)
+            if t is None:
+                t = ev.self_cuda_time_total
+            total += t
+            count += ev.count
+    return total / count / 1e3 if count else None
+
+
+# H100 SXM peaks (NVIDIA's data sheet) for the least-time bounds
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the fp32 rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv2d_yardstick(metric, cx0, cy0, valid, n_rows, n_cols, half):
+    """K2's function as one grouped ``conv2d``, the TPU kernel's own body
+    (sum of beam histogram x masked field). The field, masked by the
+    reference bounds test, is padded by 2*half; the weight counts the valid
+    beams of each bin at base cell + half, over (S + 2*half)^2, so every
+    beam that can reach the grid is counted. Returns (inputs, call): the
+    inputs are built here, outside any timed window."""
+    import torch
+    import torch.nn.functional as F
+
+    lead = metric.shape[:-2]
+    b = lead[0] if lead else 1
+    s = metric.shape[-1]
+    h = half
+    m = metric.reshape(b, s, s)
+    cx = cx0.reshape(b, -1, cx0.shape[-1]).long()
+    cy = cy0.reshape(b, -1, cy0.shape[-1]).long()
+    v = valid.reshape(b, 1, -1).expand(cx.shape)
+    t_bins = cx.shape[1]
+    idx = torch.arange(s, device=metric.device)
+    ok_r = (idx >= 1) & (idx < n_rows - 1)
+    ok_c = (idx >= 1) & (idx < n_cols - 1)
+    masked = torch.where(ok_r[:, None] & ok_c[None, :], m, 0.0)
+    inp = F.pad(masked[None], (2 * h, 2 * h, 2 * h, 2 * h))
+    side = s + 2 * h
+    r, c = cy + h, cx + h
+    keep = v & (r >= 0) & (r < side) & (c >= 0) & (c < side)
+    plane = (torch.arange(b * t_bins, device=metric.device)
+             .view(b, t_bins, 1).expand(cx.shape))
+    flat = (plane * side + r) * side + c
+    hist = torch.zeros(b * t_bins * side * side, dtype=torch.float32,
+                       device=metric.device)
+    hist.index_add_(0, flat[keep], torch.ones_like(flat[keep],
+                                                   dtype=torch.float32))
+    weight = hist.view(b * t_bins, 1, side, side)
+    w = 2 * h + 1
+
+    def call():
+        return F.conv2d(inp, weight, groups=b).view(lead + (t_bins, w, w))
+    return call
 
 
 def main() -> int:
@@ -275,41 +405,63 @@ def main() -> int:
     phase_done("4b")
 
     # ---- 5. fidelity, museum-1000 (main path; counters start here)
-    cuda_edt.launches = 0
-    cuda_match.launches = 0
+    def reset_counts():
+        for mod in (cuda_edt, cuda_match):
+            mod.launches = 0
+            mod.launches_by_shape.clear()
+
+    path_counts = {}   # main path -> {"K1": Counter, "K2": Counter}
+
+    def read_counts(title):
+        used = {"K1": cuda_edt.launches, "K2": cuda_match.launches}
+        path_counts[title] = {"K1": dict(cuda_edt.launches_by_shape),
+                              "K2": dict(cuda_match.launches_by_shape)}
+        require(sum(path_counts[title]["K1"].values()) == used["K1"]
+                and sum(path_counts[title]["K2"].values()) == used["K2"],
+                f"{title}: launches by shape do not add up")
+        print(f"    launches by shape (K1: B,H,W; K2: B,T,half,S): "
+              f"{path_counts[title]}", flush=True)
+        return used
+
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     path, _ = scan_matcher.run_scan(ranges, cfg, device=dev)
     path = path.cpu().numpy()
     dt = time.perf_counter() - t0
+    used = read_counts("fidelity museum-1000")
     opath, _ = native.run_oracle_cfg(ranges, cfg)
     require(np.array_equal(path, opath),
             f"fidelity path differs from the oracle: max "
             f"{np.abs(path - opath).max()} at scan "
             f"{int(np.argmax(np.abs(path - opath).max(axis=1)))}")
-    k1_fid = cuda_edt.launches
-    require(k1_fid > 0, "fidelity run launched K1 no time")
+    require(used["K1"] > 0, "fidelity run launched K1 no time")
+    launches = dict(used)
+    scans_per_s = {"fidelity museum-1000": len(path) / dt}
     print(f"[5] fidelity museum-1000 on cuda: bit-identical to the C++ "
           f"oracle; {len(path) / dt:.1f} scans/s ({dt:.2f} s); "
-          f"ATE {ate(path, gt):.4f} m; K1 launches {k1_fid}", flush=True)
+          f"ATE {ate(path, gt):.4f} m; K1 launches {used['K1']}", flush=True)
     phase_done("5")
 
     # ---- 6. PF-1024, museum-1000, the port's generator
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ppath, pstate = fastslam.run_pf(ranges, pcfg, seed=0, device=dev)
     ppath = ppath.cpu().numpy()
     dt = time.perf_counter() - t0
-    launches = {"K1": cuda_edt.launches, "K2": cuda_match.launches}
-    require(launches["K1"] > k1_fid, "PF run launched K1 no time")
-    require(launches["K2"] > 0, "PF run launched K2 no time")
+    used = read_counts("PF-1024 museum-1000")
+    require(used["K1"] > 0, "PF run launched K1 no time")
+    require(used["K2"] > 0, "PF run launched K2 no time")
+    for k in used:
+        launches[k] += used[k]
     require(np.isfinite(ppath).all(), "PF path has non-finite poses")
     pf_ate = ate(ppath, gt)
     require(pf_ate < PF_ATE_MAX, f"PF-1024 ATE {pf_ate:.4f} m >= {PF_ATE_MAX}")
+    scans_per_s["PF-1024 museum-1000"] = len(ppath) / dt
     print(f"[6] PF-1024 museum-1000 on cuda: {len(ppath) / dt:.1f} scans/s "
           f"({dt:.2f} s); ATE {pf_ate:.4f} m; map {int(pstate.pmap.size)} "
-          f"points; launches K1 {launches['K1']} (fidelity {k1_fid}) "
-          f"K2 {launches['K2']}", flush=True)
+          f"points; launches K1 {used['K1']} K2 {used['K2']}", flush=True)
 
     n_cmp = 100
     drng = np.random.default_rng(1)
@@ -329,73 +481,148 @@ def main() -> int:
           f"{dt_cpu:.1f} s", flush=True)
     phase_done("6")
 
-    # ---- 7. kernel times at the main path's shapes
-    valid = scan.valid
-    times = {}
-    for name, kern, plain in (
-            ("K1", lambda: cuda_edt.edt_clamped_cuda(fine_occ),
-             lambda: edt_ops.edt_clamped(fine_occ)),
-            ("K2", lambda: cuda_match.score_volume_cuda(
-                fine_metric, cx0, cy0, valid, fine_grid.n_rows,
-                fine_grid.n_cols, half),
-             lambda: correlative.score_volume_plain(
-                 fine_metric, cx0, cy0, valid, fine_grid.n_rows,
-                 fine_grid.n_cols, half))):
-        p1 = cuda_time_ms(plain)
-        k1 = cuda_time_ms(kern)
-        k2 = cuda_time_ms(kern)
-        p2 = cuda_time_ms(plain)
-        times[name] = (min(k1, k2), min(p1, p2))
-        print(f"[7] {name}: kernel {k1 * 1e3:.1f} / {k2 * 1e3:.1f} us, plain "
-              f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us (plain, kernel, kernel, "
-              f"plain)", flush=True)
-    print(f"[7] shapes: K1 (400,400) museum fine raster; K2 T="
-          f"{pcfg.particles.vol_theta_bins} half={half} on the 400^2 field, "
-          f"N={n_beams}", flush=True)
-    # the building shapes (512^2 fine grid, the TPU's row-strip variant K1b;
-    # 13 theta bins), off the museum path
+    # ---- 7. kernel times at every shape the main paths launch
+    # the building shapes: the museum fine raster centred in a 512^2 grid,
+    # 13 theta bins
     occ512 = torch.zeros((512, 512), dtype=torch.bool, device=dev)
     occ512[56:456, 56:456] = fine_occ
     m512 = cuda_edt.edt_clamped_cuda(occ512)
     cx13, cy13 = (v + 56 for v in correlative.base_cells(
         fine_grid, scan.x, scan.y, state.pose, 13, cfg.matcher.fine_r))
-    for name, kern, plain in (
-            ("K1 (512,512)", lambda: cuda_edt.edt_clamped_cuda(occ512),
-             lambda: edt_ops.edt_clamped(occ512)),
-            ("K2 T=13 half=6 S=512", lambda: cuda_match.score_volume_cuda(
-                m512, cx13, cy13, valid, 512, 512, half),
-             lambda: correlative.score_volume_plain(
-                 m512, cx13, cy13, valid, 512, 512, half))):
-        p1, k1, k2, p2 = (cuda_time_ms(f) for f in (plain, kern, kern, plain))
-        print(f"[7] {name}: kernel {k1 * 1e3:.1f} / {k2 * 1e3:.1f} us, plain "
-              f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us", flush=True)
-    # the graph backend's shapes: keyframe rasters (8,256,256), fine-refine
-    # rasters (8,448,448), the closure volume B=8 T=21 half=14 on 256^2
+    # the graph backend's keyframe rasters and fine-refine rasters
     occ256 = graph_slam._raster_batch(kx[:8], ky[:8], kv[:8],
                                       lc.raster_size, lc.raster_pixel)
     occ448 = scan_odometry._raster_centered(
         kx[:8], ky[:8], kv[:8], lc.fine_pixel, lc.fine_size).occ.contiguous()
-    for occ in (occ256, occ448):
-        got = cuda_edt.edt_clamped_cuda(occ)
-        want = edt_ops.edt_clamped(occ)
+    k1_cases = [("(1,200,200) coarse raster", state.coarse.occ),
+                ("(1,400,400) fine raster", fine_occ),
+                ("(1,256,256) building coarse grid", occ256[:1]),
+                ("(1,512,512) building fine grid", occ512),
+                ("(8,256,256) keyframe rasters", occ256),
+                ("(8,448,448) fine-refine rasters", occ448)]
+    k2_cases = [
+        (f"B=1 T={pcfg.particles.vol_theta_bins} half={half} S=400 "
+         f"(PF museum)", (fine_metric, cx0, cy0, scan.valid,
+                          fine_grid.n_rows, fine_grid.n_cols, half)),
+        ("B=1 T=13 half=6 S=512 (PF building)",
+         (m512, cx13, cy13, scan.valid, 512, 512, half)),
+        (f"B=8 T={lc.n_theta} half={lc.window_half} S={lc.raster_size} "
+         f"(closures)", k2b_args)]
+    shape_rows = {"K1": [], "K2": []}
+    # device time of one launch by the shape key of launches_by_shape
+    device_by_shape = {"K1": {}, "K2": {}}
+    for label, occ in k1_cases:
+        occ3 = occ.contiguous().view((-1,) + tuple(occ.shape[-2:]))
+        out = torch.empty(occ3.shape, dtype=torch.float32, device=dev)
+        got = cuda_edt.edt_clamped_cuda(occ3)
+        want = edt_ops.edt_clamped(occ3)
         torch.cuda.synchronize()
-        require(torch.equal(got, want),
-                f"K1 differs from plain on {tuple(occ.shape)}")
+        require(torch.equal(got, want), f"K1 differs from plain at {label}")
         k1_err = max(k1_err, (got - want).abs().max().item())
-    print("[7] K1 == plain (torch.equal) at (8,256,256) and (8,448,448)",
-          flush=True)
-    for name, kern, plain in (
-            ("K1 (8,256,256)", lambda: cuda_edt.edt_clamped_cuda(occ256),
-             lambda: edt_ops.edt_clamped(occ256)),
-            ("K1 (8,448,448)", lambda: cuda_edt.edt_clamped_cuda(occ448),
-             lambda: edt_ops.edt_clamped(occ448)),
-            ("K2 B=8 T=21 half=14 S=256",
-             lambda: cuda_match.score_volume_cuda(*k2b_args),
-             lambda: correlative.score_volume_plain(*k2b_args))):
-        p1, k1, k2, p2 = (cuda_time_ms(f, iters=50, warmup=5)
-                          for f in (plain, kern, kern, plain))
-        print(f"[7] {name}: kernel {k1 * 1e3:.1f} / {k2 * 1e3:.1f} us, plain "
-              f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us", flush=True)
+        raw = lambda: cuda_edt.launch(occ3, out, 10)  # noqa: E731
+        device_ms = graph_time_ms(raw)
+        device_by_shape["K1"][tuple(occ3.shape)] = device_ms
+        require(torch.equal(out, want), f"raw K1 differs at {label}")
+        prof_ms = profiler_kernel_ms(raw, K1_KERNEL)
+        wrap = lambda: cuda_edt.edt_clamped_cuda(occ3)  # noqa: E731
+        plain = lambda: edt_ops.edt_clamped(occ3)  # noqa: E731
+        p1, w1, w2, p2 = (cuda_time_ms(f, iters=50, warmup=5)
+                          for f in (plain, wrap, wrap, plain))
+        bnd, by = bound_ms(occ3.numel() * (1 + 4), 0)
+        shape_rows["K1"].append({
+            "shape": label, "device_ms": device_ms, "profiler_ms": prof_ms,
+            "wrapper_ms": min(w1, w2), "plain_ms": min(p1, p2),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None})
+        print(f"[7] K1 {label}: device {device_ms * 1e3:.2f} us (CUDA graph "
+              f"of {GRAPH_LAUNCHES}; profiler kernel row "
+              f"{'n/a' if prof_ms is None else f'{prof_ms * 1e3:.2f}'} us); "
+              f"wrapper {w1 * 1e3:.1f} / {w2 * 1e3:.1f} us; plain "
+              f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us; bound {bnd * 1e3:.3f} us "
+              f"({by}), {bnd / device_ms:.1%} of it reached; library: none",
+              flush=True)
+    for label, args in k2_cases:
+        metric, ccx_, ccy_, cval_, n_rows, n_cols, khalf = args
+        s = metric.shape[-1]
+        nr_t = torch.as_tensor(n_rows, dtype=torch.int32, device=dev)
+        nc_t = torch.as_tensor(n_cols, dtype=torch.int32, device=dev)
+        want = correlative.score_volume_plain(*args)
+        got = cuda_match.score_volume_cuda(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"K2 differs from plain at {label}")
+        k2_err = max(k2_err, (got - want).abs().max().item())
+        out = torch.empty_like(want)
+        raw = lambda: cuda_match.launch(  # noqa: E731
+            metric, ccx_, ccy_, cval_, nr_t, nc_t, khalf, out)
+        device_ms = graph_time_ms(raw)
+        device_by_shape["K2"][(metric.numel() // (s * s), want.shape[-3],
+                               khalf, s)] = device_ms
+        require(torch.equal(out, want), f"raw K2 differs at {label}")
+        prof_ms = profiler_kernel_ms(raw, K2_KERNEL)
+        wrap = lambda: cuda_match.score_volume_cuda(*args)  # noqa: E731
+        plain = lambda: correlative.score_volume_plain(*args)  # noqa: E731
+        p1, w1, w2, p2 = (cuda_time_ms(f, iters=20, warmup=3)
+                          for f in (plain, wrap, wrap, plain))
+        conv = conv2d_yardstick(*args)
+        conv_equal = torch.equal(conv(), want)
+        lib_ms = cuda_time_ms(conv, iters=20, warmup=3)
+        # data-dependent adds: valid beams whose (t, dy, dx) cell passes
+        # the kernel's bounds test (n_rows - 1 and S both bound a row)
+        n_adds = float(correlative.count_volume(
+            ccx_, ccy_, cval_, torch.clamp(nr_t, max=s + 1),
+            torch.clamp(nc_t, max=s + 1), khalf).sum())
+        n_bytes = (metric.numel() * 4 + ccx_.numel() * 8 + cval_.numel()
+                   + want.numel() * 4 + 8)
+        bnd, by = bound_ms(n_bytes, n_adds)
+        shape_rows["K2"].append({
+            "shape": label, "device_ms": device_ms, "profiler_ms": prof_ms,
+            "wrapper_ms": min(w1, w2), "plain_ms": min(p1, p2),
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+            "library_equal": conv_equal, "adds": n_adds,
+            "bytes": n_bytes})
+        print(f"[7] K2 {label}: device {device_ms * 1e3:.2f} us (CUDA graph "
+              f"of {GRAPH_LAUNCHES}, memset included; profiler kernel row "
+              f"{'n/a' if prof_ms is None else f'{prof_ms * 1e3:.2f}'} us); "
+              f"wrapper {w1 * 1e3:.1f} / {w2 * 1e3:.1f} us; plain "
+              f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us; bound {bnd * 1e3:.3f} us "
+              f"({by}: {n_bytes / 1e6:.3f} MB, {n_adds / 1e6:.3f} M adds), "
+              f"{bnd / device_ms:.1%} of it reached; conv2d "
+              f"{lib_ms * 1e3:.1f} us, == K2: {conv_equal}", flush=True)
+    print("[7] order of each wrapper/plain pair: plain, kernel, kernel, "
+          "plain; device time and bound are per launch", flush=True)
+    # the partial batches the closure and refine passes end on (B < 8):
+    # each plans its own band or chunk, so each is held to the plain version
+    for occ in (occ256, occ448):
+        out = torch.empty(occ.shape, device=dev)
+        sweep = {}
+        for b in range(1, 8):
+            sweep[b] = graph_time_ms(lambda: cuda_edt.launch(  # noqa: B023
+                occ[:b], out[:b], 10))
+            device_by_shape["K1"][(b,) + tuple(occ.shape[1:])] = sweep[b]
+            require(torch.equal(out[:b], edt_ops.edt_clamped(occ[:b])),
+                    f"K1 differs from plain at ({b},{occ.shape[1]},"
+                    f"{occ.shape[2]})")
+        print(f"[7] K1 (B,{occ.shape[1]},{occ.shape[2]}) == plain at B=1..7; "
+              f"device us by B: " + ", ".join(
+                  f"{b}: {t * 1e3:.2f}" for b, t in sweep.items()),
+              flush=True)
+    metric, ccx_, ccy_, cval_, n_rows, n_cols, khalf = k2b_args
+    nr_t = torch.as_tensor(n_rows, dtype=torch.int32, device=dev)
+    nc_t = torch.as_tensor(n_cols, dtype=torch.int32, device=dev)
+    out = torch.empty((8, lc.n_theta, 2 * khalf + 1, 2 * khalf + 1),
+                      device=dev)
+    sweep = {}
+    for b in range(1, 8):
+        part = (metric[:b], ccx_[:b], ccy_[:b], cval_[:b])
+        sweep[b] = graph_time_ms(lambda: cuda_match.launch(  # noqa: B023
+            *part, nr_t, nc_t, khalf, out[:b]))
+        device_by_shape["K2"][(b, lc.n_theta, khalf, lc.raster_size)] = \
+            sweep[b]
+        require(torch.equal(out[:b], correlative.score_volume_plain(
+            *part, n_rows, n_cols, khalf)),
+            f"K2 differs from plain at closures B={b}")
+    print(f"[7] K2 closures (B,{lc.n_theta},{khalf},{lc.raster_size}) == "
+          f"plain at B=1..7; device us by B: " + ", ".join(
+              f"{b}: {t * 1e3:.2f}" for b, t in sweep.items()), flush=True)
     phase_done("7")
 
     # ---- 8-10. the graph backend (counters zeroed before each run)
@@ -404,14 +631,14 @@ def main() -> int:
         """One main-path run with its own launch counts; the pins are
         checked unless ``min_closures`` is None."""
         granges, ggt = ranges_gt
-        cuda_edt.launches = 0
-        cuda_match.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         gpath, gs = run(granges)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        used = {"K1": cuda_edt.launches, "K2": cuda_match.launches}
+        used = read_counts(title)
+        scans_per_s[title] = (len(gpath) - 1) / dt
         require(used["K1"] > 0 and used["K2"] > 0,
                 f"{title} launched K1 {used['K1']} / K2 {used['K2']} times")
         pinned = min_closures is not None
@@ -476,16 +703,38 @@ def main() -> int:
             f"PF-graph smoothed ATE {err_s:.4f} >= online {err:.4f} + "
             f"{PF_GRAPH_SMOOTH_MARGIN}")
 
-    kernels = [
-        {"name": "K1 clamped EDT", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": launches["K1"],
-         "max_abs_err": k1_err, "ms": times["K1"][0],
-         "plain_ms": times["K1"][1]},
-        {"name": "K2 correlation volume", "route": "cuda",
-         "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": launches["K2"], "max_abs_err": k2_err,
-         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
-    ]
+    # every launch count is summed over the main paths (phases 5, 6, 8-10)
+    kernels = []
+    for key, name, source, replaces, err in (
+            ("K1", "K1 clamped EDT", K1_SOURCE, K1_REPLACES, k1_err),
+            ("K2", "K2 correlation volume", K2_SOURCE, K2_REPLACES, k2_err)):
+        head = shape_rows[key][1 if key == "K1" else 0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": err, "ms": head["device_ms"],
+            "device_ms": head["device_ms"],
+            "wrapper_ms": head["wrapper_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "primary_shape": head["shape"],
+            "shapes": shape_rows[key],
+            "launches_by_path": {p: {str(k): v for k, v in c[key].items()}
+                                 for p, c in path_counts.items()}})
+    # what the kernels' device time adds up to on each main path: its
+    # launches by shape times phase 7's device time of that shape
+    for p, counts in path_counts.items():
+        parts = []
+        for key in ("K1", "K2"):
+            known = device_by_shape[key]
+            ms = sum(n * known[k] for k, n in counts[key].items() if k in known)
+            unmeasured = sum(n for k, n in counts[key].items()
+                             if k not in known)
+            parts.append(f"{key} {ms:.3f} ms"
+                         + (f" (+{unmeasured} launches at unmeasured shapes)"
+                            if unmeasured else ""))
+        print(f"kernel device time, {p}: " + "; ".join(parts), flush=True)
+    print("scans/s by main path: " + "; ".join(
+        f"{p} {v:.1f}" for p, v in scans_per_s.items()), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

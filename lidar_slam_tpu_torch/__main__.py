@@ -54,9 +54,8 @@ def _config(args):
 
 
 def cmd_run(args) -> int:
-    from lidar_slam_tpu.utils.metrics import ate
-
     from lidar_slam_tpu_torch.device import resolve_device
+    from lidar_slam_tpu_torch.utils.metrics import ate
 
     device = resolve_device(args.device)
     ranges, gt = _load_ranges(args)
@@ -99,7 +98,7 @@ def cmd_run(args) -> int:
         print(f"smoothed-path ATE: {ate(gs.smoothed_path(path), gt):.4f} m")
         print(gs.timer.report())
     if args.render:
-        from lidar_slam_tpu.utils import viz
+        from lidar_slam_tpu_torch.utils import viz
 
         if args.mode == "graph":
             from lidar_slam_tpu_torch.models.graph_slam import (

@@ -35,13 +35,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes of every exported launcher; each returns cudaError_t
 _SIGNATURES = {
-    # occ u8 (B,H,W), out f32 (B,H,W), B, H, W, R, stream
-    "slam_edt_clamped": (_P, _P, _I, _I, _I, _I, _P),
+    # occ u8 (B,H,W), out f32 (B,H,W), B, H, W, R, band rows, stream
+    "slam_edt_clamped": (_P, _P, _I, _I, _I, _I, _I, _P),
     # metric f32 (B,S,S), S, cx0 i32 (B,T,N), cy0 i32 (B,T,N), valid u8
-    # (B,N), B, T, N, n_rows i32*, n_cols i32*, half, scores f32 (B,T,W,W),
-    # stream
-    "slam_corr_volume": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P,
-                         _P),
+    # (B,N), B, T, N, n_rows i32*, n_cols i32*, half, lattice bits q,
+    # beams per block, tile codes, scores f32 (B,T,W,W), stream
+    "slam_corr_volume": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
+                         _I, _I, _P, _P),
 }
 
 

@@ -32,7 +32,7 @@ import torch
 from lidar_slam_tpu_torch.config import SlamConfig
 from lidar_slam_tpu_torch.core import gridmap, se2, sensor
 from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap
-from lidar_slam_tpu_torch.device import constant
+from lidar_slam_tpu_torch.device import constant, resolve_device
 from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor
 from lidar_slam_tpu_torch.ops import correlative
 from lidar_slam_tpu_torch.ops import edt as edt_ops
@@ -209,13 +209,13 @@ def pf_step(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
 
 
 def run_pf(ranges_all: np.ndarray, cfg: SlamConfig, seed: int = 0,
-           device: str | torch.device = "cpu", draws=None
+           device: str | torch.device = "cuda", draws=None
            ) -> tuple[torch.Tensor, ParticleState]:
     """Whole-dataset particle-filter run. ``draws``, if given, is a sequence
     of per-step ``(noise, u0)`` pairs for steps 1..T-1. Returns (path (T, 3)
     on ``device``, final state)."""
     ranges = torch.as_tensor(np.asarray(ranges_all, np.float32),
-                             device=device)
+                             device=resolve_device(device))
     angles = angles_tensor(cfg, ranges.device)
     state = init_particles(ranges[0], cfg, seed)
     poses = [torch.zeros(3, dtype=torch.float32, device=ranges.device)]

@@ -36,7 +36,7 @@ import torch
 from lidar_slam_tpu_torch.config import SlamConfig
 from lidar_slam_tpu_torch.core import sensor
 from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap, roundf_like
-from lidar_slam_tpu_torch.device import constant
+from lidar_slam_tpu_torch.device import constant, resolve_device
 from lidar_slam_tpu_torch.models import posegraph, scan_matcher
 from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor
 from lidar_slam_tpu_torch.ops import correlative, scan_odometry
@@ -273,11 +273,11 @@ class GraphSlam:
 
     def __init__(self, cfg: SlamConfig, lc: LoopClosureConfig = LoopClosureConfig(),
                  max_keyframes: int = 512,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.lc = lc
         self.max_keyframes = max_keyframes
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.angles = angles_tensor(cfg, self.device)
         n = cfg.lidar.n_beams
         self._kf_x = np.zeros((max_keyframes, n), np.float32)

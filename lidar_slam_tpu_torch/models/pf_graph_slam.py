@@ -19,6 +19,7 @@ import torch
 from lidar_slam_tpu_torch.config import SlamConfig
 from lidar_slam_tpu_torch.core import gridmap, se2
 from lidar_slam_tpu_torch.core.gridmap import PointMap
+from lidar_slam_tpu_torch.device import resolve_device
 from lidar_slam_tpu_torch.models import fastslam
 from lidar_slam_tpu_torch.models.graph_slam import (GraphSlam,
                                                     LoopClosureConfig,
@@ -87,7 +88,7 @@ class PFGraphSlam(GraphSlam):
 
     def __init__(self, cfg: SlamConfig, lc: LoopClosureConfig | None = None,
                  max_keyframes: int = 512, seed: int = 0,
-                 device: str | torch.device = "cpu", draws=None):
+                 device: str | torch.device = "cuda", draws=None):
         if lc is None:
             lc = LoopClosureConfig(weak_closures=True)
         super().__init__(cfg, lc, max_keyframes, device)
@@ -123,13 +124,13 @@ def run_pf_graph(ranges_all: np.ndarray, cfg: SlamConfig,
                  lc: LoopClosureConfig | None = None,
                  max_keyframes: int = 512, seed: int = 0,
                  chunk_size: int | None = None,
-                 device: str | torch.device = "cpu", draws=None):
+                 device: str | torch.device = "cuda", draws=None):
     """PF-frontend graph SLAM over a whole dataset.
 
     Returns (path (T, 3), optimized keyframe poses, the PFGraphSlam
     instance). The default chunk on CUDA is 128 (the JAX package's TPU
     default: a shorter chunk corrects a mis-registration sooner)."""
-    device = torch.device(device)
+    device = resolve_device(device)
     if chunk_size is None and device.type == "cuda":
         chunk_size = 128
     gs = PFGraphSlam(cfg, lc, max_keyframes, seed, device, draws)

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from lidar_slam_tpu_torch.core import se2
+from lidar_slam_tpu_torch.device import resolve_device
 
 
 class PoseGraph(NamedTuple):
@@ -40,8 +41,9 @@ class PoseGraph(NamedTuple):
 
 
 def empty_graph(max_nodes: int, max_edges: int,
-                device: str | torch.device = "cpu") -> PoseGraph:
+                device: str | torch.device = "cuda") -> PoseGraph:
     f32, i32 = torch.float32, torch.int32
+    device = resolve_device(device)
     return PoseGraph(
         poses=torch.zeros((max_nodes, 3), dtype=f32, device=device),
         node_active=torch.zeros(max_nodes, dtype=torch.bool, device=device),

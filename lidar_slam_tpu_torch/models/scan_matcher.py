@@ -28,6 +28,7 @@ import torch
 from lidar_slam_tpu_torch.config import SlamConfig
 from lidar_slam_tpu_torch.core import gridmap, se2, sensor
 from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap
+from lidar_slam_tpu_torch.device import resolve_device
 from lidar_slam_tpu_torch.ops import edt as edt_ops
 from lidar_slam_tpu_torch.ops import matching
 
@@ -135,11 +136,12 @@ def slam_step(state: SlamState, ranges: torch.Tensor, cfg: SlamConfig,
 
 
 def _as_ranges(ranges_all, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(ranges_all, np.float32), device=device)
+    return torch.as_tensor(np.asarray(ranges_all, np.float32),
+                           device=resolve_device(device))
 
 
 def run_host_loop(ranges_all: np.ndarray, cfg: SlamConfig,
-                  device: str | torch.device = "cpu"
+                  device: str | torch.device = "cuda"
                   ) -> tuple[np.ndarray, SlamState]:
     """Streaming driver: one scan at a time, each pose copied to the host
     as it is produced. Returns (path (T, 3) numpy, final state)."""
@@ -154,7 +156,7 @@ def run_host_loop(ranges_all: np.ndarray, cfg: SlamConfig,
 
 
 def run_scan(ranges_all: np.ndarray, cfg: SlamConfig,
-             device: str | torch.device = "cpu"
+             device: str | torch.device = "cuda"
              ) -> tuple[torch.Tensor, SlamState]:
     """Whole-dataset driver: poses stay on the device until the end.
     Returns (path (T, 3) tensor on ``device``, final state)."""

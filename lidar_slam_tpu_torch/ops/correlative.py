@@ -16,7 +16,9 @@ lookup. A GPU gathers well, so the port computes the semantics directly:
   ``(cy0 + dy - half, cx0 + dx - half)``, with the reference bounds
   ``1 <= row < n_rows - 1``, ``1 <= col < n_cols - 1``; cells beyond the
   fixed array read 0, as in the Pallas padding. CUDA tensors go to kernel
-  K2 (``ops/cuda_match.py``), CPU tensors to ``score_volume_plain``.
+  K2 (``ops/cuda_match.py``), which stages the field as integer codes of
+  its 2^-10 lattice (2^-(10+l) at cascade level l), CPU tensors to
+  ``score_volume_plain``.
 - ``lookup_avg_distance``: a direct gather of the 8 trilinear corners.
 
 Loop closure matches a scan against several old keyframes at once: the
@@ -91,15 +93,17 @@ def score_volume_plain(metric: torch.Tensor, cx0: torch.Tensor,
 
 
 def score_volume(metric: torch.Tensor, cx0: torch.Tensor, cy0: torch.Tensor,
-                 valid: torch.Tensor, n_rows, n_cols, half: int
-                 ) -> torch.Tensor:
+                 valid: torch.Tensor, n_rows, n_cols, half: int,
+                 lattice_bits: int = 10) -> torch.Tensor:
     """Device dispatcher: kernel K2 for CUDA tensors, the plain version for
-    CPU tensors. A CUDA tensor never reaches the plain version."""
+    CPU tensors. A CUDA tensor never reaches the plain version. The field
+    lies on the 2^-lattice_bits lattice (K2 stages it as integer codes)."""
     if metric.is_cuda:
         from lidar_slam_tpu_torch.ops import cuda_match
 
         return cuda_match.score_volume_cuda(metric, cx0, cy0, valid,
-                                            n_rows, n_cols, half)
+                                            n_rows, n_cols, half,
+                                            lattice_bits)
     return score_volume_plain(metric, cx0, cy0, valid, n_rows, n_cols, half)
 
 
@@ -144,14 +148,15 @@ def build_score_volume(metric: torch.Tensor, grid: OccGrid,
                        scan_x: torch.Tensor, scan_y: torch.Tensor,
                        valid: torch.Tensor, base_pose: torch.Tensor,
                        n_theta: int = 9, theta_step: float = 0.004363,
-                       half: int = 8) -> ScoreVolume:
+                       half: int = 8, lattice_bits: int = 10) -> ScoreVolume:
     """The (n_theta, W, W) correlation volume around ``base_pose``; with a
     leading batch axis on metric, scan and base pose, B volumes in one
-    kernel launch."""
+    kernel launch. ``metric`` lies on the 2^-lattice_bits lattice: 10 for
+    an EDT field, 10 + l for one min-pooled and divided by 2^l."""
     cx0, cy0 = base_cells(grid, scan_x, scan_y, base_pose, n_theta,
                           theta_step)
     scores = score_volume(metric, cx0, cy0, valid, grid.n_rows, grid.n_cols,
-                          half)
+                          half, lattice_bits)
     counts = count_volume(cx0, cy0, valid, grid.n_rows, grid.n_cols, half)
     return ScoreVolume(scores=scores, counts=counts, base_pose=base_pose,
                        theta_step=float(theta_step),
@@ -191,7 +196,8 @@ def build_cascade(metric: torch.Tensor, grid: OccGrid,
         m2, g2 = downsample_metric(metric, grid, f)
         vols.append(build_score_volume(
             m2, g2, scan_x, scan_y, valid, base_pose,
-            n_theta=n_theta, theta_step=theta_step * f, half=half))
+            n_theta=n_theta, theta_step=theta_step * f, half=half,
+            lattice_bits=10 + lvl))
     return vols
 
 

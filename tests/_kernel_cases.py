@@ -1,0 +1,150 @@
+"""Inputs of kernels K1 (clamped EDT) and K2 (correlation volume) at the
+shapes the port's main paths launch them with and at their edges, made with
+numpy from a seed. Shared by the CPU tests of the kernels' twins
+(``test_torch_kernel_twins.py``) and the card's tests
+(``test_torch_cuda.py``); imports neither JAX nor the JAX package."""
+
+import zlib
+
+import numpy as np
+import torch
+
+from lidar_slam_tpu_torch.ops.correlative import downsample_metric
+from lidar_slam_tpu_torch.ops.edt import edt_clamped
+
+# id -> (shape, occupied fraction, R)
+K1_CASES = {
+    "coarse-200": ((1, 200, 200), 0.01, 10),
+    "fine-400": ((1, 400, 400), 0.01, 10),
+    "building-512": ((1, 512, 512), 0.005, 10),
+    "keyframes-8x256": ((8, 256, 256), 0.01, 10),
+    "refine-8x448": ((8, 448, 448), 0.005, 10),
+    "empty": ((2, 64, 64), 0.0, 10),
+    "full": ((2, 64, 64), 1.0, 10),
+    "ragged-37x70": ((3, 37, 70), 0.02, 10),
+    "one-row": ((1, 1, 33), 0.1, 10),
+    "one-column": ((1, 33, 1), 0.1, 10),
+    "wide-5x1100": ((1, 5, 1100), 0.01, 10),
+    "r0": ((2, 50, 90), 0.02, 0),
+    "r1": ((2, 50, 90), 0.02, 1),
+    "r5": ((2, 50, 90), 0.02, 5),
+    "r16": ((2, 50, 90), 0.02, 16),
+    "r40": ((2, 100, 200), 0.0003, 40),
+    "r64": ((1, 160, 200), 0.0005, 64),
+}
+
+
+def _rng(name: str) -> np.random.Generator:
+    return np.random.default_rng(zlib.crc32(name.encode()))
+
+
+def k1_case(name: str) -> tuple[torch.Tensor, int]:
+    """(occupancy (B, H, W) bool on the CPU, R) of a K1 case."""
+    shape, dens, r = K1_CASES[name]
+    return torch.as_tensor(_rng(name).random(shape) < dens), r
+
+
+# id -> (B or None for the unbatched call, T, half, S, extent, cells,
+#        cascade factor f, occupied fraction, N)
+# extent: "full" (n_rows = n_cols = S), "inside" (S//2 + 3, S - 17) or
+# "beyond" (S + 9); cells: "scan" (a scan's beams at every bin, as the
+# main paths make them) or "random" (anywhere in [-S/2, 3S/2)).
+K2_CASES = {
+    "pf-400": (None, 7, 6, 400, "full", "scan", 1, 0.01, 1079),
+    "pf-building-512": (None, 13, 6, 512, "full", "scan", 1, 0.005, 1079),
+    "closure-8x256": (8, 21, 14, 256, "full", "scan", 1, 0.01, 1079),
+    "extent-inside": (None, 7, 6, 128, "inside", "scan", 1, 0.02, 1079),
+    "extent-beyond": (2, 5, 6, 128, "beyond", "scan", 1, 0.02, 1079),
+    "off-grid": (2, 5, 6, 96, "full", "random", 1, 0.02, 300),
+    "half-0": (None, 3, 0, 96, "full", "random", 1, 0.02, 300),
+    "half-6": (None, 3, 6, 96, "inside", "random", 1, 0.02, 300),
+    "half-14": (2, 3, 14, 96, "full", "random", 1, 0.02, 300),
+    "half-20": (None, 3, 20, 96, "beyond", "random", 1, 0.02, 300),
+    "cascade-f2": (None, 7, 6, 256, "full", "scan", 2, 0.01, 1079),
+    "cascade-f4": (None, 7, 6, 256, "inside", "scan", 4, 0.01, 1079),
+    "empty-field": (None, 5, 6, 128, "full", "scan", 1, 0.0, 1079),
+    "occupied-field": (None, 5, 6, 128, "full", "scan", 1, 1.0, 1079),
+}
+
+# (pixel m, theta step rad, largest range m) of the scan-like cells, by S
+_SCAN = {256: (0.2, 0.008727, 24.0)}
+_SCAN_DEFAULT = (0.1, 0.004363, 20.0)
+
+
+def _scan_cells(rng, lead, t_bins, n, s, f):
+    """Base cells of a scan seen from the field's centre at every bin: 270
+    degrees of beams with ranges that jump between walls, rotated by
+    (t - T//2) theta steps, in the (cascade-level) pixel."""
+    pixel, step, rmax = _SCAN.get(s * f, _SCAN_DEFAULT)
+    pixel, step = pixel * f, step * f
+    b = lead[0] if lead else 1
+    ang = np.linspace(-2.35, 2.35, n)
+    th = (np.arange(t_bins) - t_bins // 2)[:, None] * step
+    cx, cy = [], []
+    for _ in range(b):
+        walls = rng.uniform(1.0, rmax, 6)
+        rng_m = walls[(np.floor((ang + 2.35) * 6 / 4.71)).clip(0, 5).astype(int)]
+        rng_m = np.clip(rng_m * (1 + 0.3 * np.sin(5 * ang + rng.uniform(0, 6)))
+                        + rng.normal(0, 0.05, n), 0.05, rmax)
+        cx.append(np.round(s / 2 + rng_m * np.cos(ang + th) / pixel))
+        cy.append(np.round(s / 2 + rng_m * np.sin(ang + th) / pixel))
+    shape = lead + (t_bins, n)
+    return (np.stack(cx).reshape(shape), np.stack(cy).reshape(shape))
+
+
+def k2_case(name: str):
+    """(metric, cx0, cy0, valid, n_rows, n_cols, half, lattice_bits) of a
+    K2 case, on the CPU. The field is a clamped EDT on the 2^-10 lattice,
+    or for a cascade factor f its min-pooled level on the 2^-(10+l)
+    lattice, f = 2^l."""
+    b, t_bins, half, s, extent, cells, f, dens, n = K2_CASES[name]
+    rng = _rng(name)
+    lead = () if b is None else (b,)
+    side = s * f
+    occ = torch.as_tensor(rng.random(lead + (side, side)) < dens)
+    metric = edt_clamped(occ)
+    if f > 1:
+        from lidar_slam_tpu_torch.core.gridmap import OccGrid
+
+        grid = OccGrid(occ=torch.zeros((side, side), dtype=torch.bool),
+                       n_rows=torch.tensor(side), n_cols=torch.tensor(side),
+                       origin=torch.zeros(2), pixel=0.1)
+        metric = torch.stack([downsample_metric(m, grid, f)[0]
+                              for m in metric.reshape(-1, side, side)])
+        metric = metric.reshape(lead + (s, s))
+    if cells == "scan":
+        cx, cy = _scan_cells(rng, lead, t_bins, n, s, f)
+    else:
+        cx, cy = (rng.integers(-s // 2, 3 * s // 2, lead + (t_bins, n))
+                  for _ in range(2))
+    n_rows, n_cols = {"full": (s, s), "inside": (s // 2 + 3, s - 17),
+                      "beyond": (s + 9, s + 9)}[extent]
+    valid = torch.as_tensor(rng.random(lead + (n,)) < 0.9)
+    return (metric.contiguous(), torch.as_tensor(cx, dtype=torch.int32),
+            torch.as_tensor(cy, dtype=torch.int32), valid, n_rows, n_cols,
+            half, 10 + int(np.log2(f)))
+
+
+def sparse_chunk_case():
+    """The "pf-400" case with the first 8-beam chunk split in two halves
+    70 cells apart at every bin: its box (83 x 88 cells) fits the planned
+    tile but holds more than half as many cells as the chunk's 8 x 7 x 13^2
+    gathers."""
+    metric, cx0, cy0, valid, n_rows, n_cols, half, bits = k2_case("pf-400")
+    cx0, cy0, valid = cx0.clone(), cy0.clone(), valid.clone()
+    cx0[:, :4], cy0[:, :4] = 40, 50
+    cx0[:, 4:8], cy0[:, 4:8] = 110, 120
+    valid[:8] = True
+    return metric, cx0, cy0, valid, n_rows, n_cols, half, bits
+
+
+def batch_prefix(args, b: int):
+    """A batched K2 case cut to its first ``b`` fields, as the closure
+    passes' last, partial batches are."""
+    metric, cx0, cy0, valid, *rest = args
+    return (metric[:b], cx0[:b], cy0[:b], valid[:b], *rest)
+
+
+def to_device(args, device):
+    return tuple(a.to(device) if isinstance(a, torch.Tensor) else a
+                 for a in args)

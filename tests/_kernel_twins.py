@@ -1,0 +1,176 @@
+"""CPU twins of kernels K1 (``csrc/edt.cu``) and K2 (``csrc/corr_volume.cu``).
+
+A CUDA kernel cannot run without a card, so each kernel has a twin here in
+plain PyTorch that repeats its index math step by step: bit-packed rows,
+bit-scan distances and row bands for K1; beam chunks, live-beam compaction,
+bounding-box tiles and their halving, lattice codes with the bounds test
+folded in, and window origins for K2. ``test_torch_kernel_twins.py`` holds
+them to the plain versions; they are slow and only the tests use them.
+"""
+
+import torch
+
+from lidar_slam_tpu_torch.ops.cuda_edt import plan_band
+from lidar_slam_tpu_torch.ops.cuda_match import (LATTICE_BITS, plan,
+                                                 tile_pitch, window_cells)
+from lidar_slam_tpu_torch.ops.edt import quantize_metric
+
+_INF_D2 = 1 << 20
+
+
+def _msb(v: torch.Tensor) -> torch.Tensor:
+    """Index of the highest set bit of each nonzero 32-bit value."""
+    return sum(((v >> j) != 0).long() for j in range(32)) - 1
+
+
+def _lsb(v: torch.Tensor) -> torch.Tensor:
+    """Index of the lowest set bit of each nonzero 32-bit value."""
+    return _msb(v & -v)
+
+
+def edt_twin(occ: torch.Tensor, max_dist: int = 10, band: int | None = None,
+             sms: int = 132, stats: dict | None = None) -> torch.Tensor:
+    """K1's index math: occupancy packed 32 cells a word with two zero
+    words at each end of a row; each cell's nearest occupied cell in its
+    row from the bits of its own word and its neighbours' (the second word
+    each side only when R > 32); the column pass band by band over the
+    band's rows plus R halo rows each side. The same result as
+    ``edt_clamped_cuda``; ``stats`` receives the band height and the number
+    of blocks."""
+    h, w = occ.shape[-2:]
+    occ3 = occ.reshape(-1, h, w).to(torch.bool)
+    b = occ3.shape[0]
+    r = int(max_dist)
+    band = plan_band(b, h, w, r, sms, band)
+    nw = -(-w // 32)
+    cells = torch.zeros((b, h, nw * 32), dtype=torch.int64)
+    cells[..., :w] = occ3.long()
+    words = (cells.view(b, h, nw, 32) << torch.arange(32)).sum(-1)
+    words = torch.nn.functional.pad(words, (2, 2))        # (b, h, nw + 4)
+    x = torch.arange(w)
+    k, s = x // 32 + 2, x % 32
+    mid = words[..., k]
+    left, right = words[..., k - 1], words[..., k + 1]
+    left2, right2 = words[..., k - 2], words[..., k + 2]
+    wide = r > 32
+    # free cells beyond the word on each side (96: none within reach)
+    nf = torch.where(right != 0, _lsb(right),
+                     torch.where(wide & (right2 != 0), 32 + _lsb(right2), 96))
+    pl = torch.where(left != 0, 31 - _msb(left),
+                     torch.where(wide & (left2 != 0), 63 - _msb(left2), 96))
+    # right: cells x .. x + 31 - s in this word, then beyond it
+    a = mid >> s
+    dr = torch.where(a != 0, _lsb(a), 32 - s + nf)
+    # left: cells x - s .. x in this word, then beyond it
+    a = mid & (2 ** (s + 1) - 1)
+    dl = torch.where(a != 0, s - _msb(a), s + 1 + pl)
+    d = torch.minimum(dl, dr)
+    d1 = torch.where(d <= r, d * d, _INF_D2)                # (b, h, w)
+    d1 = torch.nn.functional.pad(d1, (0, 0, r, r), value=_INF_D2)
+    best = torch.empty((b, h, w), dtype=torch.int64)
+    blocks = 0
+    for y0 in range(0, h, band):
+        rows = min(band, h - y0)
+        slab = d1[:, y0:y0 + rows + 2 * r]     # band rows y0-R .. y0+rows+R
+        best[:, y0:y0 + rows] = torch.stack(
+            [slab[:, t:t + rows] + (t - r) ** 2 for t in range(2 * r + 1)]
+        ).amin(0)
+        blocks += b
+    dist = torch.clamp(torch.sqrt(best.to(torch.float32)), max=float(r))
+    if stats is not None:
+        stats.update(band=band, blocks=blocks)
+    return quantize_metric(dist).reshape(occ.shape)
+
+
+def box_columns(c_lo: int, c_hi: int) -> tuple[int, int]:
+    """(first column, width) of a staged tile covering columns c_lo ..
+    c_hi - 1: whole quads, the first one 4-aligned."""
+    c0 = c_lo & ~3
+    return c0, (c_hi - c0 + 3) & ~3
+
+
+def score_volume_twin(metric: torch.Tensor, cx0: torch.Tensor,
+                      cy0: torch.Tensor, valid: torch.Tensor, n_rows, n_cols,
+                      half: int, lattice_bits: int = LATTICE_BITS,
+                      chunk: int | None = None, tile_cells: int | None = None,
+                      sms: int = 132, stats: dict | None = None
+                      ) -> torch.Tensor:
+    """K2's index math, block by block: the same shapes and result as
+    ``score_volume_cuda``. ``chunk``/``tile_cells`` override the plan (a
+    small budget forces the halving); ``stats`` receives the number of
+    blocks and of staged pieces."""
+    lead = tuple(metric.shape[:-2])
+    s = metric.shape[-1]
+    t_bins, n = cx0.shape[-2:]
+    m = metric.reshape(-1, s, s)
+    b = m.shape[0]
+    cx = cx0.reshape(b, t_bins, n).long()
+    cy = cy0.reshape(b, t_bins, n).long()
+    v = valid.reshape(b, n)
+    planned, tile = plan(b, t_bins, n, half, sms)
+    chunk = chunk or planned
+    tile_cells = tile_cells or tile
+    w = 2 * half + 1
+    if tile_cells < window_cells(half):
+        raise ValueError("the tile budget must hold one window")
+    nr, nc = int(n_rows), int(n_cols)
+    row_hi = 0 if nr <= 1 else min(nr - 1, s)
+    col_hi = 0 if nc <= 1 else min(nc - 1, s)
+    up, down = 2.0 ** lattice_bits, 2.0 ** -lattice_bits
+    o = torch.arange(w * w)
+    scores = torch.zeros((b, t_bins, w * w), dtype=torch.float32)
+    blocks = pieces = 0
+    for bi in range(b):
+        for n0 in range(0, n, chunk):
+            blocks += 1
+            ns = torch.arange(n0, min(n0 + chunk, n))
+            ycl = torch.where(v[bi, ns],                         # (T, n)
+                              cy[bi][:, ns].clamp(-half, row_hi + half),
+                              -half)
+            xcl = cx[bi][:, ns].clamp(-half, col_hi + half)
+            meets = ((ycl + half >= 1) & (ycl - half < row_hi)
+                     & (xcl + half >= 1) & (xcl - half < col_hi)).any(0)
+            live = torch.nonzero(meets).flatten()
+            n_live = len(live)
+            i0, i1, t0, t1 = 0, n_live, 0, t_bins
+            while i0 < n_live:
+                ys = ycl[t0:t1, live[i0:i1]]
+                xs = xcl[t0:t1, live[i0:i1]]
+                br0 = int(ys.min()) - half
+                rows = int(ys.max()) - int(ys.min()) + w
+                bc0, width = box_columns(int(xs.min()) - half,
+                                         int(xs.max()) + half + 1)
+                pitch = tile_pitch(width)
+                np_, nt = i1 - i0, t1 - t0
+                if rows * pitch > tile_cells or (
+                        np_ > 1 and 2 * rows * width > np_ * nt * w * w):
+                    if i1 - i0 > 1:
+                        i1 = i0 + (i1 - i0) // 2
+                    else:
+                        t1 = t0 + (t1 - t0) // 2
+                    continue
+                pieces += 1
+                gr = br0 + torch.arange(rows)
+                gc = bc0 + torch.arange(width)
+                ok = (((gr >= 1) & (gr < row_hi))[:, None]
+                      & ((gc >= 1) & (gc < col_hi))[None, :])
+                vals = m[bi][gr.clamp(0, s - 1)][:, gc.clamp(0, s - 1)] * up
+                code = vals.trunc()
+                bad = bool((ok & ((code != vals) | (code < 0)
+                                  | (code > 65535))).any())
+                tile_codes = torch.zeros((rows, pitch), dtype=torch.int64)
+                tile_codes[:, :width] = torch.where(ok, code, 0.0).long()
+                base = (ys - half - br0) * pitch + (xs - half - bc0)
+                off = (o // w) * pitch + o % w
+                acc = tile_codes.flatten()[base[..., None] + off].sum(dim=1)
+                if bad:
+                    scores[bi, t0:t1] += float("nan")
+                else:
+                    scores[bi, t0:t1] += acc.to(torch.float32) * down
+                if t1 < t_bins:
+                    t0, t1 = t1, t_bins
+                else:
+                    i0, i1, t0, t1 = i1, n_live, 0, t_bins
+    if stats is not None:
+        stats.update(blocks=blocks, pieces=pieces)
+    return scores.reshape(lead + (t_bins, w, w))

@@ -30,7 +30,7 @@ def field(small_dataset):
     """The museum fine field (400^2) of the port's state after 30 scans,
     the scan that follows, and its pose."""
     ranges, _ = small_dataset
-    _, state = tsm.run_scan(ranges[:30], DEFAULT_CONFIG)
+    _, state = tsm.run_scan(ranges[:30], DEFAULT_CONFIG, device="cpu")
     scan = tsensor.read_scan(torch.as_tensor(ranges[30]),
                              tsm.angles_tensor(DEFAULT_CONFIG, "cpu"),
                              DEFAULT_CONFIG.lidar)

@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from _kernel_cases import (K1_CASES, K2_CASES, batch_prefix, k1_case,
+                           k2_case, sparse_chunk_case, to_device)
+from _kernel_twins import edt_twin
+
 pytestmark = pytest.mark.cuda
 
 
@@ -134,3 +138,203 @@ def test_graph_cuda_runs_kernels_only(cuda, monkeypatch):
     first = (gpu.path_epoch.index(1) if 1 in gpu.path_epoch
              else len(gpath))
     assert np.array_equal(gpath[:first], cpath[:first])
+
+
+# -- the redesigned kernels at the main paths' shapes and at their edges:
+# the cases of tests/_kernel_cases.py, whose twins test_torch_kernel_twins.py
+# holds to the plain versions on the CPU
+
+@pytest.mark.parametrize("name", list(K1_CASES))
+def test_k1_cases_equal_plain(cuda, name):
+    from lidar_slam_tpu_torch.ops import cuda_edt
+    from lidar_slam_tpu_torch.ops.edt import edt_clamped
+
+    occ, r = k1_case(name)
+    got = cuda_edt.edt_clamped_cuda(occ.to(cuda), r)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), edt_clamped(occ, r))
+    assert torch.equal(got.cpu(), edt_twin(occ, r))
+    if r == 10:   # uint8 occupancy with any nonzero byte is occupied
+        u8 = occ.to(torch.uint8) * 7
+        assert torch.equal(cuda_edt.edt_clamped_cuda(u8.to(cuda)).cpu(),
+                           got.cpu())
+
+
+@pytest.mark.parametrize("name", ["ragged-37x70", "refine-8x448",
+                                  "wide-5x1100", "r16", "r64"])
+def test_k1_any_band(cuda, name):
+    """Every band height, and rows whose width or address rules out the
+    16-byte loads (an offset view) or the float4 stores."""
+    from lidar_slam_tpu_torch.ops import cuda_edt
+    from lidar_slam_tpu_torch.ops.edt import edt_clamped
+
+    occ, r = k1_case(name)
+    want = edt_clamped(occ, r)
+    occ = occ.to(cuda)
+    for band in (1, 3, 2 * r + 1, 1000):
+        out = torch.full(occ.shape, -1.0, device=cuda)
+        cuda_edt.launch(occ, out, r, band)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want), band
+    flat = torch.zeros(occ.numel() + 3, dtype=torch.bool, device=cuda)
+    flat[3:] = occ.flatten()
+    shifted = flat[3:].view(occ.shape)          # data_ptr not 16-aligned
+    assert torch.equal(cuda_edt.edt_clamped_cuda(shifted, r).cpu(), want)
+
+
+@pytest.mark.parametrize("name", list(K2_CASES))
+def test_k2_cases_equal_plain(cuda, name):
+    from lidar_slam_tpu_torch.ops import cuda_match
+    from lidar_slam_tpu_torch.ops.correlative import score_volume_plain
+
+    args = k2_case(name)
+    got = cuda_match.score_volume_cuda(*to_device(args, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), score_volume_plain(*args[:7]))
+
+
+@pytest.mark.parametrize("name", ["pf-400", "closure-8x256", "off-grid",
+                                  "half-20", "cascade-f4"])
+def test_k2_halves_pieces_that_overflow(cuda, name):
+    """A tile budget of one window forces every chunk's halving, along the
+    beams and then the bins (alone with one beam a block)."""
+    from lidar_slam_tpu_torch.ops import cuda_match
+    from lidar_slam_tpu_torch.ops.correlative import score_volume_plain
+
+    args = k2_case(name)
+    metric, cx0, cy0, valid, n_rows, n_cols, half, bits = to_device(args,
+                                                                    cuda)
+    want = score_volume_plain(*args[:7])
+    extent = [torch.tensor(v, dtype=torch.int32, device=cuda)
+              for v in (n_rows, n_cols)]
+    for chunk in (None, 1, 64):
+        out = torch.full(want.shape, -1.0, device=cuda)
+        cuda_match.launch(metric, cx0, cy0, valid, *extent, half, out, bits,
+                          chunk, cuda_match.window_cells(half))
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want), chunk
+
+
+def test_k2_any_chunk(cuda):
+    """Every beams-per-block at the closure shape, whatever shared memory
+    it takes (one of them needs exactly the 48 KB default limit)."""
+    from lidar_slam_tpu_torch.ops import cuda_match
+    from lidar_slam_tpu_torch.ops.correlative import score_volume_plain
+
+    args = k2_case("closure-8x256")
+    metric, cx0, cy0, valid, n_rows, n_cols, half, bits = to_device(args,
+                                                                    cuda)
+    want = score_volume_plain(*args[:7])
+    extent = [torch.tensor(v, dtype=torch.int32, device=cuda)
+              for v in (n_rows, n_cols)]
+    assert cuda_match.smem_bytes(21, 64, cuda_match.TILE_CELLS) == 48 * 1024
+    for chunk in (8, 16, 33, 64, 97, 135):
+        out = torch.full(want.shape, -1.0, device=cuda)
+        cuda_match.launch(metric, cx0, cy0, valid, *extent, half, out, bits,
+                          chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want), chunk
+
+
+@pytest.mark.parametrize("name", ["keyframes-8x256", "refine-8x448"])
+def test_k1_partial_batches_equal_plain(cuda, name):
+    """Every partial batch (B = 1 .. 7) the keyframe and refine passes end
+    on, each with its own planned band."""
+    from lidar_slam_tpu_torch.ops import cuda_edt
+    from lidar_slam_tpu_torch.ops.edt import edt_clamped
+
+    occ, r = k1_case(name)
+    dev_occ = occ.to(cuda)
+    for b in range(1, 8):
+        got = cuda_edt.edt_clamped_cuda(dev_occ[:b], r)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), edt_clamped(occ[:b], r)), b
+
+
+def test_k2_partial_batches_equal_plain(cuda):
+    """Every partial batch (B = 1 .. 7) of the closure passes, each with
+    its own planned beams a block."""
+    from lidar_slam_tpu_torch.ops import cuda_match
+    from lidar_slam_tpu_torch.ops.correlative import score_volume_plain
+
+    args = k2_case("closure-8x256")
+    dev_args = to_device(args, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunks = set()
+    for b in range(1, 8):
+        cut = batch_prefix(args, b)
+        got = cuda_match.score_volume_cuda(*batch_prefix(dev_args, b))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), score_volume_plain(*cut[:7])), b
+        chunks.add(cuda_match.plan(b, 21, 1079, 14, sms)[0])
+    assert len(chunks) == 7
+
+
+def test_k1_refuses_r_beyond_64(cuda):
+    from lidar_slam_tpu_torch.ops import cuda_edt
+
+    occ = torch.zeros((8, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="0..64"):
+        cuda_edt.edt_clamped_cuda(occ, 65)
+
+
+def test_k2_halves_a_sparse_box(cuda):
+    """A chunk whose beams hit walls far apart: its sparse box is halved
+    along the beams, and the volume stays exact."""
+    from lidar_slam_tpu_torch.ops import cuda_match
+    from lidar_slam_tpu_torch.ops.correlative import score_volume_plain
+
+    args = sparse_chunk_case()
+    got = cuda_match.score_volume_cuda(*to_device(args, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), score_volume_plain(*args[:7]))
+
+
+def test_k2_poisons_a_field_off_the_lattice(cuda):
+    from lidar_slam_tpu_torch.ops import cuda_match
+
+    metric, cx0, cy0, valid, n_rows, n_cols, half, bits = to_device(
+        k2_case("pf-400"), cuda)
+    got = cuda_match.score_volume_cuda(metric + 2.0 ** -12, cx0, cy0, valid,
+                                       n_rows, n_cols, half, bits)
+    assert torch.isnan(got).all()
+    got = cuda_match.score_volume_cuda(metric - 2.0 ** -10, cx0, cy0, valid,
+                                       n_rows, n_cols, half, bits)
+    assert torch.isnan(got).any()
+
+
+def test_kernels_capture_in_a_cuda_graph(cuda):
+    """The raw launches allocate and copy nothing: a CUDA graph of them
+    replays to the plain versions' results."""
+    from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match
+    from lidar_slam_tpu_torch.ops.correlative import score_volume_plain
+    from lidar_slam_tpu_torch.ops.edt import edt_clamped
+
+    occ, r = k1_case("keyframes-8x256")
+    occ = occ.to(cuda)
+    args = k2_case("closure-8x256")
+    metric, cx0, cy0, valid, n_rows, n_cols, half, bits = to_device(args,
+                                                                    cuda)
+    extent = [torch.tensor(v, dtype=torch.int32, device=cuda)
+              for v in (n_rows, n_cols)]
+    e_out = torch.empty(occ.shape, device=cuda)
+    v_out = torch.empty((8, 21, 2 * half + 1, 2 * half + 1), device=cuda)
+
+    def run():
+        cuda_edt.launch(occ, e_out, r)
+        cuda_match.launch(metric, cx0, cy0, valid, *extent, half, v_out,
+                          bits)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    e_out.fill_(-1.0)
+    v_out.fill_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(e_out.cpu(), edt_clamped(occ.cpu(), r))
+    assert torch.equal(v_out.cpu(), score_volume_plain(*args[:7]))

@@ -86,3 +86,37 @@ def test_cuda_device_request_raises_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _entry_calls():
+    """Each public entry point called with its default device."""
+    import numpy as np
+
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.models import (fastslam, graph_slam,
+                                             pf_graph_slam, posegraph,
+                                             scan_matcher)
+
+    ranges = np.full((2, DEFAULT_CONFIG.lidar.n_beams), 5.0, np.float32)
+    return {
+        "run_scan": lambda: scan_matcher.run_scan(ranges, DEFAULT_CONFIG),
+        "run_host_loop": lambda: scan_matcher.run_host_loop(ranges,
+                                                            DEFAULT_CONFIG),
+        "run_pf": lambda: fastslam.run_pf(ranges, DEFAULT_CONFIG),
+        "run_pf_graph": lambda: pf_graph_slam.run_pf_graph(ranges,
+                                                           DEFAULT_CONFIG),
+        "PFGraphSlam": lambda: pf_graph_slam.PFGraphSlam(DEFAULT_CONFIG),
+        "GraphSlam": lambda: graph_slam.GraphSlam(DEFAULT_CONFIG),
+        "empty_graph": lambda: posegraph.empty_graph(4, 4),
+    }
+
+
+@pytest.mark.parametrize("entry", ["run_scan", "run_host_loop", "run_pf",
+                                   "run_pf_graph", "PFGraphSlam", "GraphSlam",
+                                   "empty_graph"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Without a card, every entry point's default device raises; nothing
+    quietly runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        _entry_calls()[entry]()

@@ -134,14 +134,14 @@ def test_pf_run_with_injected_draws(small_dataset, jax_run):
     """
     ranges, _ = small_dataset
     draws, _, jpath = jax_run
-    path, state = tfs.run_pf(ranges, CFG, draws=draws)
+    path, state = tfs.run_pf(ranges, CFG, device="cpu", draws=draws)
     diff = np.abs(path.numpy() - jpath).max()
     assert diff <= 1e-3, diff
 
 
 def test_pf_own_generator_tracks_ground_truth(small_dataset):
     ranges, gt = small_dataset
-    path, state = tfs.run_pf(ranges, CFG, seed=0)
+    path, state = tfs.run_pf(ranges, CFG, seed=0, device="cpu")
     err = ate(path.numpy(), gt)
     assert err < 0.15, f"particle filter lost track: ATE {err:.3f} m"
     assert int(state.pmap.size) > 500
@@ -167,7 +167,7 @@ def test_grad_refinement_not_ported_raises(small_dataset):
     """Gradient refinement is ported: a run with ``grad_refine_steps=2``
     raises nothing and keeps tracking."""
     ranges, gt = small_dataset
-    path, _ = tfs.run_pf(ranges[:30], GRAD_CFG, seed=0)
+    path, _ = tfs.run_pf(ranges[:30], GRAD_CFG, seed=0, device="cpu")
     assert np.isfinite(path.numpy()).all()
     assert ate(path.numpy(), gt[:30]) < 0.2
 

@@ -283,7 +283,8 @@ def graph_runs():
                                        waypoints=jsim.LOOP_WAYPOINTS)
     jg = jgs.GraphSlam(DEFAULT_CONFIG, jgs.LoopClosureConfig(min_gap=3))
     jpath, jopt = jg.run(ranges, chunk_size=32)
-    tg = tgs.GraphSlam(DEFAULT_CONFIG, tgs.LoopClosureConfig(min_gap=3))
+    tg = tgs.GraphSlam(DEFAULT_CONFIG, tgs.LoopClosureConfig(min_gap=3),
+                       device="cpu")
     tpath, topt = tg.run(ranges, chunk_size=32)
     return (tg, tpath, topt), (jg, jpath, jopt), gt
 
@@ -348,7 +349,7 @@ def test_pf_graph_injected_draws_match_jax():
     jpath, _, jg = jpfg.run_pf_graph(ranges, cfg, lc=lc, chunk_size=32)
     tlc = tgs.LoopClosureConfig(weak_closures=True, min_gap=3)
     tpath, _, tg = tpfg.run_pf_graph(ranges, cfg, lc=tlc, chunk_size=32,
-                                     draws=draws)
+                                     device="cpu", draws=draws)
     assert tg.kf.count == jg.kf.count
     assert np.abs(tpath - jpath).max() <= 1e-3
     assert ate(tpath, gt) < 0.15
@@ -360,7 +361,7 @@ def test_pf_graph_injected_draws_match_jax():
 def test_graph_slam_closes_loops_on_loop_trajectory(feedback):
     ranges, gt = tsim.generate_dataset(n_scans=300, seed=1,
                                        waypoints=tsim.LOOP_WAYPOINTS)
-    gs = tgs.GraphSlam(DEFAULT_CONFIG)
+    gs = tgs.GraphSlam(DEFAULT_CONFIG, device="cpu")
     path, _ = gs.run(ranges, feedback=feedback)
     assert int(gs.kf.count) >= 10
     assert len(gs.closures) >= 1
@@ -380,7 +381,7 @@ def test_pf_graph_closes_loop_and_tracks():
     # the port's generator at seed 2 (the JAX test's seed 0 names a
     # jax.random stream; on the CPU, port seeds 1-3 close 4-7 loops here,
     # seed 4 only weak ones)
-    path, _, gs = tpfg.run_pf_graph(ranges, cfg, seed=2)
+    path, _, gs = tpfg.run_pf_graph(ranges, cfg, seed=2, device="cpu")
     assert len(gs.closures) >= 1
     err = float(ate(path, gt))
     assert err < 0.15

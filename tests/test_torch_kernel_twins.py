@@ -1,0 +1,199 @@
+"""The index math of kernels K1 and K2, held to their plain versions on the
+CPU.
+
+A CUDA kernel cannot run here, so each kernel has a twin in plain PyTorch
+that repeats its index math step by step (``_kernel_twins.edt_twin``,
+``_kernel_twins.score_volume_twin``): bit-packed rows, bit-scan distances
+and row bands for K1; beam chunks, live-beam compaction, bounding-box tiles
+and their halving, lattice codes with the bounds test folded in, and window
+origins for K2. The twins must equal the plain versions exactly at the main
+paths' shapes and at the edges; ``test_torch_cuda.py`` holds the kernels
+themselves to the same cases on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _kernel_cases import (K1_CASES, K2_CASES, batch_prefix, k1_case,
+                           k2_case, sparse_chunk_case)
+from _kernel_twins import edt_twin, score_volume_twin
+from lidar_slam_tpu_torch.ops import correlative, cuda_edt, cuda_match
+from lidar_slam_tpu_torch.ops.edt import edt_clamped
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("name", list(K1_CASES))
+def test_k1_twin_equals_plain(name):
+    occ, r = k1_case(name)
+    stats = {}
+    got = edt_twin(occ, r, stats=stats)
+    assert torch.equal(got, edt_clamped(occ, r))
+    b, h, w = occ.shape
+    assert stats["band"] == cuda_edt.plan_band(b, h, w, r, 132)
+    assert stats["blocks"] == b * -(-h // stats["band"])
+
+
+@pytest.mark.parametrize("band", [1, 3, 21, 1000])
+def test_k1_twin_any_band(band):
+    occ, r = k1_case("ragged-37x70")
+    assert torch.equal(edt_twin(occ, r, band=band),
+                       edt_clamped(occ, r))
+
+
+@pytest.mark.parametrize("name", ["keyframes-8x256", "refine-8x448"])
+@pytest.mark.parametrize("b", [1, 3, 7])
+def test_k1_twin_partial_batches(name, b):
+    """The last, partial batches of the keyframe and refine passes plan
+    their own bands."""
+    occ, r = k1_case(name)
+    stats = {}
+    assert torch.equal(edt_twin(occ[:b], r, stats=stats),
+                       edt_clamped(occ[:b], r))
+    assert stats["band"] == cuda_edt.plan_band(b, *occ.shape[1:], r, 132)
+
+
+def test_k1_band_plan():
+    """At most one block an SM at the batched shapes, at least four rows a
+    block, and a block's shared memory within Hopper's limit."""
+    for (b, h, w), want in (((1, 200, 200), 4), ((1, 400, 400), 4),
+                            ((1, 512, 512), 4), ((8, 256, 256), 16),
+                            ((8, 448, 448), 28), ((1, 2, 30), 2),
+                            ((200, 64, 64), 32)):
+        band = cuda_edt.plan_band(b, h, w, 10, 132)
+        assert band == want
+        assert b * -(-h // band) <= 132 or band == 32
+    assert cuda_edt.smem_bytes(448, 10, 13) == 4 * (596 + 33 * 224 + 102)
+    assert cuda_edt.plan_band(1, 64, 5000, 10, 132) == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_edt.plan_band(1, 64, 40000, 10, 132)
+
+
+@pytest.mark.parametrize("name", list(K2_CASES))
+def test_k2_twin_equals_plain(name):
+    args = k2_case(name)
+    metric, cx0, cy0, valid, n_rows, n_cols, half, bits = args
+    stats = {}
+    got = score_volume_twin(*args, stats=stats)
+    want = correlative.score_volume_plain(*args[:7])
+    assert torch.equal(got, want)
+    if name not in ("empty-field", "occupied-field"):
+        assert want.abs().sum() > 0
+    chunk, _ = cuda_match.plan(metric.numel() // metric.shape[-1] ** 2,
+                               cx0.shape[-2], cx0.shape[-1], half, 132)
+    b = 1 if metric.dim() == 2 else metric.shape[0]
+    assert stats["blocks"] == b * -(-cx0.shape[-1] // chunk)
+
+
+@pytest.mark.parametrize("name", ["pf-400", "half-14", "off-grid",
+                                  "half-20", "cascade-f4"])
+def test_k2_twin_halves_pieces_that_overflow(name):
+    """With a budget of one window, every chunk's tile overflows and is
+    halved down to single beams and then single bins; with one beam a
+    block, the halving runs along the bins alone."""
+    args = k2_case(name)
+    budget = cuda_match.window_cells(args[6])
+    want = correlative.score_volume_plain(*args[:7])
+    for chunk in (None, 1):
+        stats = {}
+        got = score_volume_twin(*args, chunk=chunk, tile_cells=budget,
+                                stats=stats)
+        assert torch.equal(got, want)
+        assert stats["pieces"] > stats["blocks"]
+
+
+def test_k2_twin_halves_a_sparse_box():
+    """Beams of one chunk that hit walls far apart give a box with more
+    cells than the chunk has gathers: it is halved along the beams even
+    though it fits the tile."""
+    args = sparse_chunk_case()
+    stats, dense = {}, {}
+    got = score_volume_twin(*args, chunk=8, stats=stats)
+    assert torch.equal(got, correlative.score_volume_plain(*args[:7]))
+    score_volume_twin(*k2_case("pf-400"), chunk=8, stats=dense)
+    assert stats["blocks"] == dense["blocks"]
+    assert stats["pieces"] > dense["pieces"]
+    assert 83 * cuda_match.tile_pitch(88) <= cuda_match.plan(1, 7, 1079, 6,
+                                                               132)[1]
+
+
+def test_k2_twin_poisons_a_field_off_the_lattice():
+    """A value that is no exact code (off the 2^-q lattice, or beyond
+    uint16) turns the volumes it reaches into NaN rather than rounding."""
+    metric, cx0, cy0, valid, n_rows, n_cols, half, bits = k2_case("pf-400")
+    assert not torch.isnan(score_volume_twin(
+        metric, cx0, cy0, valid, n_rows, n_cols, half, bits)).any()
+    got = score_volume_twin(metric + 2.0 ** -12, cx0, cy0, valid, n_rows,
+                            n_cols, half, bits)
+    assert torch.isnan(got).all()
+    for bad in (metric * 8.0, metric - 2.0 ** -10):
+        got = score_volume_twin(bad, cx0, cy0, valid, n_rows, n_cols, half,
+                                bits)
+        assert torch.isnan(got).any()
+    # a cascade level's field is on 2^-11: read at 2^-10 it is off-lattice
+    args = k2_case("cascade-f2")
+    assert args[7] == 11
+    assert torch.isnan(score_volume_twin(*args[:7], 10)).any()
+    assert not torch.isnan(score_volume_twin(*args)).any()
+
+
+@pytest.mark.parametrize("b", range(1, 8))
+def test_k2_twin_partial_batches(b):
+    """The closure passes' last, partial batches (B < 8) plan their own
+    chunks (8 beams a block at B = 1, 17 at B = 4, 30 at B = 7)."""
+    args = batch_prefix(k2_case("closure-8x256"), b)
+    stats = {}
+    got = score_volume_twin(*args, stats=stats)
+    assert torch.equal(got, correlative.score_volume_plain(*args[:7]))
+    chunk, _ = cuda_match.plan(b, 21, 1079, 14, 132)
+    assert stats["blocks"] == b * -(-1079 // chunk)
+
+
+def test_k2_plan():
+    """About two blocks an SM, a tile budget of at least one window, and a
+    window too large for shared memory refused."""
+    assert cuda_match.plan(1, 7, 1079, 6, 132) == (8, 16 * 1024)
+    assert cuda_match.plan(8, 21, 1079, 14, 132) == (33, 16 * 1024)
+    assert cuda_match.plan(1, 13, 1079, 6, 132)[0] == 8
+    for b in range(1, 9):   # the closure passes' partial batches: one wave
+        chunk, _ = cuda_match.plan(b, 21, 1079, 14, 132)
+        assert b * -(-1079 // chunk) <= 2 * 132
+    chunk, tile = cuda_match.plan(1, 7, 1079, 120, 132)
+    assert tile >= cuda_match.window_cells(120) >= 241 * 241
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_match.plan(1, 7, 1079, 200, 132)
+    assert [cuda_match.tile_pitch(w) % 64 for w in (1, 13, 29, 33, 97)] == \
+        [32] * 5
+
+
+def test_cascade_passes_each_levels_lattice(monkeypatch):
+    """build_cascade tells K2 the lattice of each level: 2^-10 for the EDT,
+    2^-(10+l) for the level min-pooled and divided by 2^l."""
+    seen = []
+    real = correlative.score_volume
+
+    def spy(*args):
+        seen.append(args[7])
+        return real(*args)
+
+    monkeypatch.setattr(correlative, "score_volume", spy)
+    s = 128
+    rng = np.random.default_rng(0)
+    metric = edt_clamped(torch.as_tensor(rng.random((s, s)) < 0.02))
+    from lidar_slam_tpu_torch.core.gridmap import OccGrid
+
+    grid = OccGrid(occ=torch.zeros((s, s), dtype=torch.bool),
+                   n_rows=torch.tensor(s, dtype=torch.int32),
+                   n_cols=torch.tensor(s, dtype=torch.int32),
+                   origin=torch.zeros(2), pixel=0.1)
+    xy = torch.as_tensor(rng.uniform(-4, 4, (2, 200)), dtype=torch.float32)
+    vols = correlative.build_cascade(
+        metric, grid, xy[0], xy[1], torch.ones(200, dtype=torch.bool),
+        torch.tensor([6.4, 6.4, 0.0]), 7, 0.004363, 6, 3)
+    assert seen == [10, 11, 12]
+    for lvl, vol in enumerate(vols):
+        f = 2 ** lvl
+        codes = vol.scores * 2.0 ** (10 + lvl)
+        assert torch.equal(codes, codes.round())
+        assert f == 1 or vol.scores.abs().sum() > 0

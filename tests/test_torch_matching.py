@@ -32,7 +32,7 @@ def keyframe(small_dataset):
     """A real keyframe: the port's state after 12 scans (its rasters and EDT
     fields) and the next scan."""
     ranges, _ = small_dataset
-    path, state = tsm.run_scan(ranges[:12], DEFAULT_CONFIG)
+    path, state = tsm.run_scan(ranges[:12], DEFAULT_CONFIG, device="cpu")
     scan = tsensor.read_scan(torch.as_tensor(ranges[12]),
                              tsm.angles_tensor(DEFAULT_CONFIG, "cpu"),
                              DEFAULT_CONFIG.lidar)

@@ -25,7 +25,7 @@ def museum(small_dataset):
 
 def test_run_scan_matches_oracle_and_jax(museum):
     ranges, cpath, cmap, jpath = museum
-    path, state = tsm.run_scan(ranges, DEFAULT_CONFIG)
+    path, state = tsm.run_scan(ranges, DEFAULT_CONFIG, device="cpu")
     path = path.numpy()
     assert np.array_equal(path, cpath)
     assert np.array_equal(path, jpath)
@@ -38,7 +38,7 @@ def test_run_scan_matches_oracle_and_jax(museum):
 
 def test_run_host_loop_matches_oracle(museum):
     ranges, cpath, _, _ = museum
-    path, state = tsm.run_host_loop(ranges, DEFAULT_CONFIG)
+    path, state = tsm.run_host_loop(ranges, DEFAULT_CONFIG, device="cpu")
     assert np.array_equal(path, cpath)
     assert state.step == len(ranges)
 
@@ -53,7 +53,7 @@ def test_building_prefix_bit_exact():
     ranges = ranges[:200]
     cpath, _ = native.run_oracle_cfg(ranges, BUILDING_CONFIG)
     jpath, _ = jsm.run_scan(ranges, BUILDING_CONFIG)
-    path, state = tsm.run_scan(ranges, BUILDING_CONFIG)
+    path, state = tsm.run_scan(ranges, BUILDING_CONFIG, device="cpu")
     assert state.fine_metric.shape == (512, 512)
     assert np.array_equal(path.numpy(), cpath)
     assert np.array_equal(path.numpy(), np.asarray(jpath))

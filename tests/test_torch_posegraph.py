@@ -105,7 +105,7 @@ def test_add_node_and_edge_drop_at_capacity():
     """``add_node``/``add_edge`` against JAX's ``mode="drop"`` versions:
     appends, masked insertion, and nothing written past capacity."""
     jg = jpg.empty_graph(3, 2)
-    tg = tpg.empty_graph(3, 2)
+    tg = tpg.empty_graph(3, 2, device="cpu")
     rng = np.random.default_rng(3)
     for _ in range(4):
         p = rng.normal(0, 1, 3).astype(np.float32)
