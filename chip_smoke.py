@@ -9,7 +9,9 @@ toolkit (``nvcc``). It builds both hand-written kernels from
 on the card, drives the port's main path (the fidelity pipeline and the
 1024-particle filter on the 1000-scan museum tour; graph SLAM with loop
 closure on the 700-scan loop and the 3800-scan building tours; the
-particle-filter frontend with loop closure on the loop) and checks the
+particle-filter frontend with loop closure on the loop; the scan-driven
+landmark EKF and the hybrid grid + landmark filter at 1024 particles, the
+submap atlas pipeline and the submap graph backend) and checks the
 results:
 
 1. card name and power limit (``nvidia-smi``); TF32 switched off;
@@ -23,7 +25,8 @@ results:
 6. PF-1024, museum-1000: ATE < 0.15 m; then 100 scans on the card and on
    the CPU with the same numpy-made draws, max |pose difference| <= 1e-3;
 7. K1 and K2 at every shape the main paths launch them with (K1 200^2,
-   400^2, 256^2, 512^2, (8,256,256), (8,448,448); K2 T=7 half=6 on 400^2,
+   400^2, 256^2, 512^2, (8,256,256), (8,448,448), and the scan-odometry
+   pre-pass's (50,448,448) and (49,448,448); K2 T=7 half=6 on 400^2,
    T=13 on 512^2, B=8 T=21 half=14 on 256^2, and the partial batches
    B = 1..7 of the batched shapes): each equal to its plain version; its
    device time (100 raw launches captured in a CUDA graph, one replay timed
@@ -40,11 +43,32 @@ results:
    feedback, measured and printed but not pinned (its outcome is chaotic
    on this tour, in the JAX package too);
 10. PF-graph, loop-700, 1024 particles: >= 1 closure, ATE < 0.15 m,
-    smoothed-path ATE < ATE + 0.03 m.
+    smoothed-path ATE < ATE + 0.03 m;
+11. EKF (``--mode ekf``), museum-1000, ``long_tour_config(1024)``: ATE
+    printed; 100 scans on the card and on the CPU with the same numpy-made
+    draws, max |pose difference| <= 1e-3; museum-400 with the config of
+    ``tests/test_ekf_slam.py``'s museum test: ATE < 0.15 m;
+12. hybrid EKF (``--mode ekf-hybrid``), museum-1000, ``long_tour_config
+    (1024)``: ATE printed; 100 scans card against CPU, <= 1e-3; museum-500
+    at 512 particles: ATE < 0.12 m and below the landmark-only filter's +
+    0.02 m;
+13. submap SLAM (``--mode submap``), museum-1000, ``DEFAULT_CONFIG``: 100
+    scans card == CPU; ATE < max(2.5 x phase 5's fidelity ATE, 0.08 m);
+    then the paged host loop with ``tests/test_submap.py``'s paging config on
+    the same tour: resident submaps <= the pool, pages out > 0, finite;
+14. submap graph SLAM (``--mode submap-graph``), loop-700: >= 1 closure,
+    ATE < 0.1 m, graph error per edge < 1, >= 2 submaps all tied to a
+    keyframe, map within the tour's extent + 30 m.
+
+Phases 11-14 also profile the first 100 scans of their path: device ops
+a scan and the device busy share (``torch.profiler`` device rows: kernels,
+copies, memsets; the share is their time a scan over the unprofiled run's
+wall time a scan) and host syncs a scan
+(``torch.cuda.set_sync_debug_mode("warn")`` warnings).
 
 Any failed check exits non-zero. The launch counters (a total and a count
 by shape for each kernel) are zeroed right before each main-path run
-(phases 5, 6, 8, 9, 10) and read right after it, so they count only the
+(phases 5, 6, 8-14) and read right after it, so they count only the
 main paths; each run prints its counts by shape and its scans/s, and the
 kernels line sums them. Every phase prints its seconds. The second-to-last line is a JSON object with one entry per
 kernel; the last line is the run's result JSON. Without a card, or outside
@@ -76,6 +100,11 @@ GRAPH_LOOP_ATE_MAX = 0.1   # m, the pins of tests/test_graph_slam.py
 GRAPH_BUILDING_ATE_MAX = 0.2     # m, bench.py stage_building_graph's target
 GRAPH_BUILDING_MIN_CLOSURES = 5  # tests/test_graph_slam.py, corridor test
 PF_GRAPH_SMOOTH_MARGIN = 0.03    # m, tests/test_pf_graph_slam.py
+EKF_MUSEUM400_ATE_MAX = 0.15     # m, tests/test_ekf_slam.py museum test
+HYBRID_MUSEUM500_ATE_MAX = 0.12  # m, tests/test_ekf_hybrid.py
+HYBRID_OVER_LANDMARK_MARGIN = 0.02  # m, the same test
+SUBMAP_ATE_FACTOR, SUBMAP_ATE_FLOOR = 2.5, 0.08  # tests/test_submap.py
+PROFILE_SCANS = 100        # scans of each new path run under the profiler
 
 
 def fail(msg: str) -> None:
@@ -273,9 +302,13 @@ def main() -> int:
                                              DEFAULT_CONFIG, ParticleConfig)
     from lidar_slam_tpu_torch.core import sensor
     from lidar_slam_tpu_torch.io import dataset, simulate
-    from lidar_slam_tpu_torch.models import (fastslam, graph_slam,
-                                             pf_graph_slam, posegraph,
-                                             scan_matcher)
+    from lidar_slam_tpu_torch.config import SubmapConfig
+    from lidar_slam_tpu_torch.models import (ekf_hybrid, ekf_slam, fastslam,
+                                             graph_slam, pf_graph_slam,
+                                             posegraph, scan_matcher,
+                                             submap_slam)
+    from lidar_slam_tpu_torch.models.submap_graph_slam import SubmapGraphSlam
+    from lidar_slam_tpu_torch.utils import paging
     from lidar_slam_tpu_torch.ops import correlative, cuda_edt, cuda_match
     from lidar_slam_tpu_torch.ops import edt as edt_ops
     from lidar_slam_tpu_torch.ops import scan_odometry
@@ -438,6 +471,7 @@ def main() -> int:
     require(used["K1"] > 0, "fidelity run launched K1 no time")
     launches = dict(used)
     scans_per_s = {"fidelity museum-1000": len(path) / dt}
+    fid_ate = ate(path, gt)
     print(f"[5] fidelity museum-1000 on cuda: bit-identical to the C++ "
           f"oracle; {len(path) / dt:.1f} scans/s ({dt:.2f} s); "
           f"ATE {ate(path, gt):.4f} m; K1 launches {used['K1']}", flush=True)
@@ -494,12 +528,23 @@ def main() -> int:
                                       lc.raster_size, lc.raster_pixel)
     occ448 = scan_odometry._raster_centered(
         kx[:8], ky[:8], kv[:8], lc.fine_pixel, lc.fine_size).occ.contiguous()
+    # the scan-odometry pre-pass's pair rasters: museum scans 0..49, gated
+    # and rastered as pairwise_odometry does (10 m, 0.05 m, 448^2)
+    pscans = [sensor.read_scan(torch.as_tensor(ranges[i], device=dev),
+                               angles, cfg.lidar) for i in range(50)]
+    px_, py_, pv_ = (torch.stack([getattr(sc, f) for sc in pscans])
+                     for f in ("x", "y", "valid"))
+    occ50 = scan_odometry._raster_centered(
+        px_, py_, pv_ & (px_ * px_ + py_ * py_ <= 100.0), 0.05,
+        448).occ.contiguous()
     k1_cases = [("(1,200,200) coarse raster", state.coarse.occ),
                 ("(1,400,400) fine raster", fine_occ),
                 ("(1,256,256) building coarse grid", occ256[:1]),
                 ("(1,512,512) building fine grid", occ512),
                 ("(8,256,256) keyframe rasters", occ256),
-                ("(8,448,448) fine-refine rasters", occ448)]
+                ("(8,448,448) fine-refine rasters", occ448),
+                ("(50,448,448) scan-odometry pair rasters", occ50),
+                ("(49,448,448) scan-odometry tail chunk", occ50[:49])]
     k2_cases = [
         (f"B=1 T={pcfg.particles.vol_theta_bins} half={half} S=400 "
          f"(PF museum)", (fine_metric, cx0, cy0, scan.valid,
@@ -662,7 +707,7 @@ def main() -> int:
         for k in used:
             launches[k] += used[k]
         phase_done(tag)
-        return g_err, err, err_s
+        return g_err, err, err_s, gs
 
     def run_graph(graph_cfg, feedback=True):
         def run(granges):
@@ -671,8 +716,8 @@ def main() -> int:
             return gpath, gs
         return run
 
-    g_err, _, _ = graph_phase("8", "graph loop-700", run_graph(cfg),
-                              (lranges, lgt), 1, GRAPH_LOOP_ATE_MAX)
+    g_err, _, _, _ = graph_phase("8", "graph loop-700", run_graph(cfg),
+                                 (lranges, lgt), 1, GRAPH_LOOP_ATE_MAX)
     require(g_err < 1.0, f"graph loop-700: graph error per edge {g_err}")
 
     t0 = time.perf_counter()
@@ -697,13 +742,213 @@ def main() -> int:
                                                   device=dev)
         return gpath, gs
 
-    _, err, err_s = graph_phase("10", "PF-1024-graph loop-700", run_pf_graph,
-                                (lranges, lgt), 1, PF_ATE_MAX)
+    _, err, err_s, _ = graph_phase("10", "PF-1024-graph loop-700",
+                                   run_pf_graph, (lranges, lgt), 1,
+                                   PF_ATE_MAX)
     require(err_s < err + PF_GRAPH_SMOOTH_MARGIN,
             f"PF-graph smoothed ATE {err_s:.4f} >= online {err:.4f} + "
             f"{PF_GRAPH_SMOOTH_MARGIN}")
 
-    # every launch count is summed over the main paths (phases 5, 6, 8-10)
+    # ---- 11-14. the EKF and submap families (counters zeroed per run)
+    def profile_path(tag, title, run, wall_per_scan):
+        """Kernels a scan, device busy share and host syncs a scan of
+        ``run()`` (the first PROFILE_SCANS scans of the path): kernel rows
+        of torch.profiler, and the warnings of the sync debug mode."""
+        import warnings
+
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                # device activity only: recording every CPU op of a
+                # 1000-launch scan would double the phase's time
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    run()
+                    torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        dev_us, n_kernels = 0.0, 0
+        for ev in prof.key_averages():
+            t_dev = getattr(ev, "self_device_time_total", None)
+            if t_dev is None:
+                t_dev = ev.self_cuda_time_total
+            if t_dev > 0:          # kernels, copies and memsets
+                dev_us += t_dev
+                n_kernels += ev.count
+        n = PROFILE_SCANS
+        busy = dev_us / 1e6 / n / wall_per_scan
+        print(f"[{tag}] {title}, first {n} scans under the profiler: "
+              f"{n_kernels / n:.1f} device ops a scan, device time "
+              f"{dev_us / n / 1e3:.3f} ms a scan, busy share {busy:.1%} of "
+              f"the unprofiled {wall_per_scan * 1e3:.2f} ms a scan; host "
+              f"syncs {syncs / n:.2f} a scan", flush=True)
+
+    def timed_run(title, run):
+        """One main-path run with its own launch counts: (result, dt)."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        used = read_counts(title)
+        for k in used:
+            launches[k] += used[k]
+        return out, dt, used
+
+    def same_draws(p, n):
+        drng = np.random.default_rng(2)
+        return [(drng.standard_normal((p, 3)).astype(np.float32),
+                 np.float32(drng.random() / p)) for _ in range(n - 1)]
+
+    def cuda_vs_cpu(tag, title, run):
+        draws = same_draws(1024, n_cmp)
+        got, _ = run(ranges[:n_cmp], dev, draws)
+        t0 = time.perf_counter()
+        want, _ = run(ranges[:n_cmp], "cpu", draws)
+        diff = float(np.abs(got.cpu().numpy() - want.numpy()).max())
+        require(diff <= CPU_CUDA_MAX_DIFF,
+                f"{title} cuda vs cpu with the same draws: max |dpose| "
+                f"{diff}")
+        print(f"[{tag}] {title} first {n_cmp} scans, same numpy draws: cuda "
+              f"vs cpu max |dpose| {diff} (bar {CPU_CUDA_MAX_DIFF}); cpu run "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    ecfg = ekf_slam.long_tour_config(1024)
+
+    def run_ekf(r, device, draws=None, c=ecfg,
+                max_range=ekf_slam.LONG_TOUR_MAX_RANGE):
+        return ekf_slam.run_ekf_slam_scan(r, c, lidar_cfg=cfg.lidar, seed=0,
+                                          max_range=max_range, device=device,
+                                          draws=draws)
+
+    title = "EKF-1024 museum-1000"
+    (epath, efinal), dt, used = timed_run(title,
+                                          lambda: run_ekf(ranges, dev))
+    epath = epath.cpu().numpy()
+    require(used["K1"] > 0, f"{title} launched K1 no time")
+    require(np.isfinite(epath).all(), f"{title} path is not finite")
+    scans_per_s[title] = len(epath) / dt
+    print(f"[11] {title} on cuda: {len(epath) / dt:.1f} scans/s ({dt:.2f} "
+          f"s); ATE {ate(epath, gt):.4f} m; landmark slots in use "
+          f"{float(efinal.lm_seen.sum(dim=1).float().mean()):.1f}; launches "
+          f"K1 {used['K1']} K2 {used['K2']}", flush=True)
+    profile_path("11", title, lambda: run_ekf(ranges[:PROFILE_SCANS + 1],
+                                              dev), dt / len(epath))
+    cuda_vs_cpu("11", "EKF-1024", run_ekf)
+    pin_cfg = ekf_slam.EkfSlamConfig(
+        n_particles=512, max_landmarks=48, r_noise=0.05, b_noise=0.008,
+        odo_xy_noise=0.008, odo_th_noise=0.003, new_lm_logp0=-6.0)
+    p400, _ = run_ekf(ranges[:400], dev, c=pin_cfg, max_range=18.0)
+    e400 = ate(p400.cpu().numpy(), gt[:400])
+    require(e400 < EKF_MUSEUM400_ATE_MAX,
+            f"EKF museum-400 ATE {e400:.4f} m >= {EKF_MUSEUM400_ATE_MAX}")
+    print(f"[11] EKF-512 museum-400 (the museum test's config): ATE "
+          f"{e400:.4f} m (< {EKF_MUSEUM400_ATE_MAX})", flush=True)
+    phase_done("11")
+
+    def run_hybrid(r, device, draws=None, c=ecfg):
+        return ekf_hybrid.run_ekf_hybrid(r, c, cfg, seed=0, device=device,
+                                         draws=draws)
+
+    title = "hybrid-EKF-1024 museum-1000"
+    (hpath, hfinal), dt, used = timed_run(title,
+                                          lambda: run_hybrid(ranges, dev))
+    hpath = hpath.cpu().numpy()
+    require(used["K1"] > 0 and used["K2"] > 0,
+            f"{title} launched K1 {used['K1']} / K2 {used['K2']} times")
+    require(np.isfinite(hpath).all(), f"{title} path is not finite")
+    scans_per_s[title] = len(hpath) / dt
+    print(f"[12] {title} on cuda: {len(hpath) / dt:.1f} scans/s ({dt:.2f} "
+          f"s); ATE {ate(hpath, gt):.4f} m; map {int(hfinal.pmap.size)} "
+          f"points; launches K1 {used['K1']} K2 {used['K2']}", flush=True)
+    profile_path("12", title, lambda: run_hybrid(
+        ranges[:PROFILE_SCANS + 1], dev), dt / len(hpath))
+    cuda_vs_cpu("12", "hybrid-EKF-1024", run_hybrid)
+    c512 = ekf_slam.long_tour_config(512)
+    h500, _ = run_hybrid(ranges[:500], dev, c=c512)
+    l500, _ = run_ekf(ranges[:500], dev, c=c512)
+    eh, el = (ate(p.cpu().numpy(), gt[:500]) for p in (h500, l500))
+    require(eh < HYBRID_MUSEUM500_ATE_MAX,
+            f"hybrid museum-500 ATE {eh:.4f} m >= {HYBRID_MUSEUM500_ATE_MAX}")
+    require(eh < el + HYBRID_OVER_LANDMARK_MARGIN,
+            f"hybrid museum-500 ATE {eh:.4f} m >= landmark-only {el:.4f} m "
+            f"+ {HYBRID_OVER_LANDMARK_MARGIN}")
+    print(f"[12] museum-500 at 512 particles: hybrid ATE {eh:.4f} m (< "
+          f"{HYBRID_MUSEUM500_ATE_MAX}), landmark-only {el:.4f} m", flush=True)
+    phase_done("12")
+
+    title = "submap museum-1000"
+    (spath, sfinal), dt, used = timed_run(
+        title, lambda: submap_slam.run_scan(ranges, cfg, device=dev))
+    spath = spath.cpu().numpy()
+    require(used["K1"] > 0, f"{title} launched K1 no time")
+    scans_per_s[title] = len(spath) / dt
+    s_ate = ate(spath, gt)
+    s_max = max(SUBMAP_ATE_FACTOR * fid_ate, SUBMAP_ATE_FLOOR)
+    require(s_ate < s_max, f"{title} ATE {s_ate:.4f} m >= {s_max:.4f}")
+    print(f"[13] {title} on cuda: {len(spath) / dt:.1f} scans/s ({dt:.2f} "
+          f"s); ATE {s_ate:.4f} m (< {s_max:.4f}); submaps "
+          f"{sfinal.atlas.n_submaps}; launches K1 {used['K1']}", flush=True)
+    profile_path("13", title, lambda: submap_slam.run_scan(
+        ranges[:PROFILE_SCANS + 1], cfg, device=dev), dt / len(spath))
+    s_cuda, _ = submap_slam.run_scan(ranges[:n_cmp], cfg, device=dev)
+    s_cpu, _ = submap_slam.run_scan(ranges[:n_cmp], cfg, device="cpu")
+    require(torch.equal(s_cuda.cpu(), s_cpu),
+            f"submap cuda vs cpu: max |dpose| "
+            f"{(s_cuda.cpu() - s_cpu).abs().max().item()}")
+    print(f"[13] submap first {n_cmp} scans: cuda == cpu (torch.equal)",
+          flush=True)
+    pg_cfg = dataclasses.replace(cfg, submaps=SubmapConfig(
+        n_submaps=4, submap_capacity=512, k_nearest=2, spawn_dist=0.4,
+        spawn_fill_frac=0.8))
+    paged = paging.PagedAtlas(near_dist=1.0, keep_free=2)
+    title = "submap paged museum-1000"
+    (gpath, gfinal), dt, used = timed_run(
+        title, lambda: paging.run_host_loop_paged(ranges, pg_cfg, paged,
+                                                  manage_every=4,
+                                                  device=dev))
+    scans_per_s[title] = len(gpath) / dt
+    require(gfinal.atlas.n_submaps <= 4, "paged pool overflowed")
+    require(paged.pages_out > 0, "paged run paged nothing out")
+    require(np.isfinite(gpath).all(), f"{title} path is not finite")
+    print(f"[13] {title} (pool 4 x 512, paging every 4 scans): "
+          f"{len(gpath) / dt:.1f} scans/s; ATE {ate(gpath, gt):.4f} m; "
+          f"{gfinal.atlas.n_submaps} resident, {len(paged.archive)} archived "
+          f"({paged.pages_out} out / {paged.pages_in} in); launches K1 "
+          f"{used['K1']}", flush=True)
+    phase_done("13")
+
+    def run_submap_graph(granges):
+        gs = SubmapGraphSlam(cfg, device=dev)
+        gpath, _ = gs.run(granges)
+        return gpath, gs
+
+    g_err, _, _, sgs = graph_phase("14", "submap-graph loop-700",
+                                   run_submap_graph, (lranges, lgt), 1,
+                                   GRAPH_LOOP_ATE_MAX)
+    require(g_err < 1.0, f"submap-graph: graph error per edge {g_err}")
+    n_sub = sgs.final_state.atlas.n_submaps
+    require(n_sub >= 2 and set(sgs.anchor_assoc) >= set(range(n_sub)),
+            f"submap-graph: {n_sub} submaps, associated "
+            f"{sorted(sgs.anchor_assoc)}")
+    pts = sgs.world_map(sgs.final_state)
+    extent = np.abs(lgt[:, :2]).max() + 30.0
+    require(len(pts) > 100 and np.isfinite(pts).all()
+            and np.abs(pts).max() < extent,
+            f"submap-graph map: {len(pts)} points, max |xy| "
+            f"{np.abs(pts).max() if len(pts) else 0}")
+    print(f"[14] submap-graph: {n_sub} submaps, all tied to keyframes; map "
+          f"{len(pts)} points within {extent:.1f} m", flush=True)
+    profile_path("14", "submap-graph loop-700", lambda: run_submap_graph(
+        lranges[:PROFILE_SCANS + 1]),
+        1.0 / scans_per_s["submap-graph loop-700"])
+
+    # every launch count is summed over the main paths (phases 5, 6, 8-14)
     kernels = []
     for key, name, source, replaces, err in (
             ("K1", "K1 clamped EDT", K1_SOURCE, K1_REPLACES, k1_err),

@@ -13,6 +13,7 @@ import math
 import torch
 
 from lidar_slam_tpu_torch.core.trig32 import sincos32
+from lidar_slam_tpu_torch.device import constant
 
 
 def transform_ref(x: torch.Tensor, y: torch.Tensor, pose: torch.Tensor):
@@ -35,8 +36,11 @@ def transform(x: torch.Tensor, y: torch.Tensor, pose: torch.Tensor):
 
 
 def wrap_angle(a: torch.Tensor) -> torch.Tensor:
-    """Wrap to (-pi, pi]."""
-    return a - 2.0 * math.pi * torch.floor((a + math.pi) / (2.0 * math.pi))
+    """Wrap to (-pi, pi]. The division is by a device tensor: CUDA turns a
+    division by a Python scalar into a multiplication by its reciprocal,
+    which can differ from the CPU's quotient in the last bit."""
+    turns = (a + math.pi) / constant(2.0 * math.pi, a.device, a.dtype)
+    return a - 2.0 * math.pi * torch.floor(turns)
 
 
 def compose_ref(a: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

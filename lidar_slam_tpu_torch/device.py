@@ -1,4 +1,5 @@
-"""Device resolution: an explicit device, never a silent CPU fallback."""
+"""Device resolution: an explicit device, never a silent CPU fallback; and
+the helpers that make an f32 result the same bits on every device."""
 
 from __future__ import annotations
 
@@ -33,3 +34,12 @@ def constant(value, device: torch.device,
     tuple; callers must never write to the returned tensor.
     """
     return torch.tensor(value, dtype=dtype, device=device)
+
+
+def rounded64(fn, *args: torch.Tensor) -> torch.Tensor:
+    """``fn`` of f32 tensors evaluated in float64 and rounded once to f32.
+
+    The CPU's and the card's f32 transcendentals differ in the last bit
+    (and the card's f32 ``sqrt`` is not correctly rounded); their float64
+    results differ far below an f32 ulp, so the rounded f32 agrees."""
+    return fn(*(a.to(torch.float64) for a in args)).to(torch.float32)

@@ -1,6 +1,7 @@
 """Synthetic lidar datasets, in numpy (counterpart of the scan synthesizer
 of ``lidar_slam_tpu.io.simulate``): the museum, loop, corridor and
-building tours.
+building tours, and the known-association landmark datasets of the EKF
+family.
 
 The JAX package's synthesizer is numpy too, but it cannot be imported
 without JAX: ``lidar_slam_tpu/io/__init__.py`` imports ``simulate``, which
@@ -220,3 +221,104 @@ def generate_dataset(n_scans: int = 1000, seed: int = 0,
     gy = s * rel[:, 0] + c * rel[:, 1]
     gt = np.stack([gx, gy, rel[:, 2]], axis=1).astype(np.float32)
     return ranges, gt
+
+
+def landmark_positions(world: World | None = None) -> np.ndarray:
+    """Point landmarks for the EKF-SLAM model family: pillar centers plus
+    room corners (stable, distinguishable features of the museum world)."""
+    return np.asarray([
+        (4.0, 7.5), (12.0, 11.5), (16.5, 3.5), (11.5, 2.5),      # pillars
+        (0.0, 0.0), (20.0, 0.0), (20.0, 15.0), (0.0, 15.0),      # outer corners
+        (8.0, 6.0), (8.0, 8.0), (13.0, 7.5), (15.0, 7.5),        # door jambs
+    ], np.float64)
+
+
+def _segment_blocks(world: World, p: np.ndarray, q: np.ndarray) -> bool:
+    """True if any wall segment blocks the open segment p->q."""
+    x1, y1, x2, y2 = world.segments.T
+    ex, ey = x2 - x1, y2 - y1
+    dx, dy = q[0] - p[0], q[1] - p[1]
+    denom = dx * ey - dy * ex
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rel_x = x1 - p[0]
+        rel_y = y1 - p[1]
+        t = (rel_x * ey - rel_y * ex) / denom
+        u = (rel_x * dy - rel_y * dx) / denom
+    hit = (np.abs(denom) > 1e-12) & (t > 1e-6) & (t < 1.0 - 1e-6) \
+        & (u > 1e-6) & (u < 1.0 - 1e-6)
+    return bool(np.any(hit))
+
+
+def generate_landmark_observations(
+        traj: np.ndarray, seed: int = 0, max_range: float = 12.0,
+        r_noise: float = 0.03, b_noise: float = 0.01,
+        world: World | None = None) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Range/bearing observations with known association (EKF model family).
+
+    traj: (T, 3) reference-convention poses. Returns (obs (T, L, 2) of
+    (range, bearing), visible (T, L) bool, landmarks (L, 2)). Bearings are in
+    the sensor frame: bearing = atan2(dy, dx) + theta (ref convention: a
+    beam at sensor angle a points at world angle a - theta)."""
+    rng = np.random.default_rng(seed)
+    world = world or museum_world()
+    lms = landmark_positions(world)
+    t_, l_ = len(traj), len(lms)
+    obs = np.zeros((t_, l_, 2), np.float32)
+    vis = np.zeros((t_, l_), bool)
+    for t in range(t_):
+        px, py, theta = traj[t]
+        for j, (lx, ly) in enumerate(lms):
+            dx, dy = lx - px, ly - py
+            r = float(np.hypot(dx, dy))
+            if r < 0.3 or r > max_range:
+                continue
+            if _segment_blocks(world, traj[t, :2], lms[j] - 1e-3 * np.asarray([dx, dy]) / r):
+                continue
+            bearing = np.arctan2(dy, dx) + theta   # sensor-frame angle
+            bearing = (bearing + np.pi) % (2 * np.pi) - np.pi
+            obs[t, j, 0] = r + rng.normal(0, r_noise)
+            obs[t, j, 1] = bearing + rng.normal(0, b_noise)
+            vis[t, j] = True
+    return obs, vis, np.asarray(lms, np.float32)
+
+
+def generate_ekf_dataset(n_scans: int = 500, seed: int = 0,
+                         odo_xy_noise: float = 0.004, odo_th_noise: float = 0.0015,
+                         waypoints: np.ndarray | None = None):
+    """Landmark-SLAM dataset: noisy odometry + range/bearing observations.
+
+    Returns (odom (T-1, 3) noisy relative motions in the ref convention,
+    obs (T, L, 2), visible (T, L), gt (T, 3), landmarks (L, 2)); everything
+    expressed in the scan-0 frame."""
+    rng = np.random.default_rng(seed + 7)
+    if waypoints is None:
+        waypoints = DEFAULT_WAYPOINTS
+    traj = smooth_trajectory(waypoints)
+    if len(traj) < n_scans:
+        raise ValueError(f"trajectory supports {len(traj)} scans < {n_scans}")
+    traj = traj[:n_scans]
+    obs, vis, lms = generate_landmark_observations(traj, seed=seed)
+
+    # re-express in the scan-0 frame (see generate_dataset)
+    t0 = traj[0]
+    c, s = np.cos(t0[2]), np.sin(t0[2])
+
+    def to_rel(pts):
+        rel = pts - t0[:2]
+        return np.stack([c * rel[:, 0] - s * rel[:, 1],
+                         s * rel[:, 0] + c * rel[:, 1]], axis=1)
+
+    gt_xy = to_rel(traj[:, :2])
+    gt = np.concatenate([gt_xy, (traj[:, 2:3] - t0[2])], axis=1).astype(np.float32)
+    lms_rel = to_rel(lms).astype(np.float32)
+
+    # noisy odometry: relative motion in the previous pose's frame
+    # (ref convention: compose_ref(prev, odo) == cur)
+    odom = np.zeros((n_scans - 1, 3), np.float32)
+    for t in range(1, n_scans):
+        d = gt[t, :2] - gt[t - 1, :2]
+        cp, sp = np.cos(gt[t - 1, 2]), np.sin(gt[t - 1, 2])
+        odom[t - 1, 0] = cp * d[0] - sp * d[1] + rng.normal(0, odo_xy_noise)
+        odom[t - 1, 1] = sp * d[0] + cp * d[1] + rng.normal(0, odo_xy_noise)
+        odom[t - 1, 2] = gt[t, 2] - gt[t - 1, 2] + rng.normal(0, odo_th_noise)
+    return odom, obs, vis, gt, lms_rel

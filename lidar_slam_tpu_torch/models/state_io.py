@@ -1,7 +1,8 @@
 """Conversion between the JAX package's states and the port's.
 
-The JAX package's ``SlamState``, ``ParticleState``, ``PoseGraph`` and
-``KeyframeStore`` are pytrees of arrays;
+The JAX package's ``SlamState``, ``ParticleState``, ``PoseGraph``,
+``KeyframeStore``, ``EkfSlamState``, ``HybridState``, ``SubmapAtlas`` and
+``SubmapSlamState`` are pytrees of arrays;
 passed through ``numpy.asarray`` leaf by leaf they become plain numpy
 trees with the same field names. These functions turn such a tree into the
 port's state on a given device, and a port state back into numpy arrays
@@ -16,10 +17,14 @@ import numpy as np
 import torch
 
 from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap
+from lidar_slam_tpu_torch.core.submap import SubmapAtlas
+from lidar_slam_tpu_torch.models.ekf_hybrid import HybridState
+from lidar_slam_tpu_torch.models.ekf_slam import EkfSlamState
 from lidar_slam_tpu_torch.models.fastslam import ParticleState
 from lidar_slam_tpu_torch.models.graph_slam import KeyframeStore
 from lidar_slam_tpu_torch.models.posegraph import PoseGraph
 from lidar_slam_tpu_torch.models.scan_matcher import SlamState
+from lidar_slam_tpu_torch.models.submap_slam import SubmapSlamState
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -83,12 +88,17 @@ def slam_state_to_numpy(s: SlamState) -> SlamState:
         scan_wy=_n(s.scan_wy))
 
 
+def _generator(device, seed: int) -> torch.Generator:
+    rng = torch.Generator(device=device)
+    rng.manual_seed(seed)
+    return rng
+
+
 def particle_state_from_numpy(s, device, seed: int = 0) -> ParticleState:
     """A JAX ``ParticleState`` with numpy leaves -> the port's
     ``ParticleState``. JAX's PRNG key has no torch counterpart: the port's
     generator is seeded with ``seed``."""
-    rng = torch.Generator(device=device)
-    rng.manual_seed(seed)
+    rng = _generator(device, seed)
     return ParticleState(
         poses=_t(s.poses, device, torch.float32),
         prev_poses=_t(s.prev_poses, device, torch.float32),
@@ -149,3 +159,86 @@ def keyframes_to_numpy(kf: KeyframeStore) -> KeyframeStore:
     ``GraphSlam.kf`` return."""
     return KeyframeStore(x=_n(kf.x), y=_n(kf.y), valid=_n(kf.valid),
                          count=np.int32(kf.count))
+
+
+def ekf_state_from_numpy(s, device, seed: int = 0) -> EkfSlamState:
+    """A JAX ``EkfSlamState`` with numpy leaves -> the port's; the JAX
+    PRNG key is replaced by a generator seeded with ``seed``."""
+    return EkfSlamState(
+        poses=_t(s.poses, device, torch.float32),
+        prev_poses=_t(s.prev_poses, device, torch.float32),
+        logw=_t(s.logw, device, torch.float32),
+        lm_mean=_t(s.lm_mean, device, torch.float32),
+        lm_cov=_t(s.lm_cov, device, torch.float32),
+        lm_seen=_t(s.lm_seen, device, torch.bool),
+        rng=_generator(device, seed))
+
+
+def ekf_state_to_numpy(s: EkfSlamState) -> EkfSlamState:
+    """The port's ``EkfSlamState`` -> numpy arrays; ``rng`` becomes None."""
+    return EkfSlamState(
+        poses=_n(s.poses), prev_poses=_n(s.prev_poses), logw=_n(s.logw),
+        lm_mean=_n(s.lm_mean), lm_cov=_n(s.lm_cov), lm_seen=_n(s.lm_seen),
+        rng=None)
+
+
+def hybrid_state_from_numpy(s, device, seed: int = 0) -> HybridState:
+    """A JAX ``HybridState`` with numpy leaves -> the port's."""
+    return HybridState(
+        ekf=ekf_state_from_numpy(s.ekf, device, seed),
+        pmap=pointmap_from_numpy(s.pmap, device),
+        fine=grid_from_numpy(s.fine, device),
+        fine_metric=_t(s.fine_metric, device, torch.float32),
+        step=int(s.step), mini_updated=bool(s.mini_updated))
+
+
+def hybrid_state_to_numpy(s: HybridState) -> HybridState:
+    """The port's ``HybridState`` -> numpy arrays with the JAX dtypes."""
+    return HybridState(
+        ekf=ekf_state_to_numpy(s.ekf), pmap=pointmap_to_numpy(s.pmap),
+        fine=grid_to_numpy(s.fine), fine_metric=_n(s.fine_metric),
+        step=np.int32(s.step), mini_updated=np.bool_(s.mini_updated))
+
+
+def atlas_from_numpy(a, device) -> SubmapAtlas:
+    """A ``SubmapAtlas`` with numpy leaves -> the port's (slot counts as
+    host ints)."""
+    return SubmapAtlas(pts=_t(a.pts, device, torch.float32),
+                       sizes=_t(np.asarray(a.sizes, np.int32), device),
+                       anchors=_t(a.anchors, device, torch.float32),
+                       n_submaps=int(a.n_submaps), active=int(a.active))
+
+
+def atlas_to_numpy(a: SubmapAtlas) -> SubmapAtlas:
+    """The port's ``SubmapAtlas`` -> numpy arrays with the JAX dtypes."""
+    return SubmapAtlas(pts=_n(a.pts), sizes=_n(a.sizes),
+                       anchors=_n(a.anchors), n_submaps=np.int32(a.n_submaps),
+                       active=np.int32(a.active))
+
+
+def submap_state_from_numpy(s, device) -> SubmapSlamState:
+    """A JAX ``SubmapSlamState`` with numpy leaves -> the port's."""
+    return SubmapSlamState(
+        pose=_t(s.pose, device, torch.float32),
+        prev_pose=_t(s.prev_pose, device, torch.float32),
+        step=int(s.step), mini_updated=bool(s.mini_updated),
+        keyframe_pose=_t(s.keyframe_pose, device, torch.float32),
+        atlas=atlas_from_numpy(s.atlas, device),
+        coarse=grid_from_numpy(s.coarse, device),
+        fine=grid_from_numpy(s.fine, device),
+        coarse_metric=_t(s.coarse_metric, device, torch.float32),
+        fine_metric=_t(s.fine_metric, device, torch.float32),
+        scan_wx=_t(s.scan_wx, device, torch.float32),
+        scan_wy=_t(s.scan_wy, device, torch.float32))
+
+
+def submap_state_to_numpy(s: SubmapSlamState) -> SubmapSlamState:
+    """The port's ``SubmapSlamState`` -> numpy arrays with the JAX
+    dtypes."""
+    return SubmapSlamState(
+        pose=_n(s.pose), prev_pose=_n(s.prev_pose), step=np.int32(s.step),
+        mini_updated=np.bool_(s.mini_updated),
+        keyframe_pose=_n(s.keyframe_pose), atlas=atlas_to_numpy(s.atlas),
+        coarse=grid_to_numpy(s.coarse), fine=grid_to_numpy(s.fine),
+        coarse_metric=_n(s.coarse_metric), fine_metric=_n(s.fine_metric),
+        scan_wx=_n(s.scan_wx), scan_wy=_n(s.scan_wy))

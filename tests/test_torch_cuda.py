@@ -338,3 +338,140 @@ def test_kernels_capture_in_a_cuda_graph(cuda):
     torch.cuda.synchronize()
     assert torch.equal(e_out.cpu(), edt_clamped(occ.cpu(), r))
     assert torch.equal(v_out.cpu(), score_volume_plain(*args[:7]))
+
+
+# -- the EKF and submap families: their kernels' new shapes, and CPU == CUDA
+
+def _museum(n):
+    from lidar_slam_tpu_torch.io import simulate
+
+    return simulate.generate_dataset(n, seed=0)
+
+
+@pytest.mark.parametrize("b", [50, 49])
+def test_k1_scan_odometry_shapes_equal_plain(cuda, b):
+    """The scan-odometry pre-pass's pair rasters, (50, 448, 448) and the
+    tail chunk (49, 448, 448), exactly."""
+    from lidar_slam_tpu_torch.config import LidarConfig
+    from lidar_slam_tpu_torch.core import sensor
+    from lidar_slam_tpu_torch.ops import cuda_edt, scan_odometry
+    from lidar_slam_tpu_torch.ops.edt import edt_clamped
+
+    ranges, _ = _museum(b)
+    cfg = LidarConfig()
+    angles = torch.as_tensor(sensor.beam_angles(cfg))
+    scans = [sensor.read_scan(torch.as_tensor(r), angles, cfg)
+             for r in ranges]
+    x, y, v = (torch.stack([getattr(s, f) for s in scans])
+               for f in ("x", "y", "valid"))
+    occ = scan_odometry._raster_centered(x, y, v & (x * x + y * y <= 100.0),
+                                         0.05, 448).occ.contiguous()
+    assert occ.shape == (b, 448, 448)
+    got = cuda_edt.edt_clamped_cuda(occ.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), edt_clamped(occ))
+
+
+def test_landmarks_cuda_equals_cpu(cuda):
+    """Corners and pillars of 100 museum scans: the same bits on the card
+    as on the CPU."""
+    from lidar_slam_tpu_torch.config import LidarConfig
+    from lidar_slam_tpu_torch.core import sensor
+    from lidar_slam_tpu_torch.ops import landmarks
+
+    ranges, _ = _museum(100)
+    angles = sensor.beam_angles(LidarConfig())
+    for corners in (True, False):
+        want = landmarks.extract_landmarks_batch(
+            torch.as_tensor(ranges), torch.as_tensor(angles), corners=corners)
+        got = landmarks.extract_landmarks_batch(
+            torch.as_tensor(ranges, device=cuda),
+            torch.as_tensor(angles, device=cuda), corners=corners)
+        assert int(want.count.sum()) > 100
+        for f in ("rb", "valid", "count"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+def _ekf_inputs(n, p):
+    from lidar_slam_tpu_torch.config import LidarConfig
+    from lidar_slam_tpu_torch.core import sensor
+    from lidar_slam_tpu_torch.ops import landmarks
+
+    ranges, _ = _museum(n)
+    angles = torch.as_tensor(sensor.beam_angles(LidarConfig()))
+    det = landmarks.extract_corners(torch.as_tensor(ranges), angles,
+                                    max_range=12.0)
+    rng = np.random.default_rng(5)
+    draws = [(rng.standard_normal((p, 3)).astype(np.float32),
+              np.float32(rng.random() / p)) for _ in range(n - 1)]
+    return ranges, det, draws
+
+
+def test_ekf_ml_step_cuda_equals_cpu(cuda):
+    """One EKF-ML step at 1024 particles from a state 60 scans into the
+    museum, on the same draws: every state field, the same bits."""
+    from lidar_slam_tpu_torch.models import ekf_slam
+
+    cfg = ekf_slam.long_tour_config(1024)
+    ranges, det, draws = _ekf_inputs(62, 1024)
+    odo = torch.zeros((61, 3))
+    _, state = ekf_slam.run_ml(det.rb[1:61], det.valid[1:61], odo[:60],
+                               cfg, device="cpu", draws=draws[:60])
+    assert int(state.lm_seen.sum()) > 0
+    k = int(det.count[61])
+    want, west = ekf_slam.ekf_slam_step_ml(
+        state, det.rb[61], det.valid[61], cfg, odo=odo[60], draws=draws[60],
+        n_det=k)
+    moved = ekf_slam.EkfSlamState(*[t.to(cuda) for t in state[:6]],
+                                  rng=None)
+    got, gest = ekf_slam.ekf_slam_step_ml(
+        moved, det.rb[61].to(cuda), det.valid[61].to(cuda), cfg,
+        odo=odo[60].to(cuda), draws=draws[60], n_det=k)
+    assert torch.equal(gest.cpu(), west)
+    for f in EKF_FIELDS:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+EKF_FIELDS = ("poses", "prev_poses", "logw", "lm_mean", "lm_cov", "lm_seen")
+
+
+def test_hybrid_step_cuda_equals_cpu(cuda):
+    """Forty hybrid steps at 1024 particles (the grid term runs K2, the
+    keyframe refreshes K1) on the same draws: the same path and state
+    bits on the card as on the CPU."""
+    from lidar_slam_tpu_torch.models import ekf_hybrid, ekf_slam
+    from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match
+
+    cfg = ekf_slam.long_tour_config(1024)
+    ranges, _, draws = _ekf_inputs(41, 1024)
+    cpath, cstate = ekf_hybrid.run_ekf_hybrid(ranges, cfg, device="cpu",
+                                              draws=draws)
+    k1, k2 = cuda_edt.launches, cuda_match.launches
+    gpath, gstate = ekf_hybrid.run_ekf_hybrid(ranges, cfg, device=cuda,
+                                              draws=draws)
+    assert cuda_edt.launches > k1 and cuda_match.launches > k2
+    assert torch.equal(gpath.cpu(), cpath)
+    for f in EKF_FIELDS:
+        assert torch.equal(getattr(gstate.ekf, f).cpu(),
+                           getattr(cstate.ekf, f)), f
+
+
+def test_submap_cuda_equals_cpu(cuda):
+    """Submap SLAM over 120 museum scans (several keyframes, a spawned
+    submap): path and atlas the same bits on the card as on the CPU."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, SubmapConfig
+    from lidar_slam_tpu_torch.models import submap_slam
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, submaps=SubmapConfig(
+        n_submaps=16, submap_capacity=512, k_nearest=4, spawn_dist=0.5))
+    ranges, _ = _museum(120)
+    cpath, cstate = submap_slam.run_scan(ranges, cfg, device="cpu")
+    gpath, gstate = submap_slam.run_scan(ranges, cfg, device=cuda)
+    assert cstate.atlas.n_submaps > 1
+    assert torch.equal(gpath.cpu(), cpath)
+    assert gstate.atlas.n_submaps == cstate.atlas.n_submaps
+    for f in ("pts", "sizes", "anchors"):
+        assert torch.equal(getattr(gstate.atlas, f).cpu(),
+                           getattr(cstate.atlas, f)), f

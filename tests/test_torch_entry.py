@@ -39,6 +39,15 @@ _BLOCK_JAX = (
      "32", "--device", "cpu"],
     ["run", "--mode", "graph", "--world", "building", "--window", "2",
      "--scans", "20", "--device", "cpu"],
+    ["run", "--mode", "ekf", "--scans", "20", "--particles", "32",
+     "--device", "cpu"],
+    ["run", "--mode", "ekf-hybrid", "--scans", "20", "--particles", "32",
+     "--device", "cpu"],
+    ["run", "--mode", "submap", "--scans", "20", "--device", "cpu"],
+    ["run", "--mode", "submap", "--paged", "--scans", "20", "--device",
+     "cpu"],
+    ["run", "--mode", "submap-graph", "--loop", "--scans", "40", "--device",
+     "cpu"],
 ])
 def test_cli_runs_with_jax_blocked(args):
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=REPO)
@@ -48,6 +57,8 @@ def test_cli_runs_with_jax_blocked(args):
     assert "scans/s" in res.stdout and "ATE vs ground truth" in res.stdout
     if "graph" in args[2]:
         assert "loop closures" in res.stdout
+    if args[2].startswith("submap"):
+        assert "submaps" in res.stdout
 
 
 def _imported_modules(path):
@@ -93,12 +104,29 @@ def _entry_calls():
     import numpy as np
 
     from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
-    from lidar_slam_tpu_torch.models import (fastslam, graph_slam,
-                                             pf_graph_slam, posegraph,
-                                             scan_matcher)
+    from lidar_slam_tpu_torch.models import (ekf_hybrid, ekf_slam, fastslam,
+                                             graph_slam, pf_graph_slam,
+                                             posegraph, scan_matcher,
+                                             submap_graph_slam, submap_slam)
+    from lidar_slam_tpu_torch.utils import paging
 
     ranges = np.full((2, DEFAULT_CONFIG.lidar.n_beams), 5.0, np.float32)
+    ecfg = ekf_slam.EkfSlamConfig(n_particles=4)
+    odom, obs, vis = (np.zeros((1, 3), np.float32),
+                      np.zeros((2, 16, 2), np.float32),
+                      np.zeros((2, 16), bool))
     return {
+        "run_ekf_slam": lambda: ekf_slam.run_ekf_slam(odom, obs, vis, ecfg),
+        "run_ekf_slam_scan": lambda: ekf_slam.run_ekf_slam_scan(ranges, ecfg),
+        "run_ekf_hybrid": lambda: ekf_hybrid.run_ekf_hybrid(ranges, ecfg),
+        "submap_run_scan": lambda: submap_slam.run_scan(ranges,
+                                                        DEFAULT_CONFIG),
+        "submap_run_host_loop": lambda: submap_slam.run_host_loop(
+            ranges, DEFAULT_CONFIG),
+        "run_host_loop_paged": lambda: paging.run_host_loop_paged(
+            ranges, DEFAULT_CONFIG, paging.PagedAtlas()),
+        "SubmapGraphSlam": lambda: submap_graph_slam.SubmapGraphSlam(
+            DEFAULT_CONFIG),
         "run_scan": lambda: scan_matcher.run_scan(ranges, DEFAULT_CONFIG),
         "run_host_loop": lambda: scan_matcher.run_host_loop(ranges,
                                                             DEFAULT_CONFIG),
@@ -113,7 +141,10 @@ def _entry_calls():
 
 @pytest.mark.parametrize("entry", ["run_scan", "run_host_loop", "run_pf",
                                    "run_pf_graph", "PFGraphSlam", "GraphSlam",
-                                   "empty_graph"])
+                                   "empty_graph", "run_ekf_slam",
+                                   "run_ekf_slam_scan", "run_ekf_hybrid",
+                                   "submap_run_scan", "submap_run_host_loop",
+                                   "run_host_loop_paged", "SubmapGraphSlam"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Without a card, every entry point's default device raises; nothing
     quietly runs on the CPU."""
