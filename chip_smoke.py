@@ -58,7 +58,35 @@ results:
     the same tour: resident submaps <= the pool, pages out > 0, finite;
 14. submap graph SLAM (``--mode submap-graph``), loop-700: >= 1 closure,
     ATE < 0.1 m, graph error per edge < 1, >= 2 submaps all tied to a
-    keyframe, map within the tour's extent + 30 m.
+    keyframe, map within the tour's extent + 30 m;
+15. streamed fidelity, museum-1000: a ``ScanServer`` on the tour, a
+    ``RelayServer`` in front of it, ``run_streaming_slam`` on the card;
+    the path bit-identical to ``run_host_loop`` on the card and to the C++
+    oracle, both on the protocol-rounded ranges, 1000 requests relayed;
+    prints scans/s and, with the prefetch queue full, the latency from a
+    scan's arrival on the host to its pose on the host (p50/p99); then 300
+    scans paced at the sensor's 10 Hz (the server holds row N until row 0's
+    time + N x 0.1 s), the same path: the latency from a row's release to
+    its pose on the host (p50/p99), the one a user waits; and host syncs a
+    scan, counted in a 100-scan pass of their own;
+16. supervised PF-1024, museum-1000: ``watchdog.run_supervised`` over a
+    worker that runs ``watchdog.pf_worker`` and wedges its first attempt at
+    scan 550 (checkpoints every 100 scans, 20 s stall timeout): 2 attempts,
+    1 stall, the resumed path equal to phase 6's (the checkpoint carries
+    the CUDA generator); the workers' launch counts join the kernels line;
+17. landmark BA on the museum landmark tour (K = 512 pose slots, a 1536^2
+    reduced system), TF32 off: card against CPU <= 1e-4 after 15
+    iterations, the error below 5% of its start; ms and host syncs a
+    Gauss-Newton iteration, and its largest device rows;
+    17b. the robust pose graph on phase 8's graph plus one bad closure:
+    two card runs equal, card against CPU <= 2e-6 (printed: how many pose
+    values differ); its Huber chi on the same inputs (the graph's edges
+    and 100000 random rows) card == CPU, and how many rows an f32 sqrt
+    would change;
+18. ``pf_stage_profile`` on the card (ms of each of the six stages);
+    ``debug.validate_state`` empty for the final state of every main path
+    (phases 5, 6, 8-17); ``debug.checked(slam_step)`` clean over 20 museum
+    scans.
 
 Phases 11-14 also profile the first 100 scans of their path: device ops
 a scan and the device busy share (``torch.profiler`` device rows: kernels,
@@ -68,8 +96,9 @@ wall time a scan) and host syncs a scan
 
 Any failed check exits non-zero. The launch counters (a total and a count
 by shape for each kernel) are zeroed right before each main-path run
-(phases 5, 6, 8-14) and read right after it, so they count only the
-main paths; each run prints its counts by shape and its scans/s, and the
+(phases 5, 6, 8-15) and read right after it, so they count only the
+main paths (phase 16's workers count in their own processes and write
+their counts to the run directory); each run prints its counts by shape and its scans/s, and the
 kernels line sums them. Every phase prints its seconds. The second-to-last line is a JSON object with one entry per
 kernel; the last line is the run's result JSON. Without a card, or outside
 a checkout, it fails before printing either.
@@ -79,7 +108,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -105,6 +136,100 @@ HYBRID_MUSEUM500_ATE_MAX = 0.12  # m, tests/test_ekf_hybrid.py
 HYBRID_OVER_LANDMARK_MARGIN = 0.02  # m, the same test
 SUBMAP_ATE_FACTOR, SUBMAP_ATE_FLOOR = 2.5, 0.08  # tests/test_submap.py
 PROFILE_SCANS = 100        # scans of each new path run under the profiler
+STREAM_PACE_S = 0.1       # phase 15: the sensor's 10 Hz
+STREAM_PACED_SCANS = 300   # scans of the paced stream (30 s)
+STREAM_SYNC_SCANS = 100    # scans of the stream that counts host syncs
+SUP_WEDGE_AT = 550        # phase 16: the scan the first attempt wedges at
+SUP_CKPT_EVERY = 100       # scans between the supervised run's checkpoints
+SUP_STALL_S = 20.0         # s without a heartbeat before the kill
+SUP_BOOT_GRACE_S = 300.0   # s a spawned child may take to its first beat
+BA_ITERS = 15              # GN iterations, as tests/test_ba.py
+BA_CPU_CUDA_MAX = 1e-4     # max |pose or landmark difference|, card vs CPU
+BA_ERROR_RATIO = 0.05      # tests/test_ba.py: error below 5% of its start
+PG_CPU_CUDA_MAX = 2e-6     # robust pose graph, card vs CPU (9.54e-7 read)
+CHI_ROWS = 100000          # random rows of the Huber chi check
+
+
+def _serve_chain(ranges, conn) -> None:
+    """Phase 15's data plane, in a spawned process: a ``ScanServer`` on the
+    tour and a ``RelayServer`` in front of it (the reference's server and
+    relay). Sends the relay's URL on ``conn``, then answers every message
+    with (requests relayed so far, host clock when row 0 was last served).
+    A float message sets the pace: row N is held until that many seconds
+    times N after row 0, as a sensor at 1 / pace Hz makes it (0 serves at
+    once). "stop" stops both servers."""
+    from urllib.parse import parse_qs, urlparse
+
+    from lidar_slam_tpu_torch.io import server
+
+    srv = server.ScanServer(ranges)
+    clock = {"t0": 0.0, "pace": 0.0}
+    handler = srv._httpd.RequestHandlerClass
+    serve_row = handler.do_GET
+
+    def paced(self):
+        try:
+            n = int(parse_qs(urlparse(self.path).query)["param"][0])
+        except (KeyError, ValueError):
+            n = -1
+        if n == 0:
+            clock["t0"] = time.perf_counter()
+        elif n > 0:
+            time.sleep(max(0.0, clock["t0"] + n * clock["pace"]
+                           - time.perf_counter()))
+        serve_row(self)
+
+    handler.do_GET = paced
+    srv.start()
+    relay = server.RelayServer(srv.url).start()
+    try:
+        conn.send(relay.url)
+        while True:
+            msg = conn.recv()
+            if isinstance(msg, float):
+                clock["pace"] = msg
+            conn.send((relay.n_relayed, clock["t0"]))
+            if msg == "stop":
+                return
+    finally:
+        relay.stop()
+        srv.stop()
+
+
+def _wedging_pf_worker(run_dir, ranges, cfg, seed, ckpt_every, device,
+                       wedge_at):
+    """Phase 16's worker: the port's ``watchdog.pf_worker``, whose first
+    attempt wedges (sleeps with the heartbeat silent) before scan
+    ``wedge_at``, as ``tests/test_watchdog.py`` injects its hang. Each
+    attempt writes its kernel launch counts by shape to
+    ``launches_<attempt>.json`` in the run directory (the first just before
+    it wedges). Module-level, so a spawned child can import it."""
+    from lidar_slam_tpu_torch.models import fastslam
+    from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match
+    from lidar_slam_tpu_torch.utils import watchdog
+
+    attempt = 1 + sum(f.startswith("attempt_") for f in os.listdir(run_dir))
+    open(os.path.join(run_dir, f"attempt_{attempt}"), "w").close()
+
+    def dump_counts():
+        with open(os.path.join(run_dir, f"launches_{attempt}.json"), "w") as f:
+            json.dump({key: [[list(k), v] for k, v in
+                             mod.launches_by_shape.items()]
+                       for key, mod in (("K1", cuda_edt), ("K2", cuda_match))},
+                      f)
+
+    if attempt == 1:
+        step = fastslam.pf_step
+
+        def wedging(state, *args, **kwargs):
+            if state.step == wedge_at:
+                dump_counts()
+                time.sleep(3600)   # the injected wedge
+            return step(state, *args, **kwargs)
+
+        fastslam.pf_step = wedging
+    watchdog.pf_worker(run_dir, ranges, cfg, seed, ckpt_every, device)
+    dump_counts()
 
 
 def fail(msg: str) -> None:
@@ -459,10 +584,11 @@ def main() -> int:
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    path, _ = scan_matcher.run_scan(ranges, cfg, device=dev)
+    path, fstate = scan_matcher.run_scan(ranges, cfg, device=dev)
     path = path.cpu().numpy()
     dt = time.perf_counter() - t0
     used = read_counts("fidelity museum-1000")
+    final_states = {"fidelity museum-1000": fstate}   # for phase 18
     opath, _ = native.run_oracle_cfg(ranges, cfg)
     require(np.array_equal(path, opath),
             f"fidelity path differs from the oracle: max "
@@ -484,7 +610,9 @@ def main() -> int:
     ppath, pstate = fastslam.run_pf(ranges, pcfg, seed=0, device=dev)
     ppath = ppath.cpu().numpy()
     dt = time.perf_counter() - t0
+    pf_seconds = dt
     used = read_counts("PF-1024 museum-1000")
+    final_states["PF-1024 museum-1000"] = pstate
     require(used["K1"] > 0, "PF run launched K1 no time")
     require(used["K2"] > 0, "PF run launched K2 no time")
     for k in used:
@@ -706,6 +834,7 @@ def main() -> int:
             require(err < ate_max, f"{title}: ATE {err:.4f} m >= {ate_max}")
         for k in used:
             launches[k] += used[k]
+        final_states[title] = gs.final_state
         phase_done(tag)
         return g_err, err, err_s, gs
 
@@ -716,7 +845,7 @@ def main() -> int:
             return gpath, gs
         return run
 
-    g_err, _, _, _ = graph_phase("8", "graph loop-700", run_graph(cfg),
+    g_err, _, _, loop_gs = graph_phase("8", "graph loop-700", run_graph(cfg),
                                  (lranges, lgt), 1, GRAPH_LOOP_ATE_MAX)
     require(g_err < 1.0, f"graph loop-700: graph error per edge {g_err}")
 
@@ -830,6 +959,7 @@ def main() -> int:
     (epath, efinal), dt, used = timed_run(title,
                                           lambda: run_ekf(ranges, dev))
     epath = epath.cpu().numpy()
+    final_states[title] = efinal
     require(used["K1"] > 0, f"{title} launched K1 no time")
     require(np.isfinite(epath).all(), f"{title} path is not finite")
     scans_per_s[title] = len(epath) / dt
@@ -859,6 +989,7 @@ def main() -> int:
     (hpath, hfinal), dt, used = timed_run(title,
                                           lambda: run_hybrid(ranges, dev))
     hpath = hpath.cpu().numpy()
+    final_states[title] = hfinal
     require(used["K1"] > 0 and used["K2"] > 0,
             f"{title} launched K1 {used['K1']} / K2 {used['K2']} times")
     require(np.isfinite(hpath).all(), f"{title} path is not finite")
@@ -886,6 +1017,7 @@ def main() -> int:
     (spath, sfinal), dt, used = timed_run(
         title, lambda: submap_slam.run_scan(ranges, cfg, device=dev))
     spath = spath.cpu().numpy()
+    final_states[title] = sfinal
     require(used["K1"] > 0, f"{title} launched K1 no time")
     scans_per_s[title] = len(spath) / dt
     s_ate = ate(spath, gt)
@@ -913,6 +1045,7 @@ def main() -> int:
                                                   manage_every=4,
                                                   device=dev))
     scans_per_s[title] = len(gpath) / dt
+    final_states[title] = gfinal
     require(gfinal.atlas.n_submaps <= 4, "paged pool overflowed")
     require(paged.pages_out > 0, "paged run paged nothing out")
     require(np.isfinite(gpath).all(), f"{title} path is not finite")
@@ -948,7 +1081,289 @@ def main() -> int:
         lranges[:PROFILE_SCANS + 1]),
         1.0 / scans_per_s["submap-graph loop-700"])
 
-    # every launch count is summed over the main paths (phases 5, 6, 8-14)
+    phase_done("14, profile")
+
+    # ---- 15. streamed fidelity, museum-1000: ScanServer -> RelayServer ->
+    # run_streaming_slam on the card (counters zeroed just before)
+    import warnings
+
+    from lidar_slam_tpu_torch.io import server
+
+    title = "streamed fidelity museum-1000"
+    # the server and the relay run in a process of their own, as the
+    # reference's do, so their threads do not share this process's GIL
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    chain = ctx.Process(target=_serve_chain, args=(ranges, child_conn),
+                        daemon=True)
+    chain.start()
+
+    def ask(msg):
+        conn.send(msg)
+        require(conn.poll(60), f"the server process did not answer {msg!r}")
+        return conn.recv()
+
+    try:
+        require(conn.poll(300), "the server process sent no URL")
+        relay_url = conn.recv()
+        # unpaced: the whole tour as fast as the step takes it (the pins,
+        # scans/s, and the queue's latency)
+        lat = []
+        (spath, sstate), dt, used = timed_run(
+            title, lambda: server.run_streaming_slam(
+                relay_url, len(ranges), cfg, device=dev, latencies=lat))
+        n_relayed, _ = ask("count")
+        # host syncs a scan, counted in a shorter pass of their own: the
+        # sync debug mode's warnings would weigh on the timed run
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                server.run_streaming_slam(relay_url, STREAM_SYNC_SCANS, cfg,
+                                          device=dev)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        # paced at the sensor's rate: the latency a user waits
+        ask(STREAM_PACE_S)
+        plat = []
+        paced_path, _ = server.run_streaming_slam(
+            relay_url, STREAM_PACED_SCANS, cfg, device=dev, latencies=plat)
+        _, t_row0 = ask("stop")
+    finally:
+        chain.join(30)
+        if chain.is_alive():
+            chain.kill()
+            chain.join()
+    final_states[title] = sstate
+    scans_per_s[title] = len(spath) / dt
+    require(n_relayed == len(ranges),
+            f"{title}: the relay relayed {n_relayed} requests")
+    require(used["K1"] > 0, f"{title} launched K1 no time")
+    # the protocol serves float32(round(v, 2)); both references get those
+    rounded = np.asarray([[round(float(v), 2) for v in row]
+                          for row in ranges], np.float32)
+    offline, _ = scan_matcher.run_host_loop(rounded, cfg, device=dev)
+    require(np.array_equal(spath, offline),
+            f"{title} differs from run_host_loop on the rounded ranges: max "
+            f"{np.abs(spath - offline).max()}")
+    orounded, _ = native.run_oracle_cfg(rounded, cfg)
+    require(np.array_equal(spath, orounded),
+            f"{title} differs from the oracle on the rounded ranges: max "
+            f"{np.abs(spath - orounded).max()}")
+    require(np.array_equal(paced_path, spath[:STREAM_PACED_SCANS]),
+            f"{title}: the paced stream's path differs from the unpaced one")
+
+    def pcts(ms):
+        return (f"p50 {np.percentile(ms, 50):.2f} ms p99 "
+                f"{np.percentile(ms, 99):.2f} ms")
+
+    arrival = np.asarray([(c - a) * 1e3 for a, _, c in lat])
+    step_ms = np.asarray([(c - b) * 1e3 for _, b, c in lat])
+    sensor = np.asarray([(c - t_row0 - t * STREAM_PACE_S) * 1e3
+                         for t, (_, _, c) in enumerate(plat, start=1)])
+    parrival = np.asarray([(c - a) * 1e3 for a, _, c in plat])
+    print(f"[15] {title} on cuda via ScanServer -> RelayServer (both in "
+          f"a process of their own), unpaced: "
+          f"{len(spath) / dt:.1f} scans/s ({dt:.2f} s); relayed {n_relayed}; "
+          f"bit-identical to run_host_loop and to the oracle on the "
+          f"protocol-rounded ranges; ATE {ate(spath, gt):.4f} m; with the "
+          f"{server.PREFETCH}-deep prefetch queue full: arrival -> pose on "
+          f"host {pcts(arrival)}, dequeue -> pose {pcts(step_ms)}; K1 "
+          f"launches {used['K1']}", flush=True)
+    print(f"[15] paced at {1 / STREAM_PACE_S:.0f} Hz (row N released at row "
+          f"0's time + N x {STREAM_PACE_S} s), {STREAM_PACED_SCANS} scans, "
+          f"path == the unpaced run's: latency row released -> pose on host "
+          f"{pcts(sensor)}; arrival -> pose {pcts(parrival)}; host syncs "
+          f"{syncs / (STREAM_SYNC_SCANS - 1):.2f} a scan (a "
+          f"{STREAM_SYNC_SCANS}-scan pass under the sync debug mode)",
+          flush=True)
+    phase_done("15")
+
+    # ---- 16. supervised PF-1024, museum-1000, with a wedge at scan 550
+    from lidar_slam_tpu_torch.utils import checkpoint, watchdog
+
+    title = "supervised PF-1024 museum-1000"
+    run_dir = os.path.join(_build.BUILD_DIR, "supervised_pf")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    reset_counts()
+    report = watchdog.run_supervised(
+        _wedging_pf_worker, (ranges, pcfg, 0, SUP_CKPT_EVERY, "cuda",
+                             SUP_WEDGE_AT), run_dir,
+        stall_timeout_s=SUP_STALL_S, max_restarts=1,
+        boot_grace_s=SUP_BOOT_GRACE_S)
+    require(report.completed and report.attempts == 2
+            and report.stalls == 1,
+            f"{title}: {report}")
+    spf = np.load(os.path.join(run_dir, watchdog.PATH_FILE))
+    require(np.array_equal(spf, ppath),
+            f"{title}: resumed path differs from phase 6's run_pf: max "
+            f"{np.abs(spf - ppath).max()}")
+    counts = {"K1": {}, "K2": {}}
+    for attempt in (1, 2):
+        with open(os.path.join(run_dir, f"launches_{attempt}.json")) as f:
+            for key, rows in json.load(f).items():
+                for shape, n in rows:
+                    counts[key][tuple(shape)] = (
+                        counts[key].get(tuple(shape), 0) + n)
+    path_counts[title] = counts
+    used = {k: sum(v.values()) for k, v in counts.items()}
+    require(used["K1"] > 0 and used["K2"] > 0,
+            f"{title}: the workers launched K1 {used['K1']} / K2 "
+            f"{used['K2']} times")
+    for k in used:
+        launches[k] += used[k]
+    final_states[title] = checkpoint.load_state(
+        os.path.join(run_dir, watchdog.CKPT_FILE),
+        fastslam.init_particles(torch.as_tensor(ranges[0], device=dev),
+                                pcfg, 99))
+    print(f"    launches by shape (K1: B,H,W; K2: B,T,half,S): {counts}",
+          flush=True)
+    print(f"[16] {title}: wedge injected at scan {SUP_WEDGE_AT} of attempt "
+          f"1, stall timeout {SUP_STALL_S:.0f} s, checkpoint every "
+          f"{SUP_CKPT_EVERY}: completed, attempts {report.attempts}, stalls "
+          f"{report.stalls}, crashes {report.crashes}; {report.seconds:.1f} s "
+          f"against phase 6's unsupervised {pf_seconds:.1f} s (restart cost "
+          f"{report.seconds - pf_seconds:.1f} s, the stall timeout and one "
+          f"more start-up and resume included); path == phase 6's run_pf "
+          f"(np.array_equal); launches K1 {used['K1']} K2 {used['K2']}",
+          flush=True)
+    phase_done("16")
+
+    # ---- 17. landmark BA at the graph backend's size (a 1536^2 reduced
+    # system), the museum landmark tour; the card against the CPU
+    from lidar_slam_tpu_torch.models import ba, state_io
+
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    bprob = ba.BAProblem(**simulate.generate_ba_problem(n_scans=1000))
+    bgpu = state_io.ba_problem_from_numpy(bprob, dev)
+    bcpu = state_io.ba_problem_from_numpy(bprob, "cpu")
+    e0 = float(ba.ba_error(bgpu))
+    bgo = ba.optimize_ba(bgpu, iters=BA_ITERS)
+    bco = ba.optimize_ba(bcpu, iters=BA_ITERS)
+    e1 = float(ba.ba_error(bgo))
+    bdiff = max(float((bgo.poses.cpu() - bco.poses).abs().max()),
+                float((bgo.landmarks.cpu() - bco.landmarks).abs().max()))
+    require(bdiff <= BA_CPU_CUDA_MAX, f"BA card vs CPU: max {bdiff}")
+    require(e1 < BA_ERROR_RATIO * e0, f"BA error {e1} >= {BA_ERROR_RATIO} "
+            f"x start {e0}")
+    final_states["BA museum K=512"] = bgo
+    ms_iter = cuda_time_ms(lambda: ba.optimize_ba(bgpu, iters=BA_ITERS),
+                           iters=3, warmup=1) / BA_ITERS
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ba.optimize_ba(bgpu, iters=BA_ITERS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    bsyncs = sum("synchroniz" in str(w.message) for w in caught)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ba.optimize_ba(bgpu, iters=BA_ITERS)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        t_dev = getattr(ev, "self_device_time_total", None)
+        if t_dev is None:
+            t_dev = ev.self_cuda_time_total
+        if t_dev > 0:
+            rows.append((t_dev, ev.count, ev.key))
+    rows.sort(reverse=True)
+    dev_ms = sum(r[0] for r in rows) / 1e3 / BA_ITERS
+    print(f"[17] BA device time {dev_ms:.3f} ms an iteration (profiler "
+          f"device rows); largest: " + "; ".join(
+              f"{k[:60]} {t / 1e3 / BA_ITERS:.3f} ms x{n // BA_ITERS}"
+              for t, n, k in rows[:6]), flush=True)
+    print(f"[17] BA museum K=512 ({int(bprob.pose_active.sum())} poses, "
+          f"{int(bprob.lm_active.sum())} landmarks, "
+          f"{int(bprob.obs_active.sum())} observations, "
+          f"{int(bprob.odo_active.sum())} odometry factors; 1536^2 reduced "
+          f"system), TF32 off: error {e0:.1f} -> {e1:.1f} "
+          f"({e1 / e0:.2%} of start, bar {BA_ERROR_RATIO:.0%}) in "
+          f"{BA_ITERS} iterations; card vs CPU max {bdiff:.3g} (bar "
+          f"{BA_CPU_CUDA_MAX}); {ms_iter:.3f} ms a GN iteration (CUDA "
+          f"events); host syncs {bsyncs / BA_ITERS:.2f} an iteration",
+          flush=True)
+    phase_done("17")
+
+    # ---- 17b. the robust pose graph, card against CPU: phase 8's loop-700
+    # graph plus one bad closure edge (2 m and 0.5 rad off); its Huber chi
+    # on the same inputs, card == CPU
+    from lidar_slam_tpu_torch.core import se2
+
+    lg = loop_gs.graph
+    n_kf = int(lg.n_nodes)
+    bad_z = se2.between(lg.poses[0], lg.poses[n_kf // 2]) + torch.tensor(
+        [2.0, -1.5, 0.5], device=dev)
+    lg = posegraph.add_edge(lg, 0, n_kf // 2, bad_z,
+                            torch.tensor([20.0, 20.0, 100.0], device=dev))
+    lg_cpu = type(lg)(*[t.cpu() for t in lg])
+    pg_card = posegraph.optimize(lg, iters=10, robust=True).poses
+    pg_again = posegraph.optimize(lg, iters=10, robust=True).poses
+    pg_cpu = posegraph.optimize(lg_cpu, iters=10, robust=True).poses
+    require(torch.equal(pg_card, pg_again),
+            "robust pose graph: two card runs differ")
+    pg_d = (pg_card.cpu() - pg_cpu).abs()[:n_kf]
+    require(float(pg_d.max()) <= PG_CPU_CUDA_MAX,
+            f"robust pose graph card vs CPU: max {float(pg_d.max())}")
+    # the chi on the CPU's inputs: this graph's edges at its start, then
+    # random weights and residuals
+    crng = np.random.default_rng(0)
+    cw = torch.cat([lg_cpu.edge_w * lg_cpu.edge_active.float()[:, None],
+                    torch.as_tensor(crng.uniform(1, 400, (CHI_ROWS, 3)),
+                                    dtype=torch.float32)])
+    cr = torch.cat([posegraph._edge_residual(
+        lg_cpu.poses[lg_cpu.edge_i.long()], lg_cpu.poses[lg_cpu.edge_j.long()],
+        lg_cpu.edge_z), torch.as_tensor(crng.normal(0, 0.5, (CHI_ROWS, 3)),
+                                        dtype=torch.float32)])
+    chi_cpu = posegraph._huber_chi(cw, cr)
+    chi_card = posegraph._huber_chi(cw.to(dev), cr.to(dev)).cpu()
+    require(torch.equal(chi_card, chi_cpu),
+            f"robust pose graph: the Huber chi differs card vs CPU in "
+            f"{int((chi_card != chi_cpu).sum())} of {len(chi_cpu)} rows")
+    q = torch.clamp((cw * cr * cr).sum(dim=1), min=1e-12)   # as the chi
+    chi_f32_off = int((torch.sqrt(q.to(dev)).cpu() != torch.sqrt(q)).sum())
+    print(f"[17b] robust pose graph, loop-700 ({n_kf} keyframes, "
+          f"{int(lg.n_edges)} edges with one bad closure), 10 iterations: "
+          f"card twice equal; card == CPU: "
+          f"{torch.equal(pg_card.cpu(), pg_cpu)}"
+          f", {int((pg_d > 0).sum())} of {pg_d.numel()} pose values differ, "
+          f"max {float(pg_d.max()):.3g} (bar {PG_CPU_CUDA_MAX}); Huber chi "
+          f"card == CPU on {len(chi_cpu)} rows (the graph's edges and "
+          f"{CHI_ROWS} random); an f32 sqrt would differ in {chi_f32_off}",
+          flush=True)
+    phase_done("17b")
+
+    # ---- 18. profiling and debug audit
+    from lidar_slam_tpu_torch.utils import debug, profiling
+
+    stages = profiling.pf_stage_profile(pcfg, n_scans=120, seed=0,
+                                        device=dev)
+    print("[18] pf_stage_profile (PF-1024, museum state after 120 scans; "
+          "CUDA-event ms a call, median of 5 reps of 10): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
+    for name, st in final_states.items():
+        bad = debug.validate_state(st, name)
+        require(bad == [], f"{name}: {bad}")
+    checked_step = debug.checked(scan_matcher.slam_step)
+    cstate = scan_matcher.init_state(torch.as_tensor(ranges[0], device=dev),
+                                     cfg)
+    for t in range(1, 21):
+        cstate, _ = checked_step(cstate, torch.as_tensor(ranges[t],
+                                                         device=dev),
+                                 cfg, angles)
+    require(debug.validate_state(cstate) == [], "checked steps left an "
+            "invalid state")
+    print(f"[18] validate_state == [] for the final state of all "
+          f"{len(final_states)} main paths ({', '.join(final_states)}); "
+          f"debug.checked(slam_step) ran 20 museum scans clean", flush=True)
+    phase_done("18")
+
+    # every launch count is summed over the main paths (phases 5, 6, 8-16)
     kernels = []
     for key, name, source, replaces, err in (
             ("K1", "K1 clamped EDT", K1_SOURCE, K1_REPLACES, k1_err),

@@ -5,7 +5,8 @@
 package's own file name for the same, byte-identical arrays, so either
 package may write the cache and both read it. The write goes through a
 temporary file and an atomic rename, so concurrent test workers never read a
-half-written cache.
+half-written cache. ``save_csv``/``load_csv`` write and read the
+reference's CSV format (``native.read_csv`` is the fast reader).
 """
 
 from __future__ import annotations
@@ -17,6 +18,16 @@ import numpy as np
 
 DEFAULT_DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "..", "data")
+
+
+def save_csv(path: str, ranges: np.ndarray) -> None:
+    """One scan a row, comma-separated, six decimals: the reference's
+    dataset format (main.c:22-30), as the JAX package writes it."""
+    np.savetxt(path, ranges, fmt="%.6f", delimiter=",")
+
+
+def load_csv(path: str) -> np.ndarray:
+    return np.loadtxt(path, delimiter=",", dtype=np.float32, ndmin=2)
 
 
 def ensure_dataset(n_scans: int = 1000, seed: int = 0,

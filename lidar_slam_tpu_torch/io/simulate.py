@@ -1,7 +1,7 @@
 """Synthetic lidar datasets, in numpy (counterpart of the scan synthesizer
 of ``lidar_slam_tpu.io.simulate``): the museum, loop, corridor and
-building tours, and the known-association landmark datasets of the EKF
-family.
+building tours, the known-association landmark datasets of the EKF
+family, and a landmark bundle-adjustment problem on the museum tour.
 
 The JAX package's synthesizer is numpy too, but it cannot be imported
 without JAX: ``lidar_slam_tpu/io/__init__.py`` imports ``simulate``, which
@@ -322,3 +322,76 @@ def generate_ekf_dataset(n_scans: int = 500, seed: int = 0,
         odom[t - 1, 1] = sp * d[0] + cp * d[1] + rng.normal(0, odo_xy_noise)
         odom[t - 1, 2] = gt[t, 2] - gt[t - 1, 2] + rng.normal(0, odo_th_noise)
     return odom, obs, vis, gt, lms_rel
+
+
+BA_POSE_STRIDE = 2        # every second pose of the tour fills a pose slot
+BA_LANDMARK_SLOTS = 64
+BA_LANDMARK_NOISE = 0.3   # m, the landmarks' start off the truth
+
+
+def generate_ba_problem(n_scans: int = 1000, kmax: int = 512,
+                        fmax: int = 8192, emax: int = 512) -> dict:
+    """A landmark bundle-adjustment problem on the museum tour's landmark
+    dataset (``generate_ekf_dataset``, seed 0), as numpy arrays keyed by
+    the fields of ``models.ba.BAProblem``.
+
+    Every second pose fills a pose slot (``kmax``); the 12 landmarks fill
+    the first of 64 landmark slots; the visible observations at the kept
+    poses fill the observation slots (``fmax``), weighted by the dataset's
+    range/bearing noise. Odometry factors (``emax`` slots) join consecutive
+    kept poses: the ground truth's relative pose plus Gaussian noise of the
+    dataset's odometry sigmas (summed over two scans), weighted by the
+    inverse variance. Poses start from those measurements chained, landmarks
+    from the truth plus 0.3 m of noise. Ground truth, observations and
+    landmarks are all in the scan-0 frame."""
+    odo_sig = np.asarray([0.004, 0.004, 0.0015]) * np.sqrt(BA_POSE_STRIDE)
+    obs_sig = np.asarray([0.03, 0.01])     # generate_landmark_observations
+    _, obs, vis, gt, lms = generate_ekf_dataset(n_scans=n_scans, seed=0)
+    rng = np.random.default_rng(11)
+    keep = np.arange(0, n_scans, BA_POSE_STRIDE)[:kmax]
+    k, n_lm = len(keep), len(lms)
+    gt_k = gt[keep].astype(np.float64)
+    a, b = gt_k[:-1], gt_k[1:]             # standard-convention a (-) b
+    c, s = np.cos(a[:, 2]), np.sin(a[:, 2])
+    dth = b[:, 2] - a[:, 2]
+    z = np.stack([c * (b[:, 0] - a[:, 0]) + s * (b[:, 1] - a[:, 1]),
+                  -s * (b[:, 0] - a[:, 0]) + c * (b[:, 1] - a[:, 1]),
+                  dth - 2 * np.pi * np.floor((dth + np.pi) / (2 * np.pi))],
+                 axis=1) + rng.normal(0, odo_sig, (k - 1, 3))
+    poses = np.zeros((kmax, 3), np.float64)
+    poses[0] = gt_k[0]
+    for e in range(k - 1):      # chain the measurements (se2.compose)
+        c, s = np.cos(poses[e, 2]), np.sin(poses[e, 2])
+        poses[e + 1] = [poses[e, 0] + c * z[e, 0] - s * z[e, 1],
+                        poses[e, 1] + s * z[e, 0] + c * z[e, 1],
+                        poses[e, 2] + z[e, 2]]
+    landmarks = np.zeros((BA_LANDMARK_SLOTS, 2), np.float32)
+    landmarks[:n_lm] = lms + rng.normal(0, BA_LANDMARK_NOISE, lms.shape)
+    pi, lj = np.nonzero(vis[keep])
+    f = len(pi)
+    if f > fmax or k - 1 > emax or n_lm > BA_LANDMARK_SLOTS:
+        raise ValueError(f"{f} observations, {k - 1} odometry factors, "
+                         f"{n_lm} landmarks exceed the slots")
+
+    def slots(n, cap, fill, dtype=np.int32, width=None):
+        shape = (cap,) if width is None else (cap, width)
+        out = np.zeros(shape, dtype)
+        out[:n] = fill
+        return out
+
+    f32 = np.float32
+    return dict(
+        poses=poses.astype(f32), landmarks=landmarks,
+        pose_active=np.arange(kmax) < k,
+        lm_active=np.arange(BA_LANDMARK_SLOTS) < n_lm,
+        odo_i=slots(k - 1, emax, np.arange(k - 1)),
+        odo_j=slots(k - 1, emax, np.arange(1, k)),
+        odo_z=slots(k - 1, emax, z, f32, 3),
+        odo_w=np.broadcast_to((1.0 / odo_sig ** 2).astype(f32),
+                              (emax, 3)).copy(),
+        odo_active=np.arange(emax) < k - 1,
+        obs_i=slots(f, fmax, pi), obs_j=slots(f, fmax, lj),
+        obs_z=slots(f, fmax, obs[keep][pi, lj], f32, 2),
+        obs_w=np.broadcast_to((1.0 / obs_sig ** 2).astype(f32),
+                              (fmax, 2)).copy(),
+        obs_active=np.arange(fmax) < f)

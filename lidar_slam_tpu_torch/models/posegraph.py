@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from lidar_slam_tpu_torch.core import se2
-from lidar_slam_tpu_torch.device import resolve_device
+from lidar_slam_tpu_torch.device import resolve_device, rounded64
 
 
 class PoseGraph(NamedTuple):
@@ -119,6 +119,17 @@ def _edge_jacobians(xi: torch.Tensor, xj: torch.Tensor
     return ji, jj
 
 
+def _huber_chi(wmask: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Each edge's weighted residual norm ||r||_W, the same bits on the card
+    as on the CPU: its three terms added left to right, as the CPU's row
+    sum adds them (the card's reduction adds in another order), and the
+    sqrt taken in float64 and rounded once (the card's f32 sqrt is not
+    correctly rounded; the CPU's is, and equals this)."""
+    q = wmask * r * r
+    return rounded64(torch.sqrt, torch.clamp(q[:, 0] + q[:, 1] + q[:, 2],
+                                             min=1e-12))
+
+
 def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-4,
              robust: bool = True, huber_delta: float = 3.0) -> PoseGraph:
     """Damped Gauss-Newton over all active nodes and edges, fixed shapes.
@@ -141,8 +152,7 @@ def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-4,
         r = _edge_residual(xi, xj, g.edge_z)
         wmask = g.edge_w * active
         if robust:
-            chi = torch.sqrt(torch.clamp((wmask * r * r).sum(dim=1),
-                                         min=1e-12))
+            chi = _huber_chi(wmask, r)
             wmask = wmask * torch.clamp(huber_delta / chi, max=1.0)[:, None]
         wji = wmask[:, :, None] * ji
         wjj = wmask[:, :, None] * jj

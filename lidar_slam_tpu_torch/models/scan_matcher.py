@@ -74,8 +74,12 @@ def init_state(ranges0: torch.Tensor, cfg: SlamConfig,
 
 
 def slam_step(state: SlamState, ranges: torch.Tensor, cfg: SlamConfig,
-              angles: torch.Tensor) -> tuple[SlamState, torch.Tensor]:
-    """Process one scan; returns (new_state, pose)."""
+              angles: torch.Tensor, pose_to_host: bool = False
+              ) -> tuple[SlamState, torch.Tensor | np.ndarray]:
+    """Process one scan; returns (new_state, pose). With ``pose_to_host``
+    the pose comes back as a numpy array in the same device->host copy as
+    the keyframe test, so a host loop that needs every pose pays one sync a
+    scan, not two."""
     g, m, mc = cfg.grid, cfg.map, cfg.matcher
     scan = sensor.read_scan(ranges, angles, cfg.lidar)
 
@@ -113,8 +117,13 @@ def slam_step(state: SlamState, ranges: torch.Tensor, cfg: SlamConfig,
 
     # --- mini-update rule (main.c:928-961); the one host sync of the step
     dp = torch.abs(new_pose - state.pmap.keyframe_pose)
-    moved = bool(((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
-                  | (dp[2] > m.mini_update_dr)).item())
+    test = ((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
+            | (dp[2] > m.mini_update_dr))
+    if pose_to_host:
+        host = torch.cat([new_pose, test.to(new_pose.dtype)[None]]).cpu()
+        moved, out_pose = bool(host[3]), host[:3].numpy()
+    else:
+        moved, out_pose = bool(test.item()), new_pose
     pmap = state.pmap
     if moved:
         # Without a refresh this step the C code re-transforms the scan with
@@ -132,7 +141,7 @@ def slam_step(state: SlamState, ranges: torch.Tensor, cfg: SlamConfig,
         mini_updated=moved, pmap=pmap, coarse=coarse, fine=fine,
         coarse_metric=coarse_metric, fine_metric=fine_metric,
         scan_wx=scan_wx, scan_wy=scan_wy)
-    return new_state, new_pose
+    return new_state, out_pose
 
 
 def _as_ranges(ranges_all, device) -> torch.Tensor:
@@ -150,8 +159,9 @@ def run_host_loop(ranges_all: np.ndarray, cfg: SlamConfig,
     state = init_state(ranges[0], cfg)
     poses = [np.zeros(3, np.float32)]
     for t in range(1, ranges.shape[0]):
-        state, pose = slam_step(state, ranges[t], cfg, angles)
-        poses.append(pose.cpu().numpy())
+        state, pose = slam_step(state, ranges[t], cfg, angles,
+                                pose_to_host=True)
+        poses.append(pose)
     return np.stack(poses), state
 
 

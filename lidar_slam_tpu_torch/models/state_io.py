@@ -1,8 +1,8 @@
 """Conversion between the JAX package's states and the port's.
 
 The JAX package's ``SlamState``, ``ParticleState``, ``PoseGraph``,
-``KeyframeStore``, ``EkfSlamState``, ``HybridState``, ``SubmapAtlas`` and
-``SubmapSlamState`` are pytrees of arrays;
+``KeyframeStore``, ``EkfSlamState``, ``HybridState``, ``SubmapAtlas``,
+``SubmapSlamState`` and ``BAProblem`` are pytrees of arrays;
 passed through ``numpy.asarray`` leaf by leaf they become plain numpy
 trees with the same field names. These functions turn such a tree into the
 port's state on a given device, and a port state back into numpy arrays
@@ -18,6 +18,8 @@ import torch
 
 from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap
 from lidar_slam_tpu_torch.core.submap import SubmapAtlas
+from lidar_slam_tpu_torch.device import resolve_device
+from lidar_slam_tpu_torch.models.ba import BAProblem
 from lidar_slam_tpu_torch.models.ekf_hybrid import HybridState
 from lidar_slam_tpu_torch.models.ekf_slam import EkfSlamState
 from lidar_slam_tpu_torch.models.fastslam import ParticleState
@@ -230,6 +232,27 @@ def submap_state_from_numpy(s, device) -> SubmapSlamState:
         fine_metric=_t(s.fine_metric, device, torch.float32),
         scan_wx=_t(s.scan_wx, device, torch.float32),
         scan_wy=_t(s.scan_wy, device, torch.float32))
+
+
+_BA_DTYPES = dict(poses=np.float32, landmarks=np.float32, pose_active=bool,
+                  lm_active=bool, odo_i=np.int32, odo_j=np.int32,
+                  odo_z=np.float32, odo_w=np.float32, odo_active=bool,
+                  obs_i=np.int32, obs_j=np.int32, obs_z=np.float32,
+                  obs_w=np.float32, obs_active=bool)
+
+
+def ba_problem_from_numpy(p, device: str | torch.device = "cuda"
+                          ) -> BAProblem:
+    """A ``BAProblem`` with numpy leaves (either package's) -> the port's
+    on ``device`` (``"cuda"`` by default; raises without a card)."""
+    device = resolve_device(device)
+    return BAProblem(**{f: _t(np.asarray(getattr(p, f), dt), device)
+                        for f, dt in _BA_DTYPES.items()})
+
+
+def ba_problem_to_numpy(p: BAProblem) -> BAProblem:
+    """The port's ``BAProblem`` -> numpy arrays with the JAX dtypes."""
+    return BAProblem(**{f: _n(getattr(p, f)) for f in BAProblem._fields})
 
 
 def submap_state_to_numpy(s: SubmapSlamState) -> SubmapSlamState:

@@ -5,7 +5,8 @@ the fidelity pipeline is held to, bit for bit. The JAX package ships it
 prebuilt with ``-march=native`` for the machine it was built on; this module
 compiles the same source with the same flags into the port's build
 directory (``_build/``) on the machine at hand and calls it through the same
-plain C interface, without importing the JAX package.
+plain C interface, without importing the JAX package. The library's CSV
+reader is the fast dataset ingest (``read_csv``).
 """
 
 from __future__ import annotations
@@ -41,12 +42,17 @@ def load_oracle() -> ctypes.CDLL:
         lib.tpuslam_run_cfg.argtypes = [
             f, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, f, f, ctypes.c_int]
+        lib.tpuslam_read_csv.restype = ctypes.c_int
+        lib.tpuslam_read_csv.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                         ctypes.c_int, f]
         _oracle = lib
     return _oracle
 
 
-def run_oracle_cfg(ranges: np.ndarray, cfg) -> tuple[np.ndarray, np.ndarray]:
-    """Run the oracle with the sizes of a ``SlamConfig``. Returns
+def run_oracle_cfg(ranges: np.ndarray, cfg, use_naive_edt: bool = False
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Run the oracle with the sizes of a ``SlamConfig``; ``use_naive_edt``
+    selects the library's brute-force EDT over its separable one. Returns
     (path (T, 3) f32, map (M, 2) f32)."""
     lib = load_oracle()
     ranges = np.ascontiguousarray(ranges, np.float32)
@@ -55,8 +61,22 @@ def run_oracle_cfg(ranges: np.ndarray, cfg) -> tuple[np.ndarray, np.ndarray]:
     path = np.zeros((t, 3), np.float32)
     omap = np.zeros((cap, 2), np.float32)
     fp = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-    msize = lib.tpuslam_run_cfg(fp(ranges), t, n_beams, 0,
+    msize = lib.tpuslam_run_cfg(fp(ranges), t, n_beams, int(use_naive_edt),
                                 ctypes.c_float(cfg.lidar.usable_range),
                                 cfg.grid.coarse_size, cfg.grid.fine_size, cap,
                                 fp(path), fp(omap), cap)
     return path, omap[:msize]
+
+
+def read_csv(path: str, n_rows: int, n_cols: int = 1079) -> np.ndarray:
+    """Parse up to ``n_rows`` rows of ``n_cols`` comma-separated floats with
+    the oracle library's reader (``tpuslam_read_csv``); (rows read, n_cols)
+    f32. Raises ``FileNotFoundError`` when the file cannot be opened."""
+    lib = load_oracle()
+    out = np.zeros((n_rows, n_cols), np.float32)
+    got = lib.tpuslam_read_csv(os.fsencode(path), n_rows, n_cols,
+                               out.ctypes.data_as(
+                                   ctypes.POINTER(ctypes.c_float)))
+    if got < 0:
+        raise FileNotFoundError(path)
+    return out[:got]

@@ -1,5 +1,6 @@
-"""Map and trajectory rendering of the port (``render_map``, a copy of the
-JAX package's, so the port imports nothing of it).
+"""Map and trajectory rendering of the port (``render_map`` and
+``map_to_csv``, copies of the JAX package's, so the port imports nothing of
+it).
 
 The rendered floor map — magenta points on black, the reference's MATLAB
 scatter style (``matlab_map_test.m``) — with the estimated and ground-truth
@@ -37,4 +38,10 @@ def render_map(map_xy: np.ndarray, path: np.ndarray | None = None,
         ax.set_title(title, color="white")
     fig.savefig(out_path, dpi=130, facecolor="black", bbox_inches="tight")
     plt.close(fig)
+    return out_path
+
+
+def map_to_csv(map_xy: np.ndarray, out_path: str = "map_output.csv") -> str:
+    """The reference's output artifact format (main.c:982-988): x,y a line."""
+    np.savetxt(out_path, np.asarray(map_xy), fmt="%f", delimiter=",")
     return out_path

@@ -86,6 +86,9 @@ def test_no_import_of_jax_package_in_sources():
             found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
                       for n in names if _forbidden(n)]
     assert len(_port_sources()) > 20
+    names = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {"models/ba.py", "io/server.py", "utils/checkpoint.py",
+            "utils/watchdog.py", "utils/debug.py", "utils/tree.py"} <= names
     assert found == []
 
 
@@ -111,6 +114,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert "lidar_slam_tpu_torch.ops.cuda_match" in got["imported"]
-    assert "lidar_slam_tpu_torch.utils.viz" in got["imported"]
+    for mod in ("ops.cuda_match", "utils.viz", "models.ba", "io.server",
+                "utils.checkpoint", "utils.watchdog", "utils.debug",
+                "utils.profiling", "utils.tree"):
+        assert f"lidar_slam_tpu_torch.{mod}" in got["imported"], mod
     assert [m for m in got["new"] if _forbidden(m)] == []

@@ -475,3 +475,150 @@ def test_submap_cuda_equals_cpu(cuda):
     for f in ("pts", "sizes", "anchors"):
         assert torch.equal(getattr(gstate.atlas, f).cpu(),
                            getattr(cstate.atlas, f)), f
+
+
+# -- landmark BA, the robust pose graph, checkpoint/resume and streaming on
+# the card
+
+def test_ba_cuda_matches_cpu(cuda):
+    """The museum BA problem (K = 512 slots, a 1536^2 reduced system) on
+    the card and on the CPU, 15 iterations, TF32 off: within 1e-4."""
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import ba, state_io
+
+    prob = ba.BAProblem(**simulate.generate_ba_problem())
+    assert not torch.backends.cuda.matmul.allow_tf32
+    got = ba.optimize_ba(state_io.ba_problem_from_numpy(prob, cuda), 15)
+    want = ba.optimize_ba(state_io.ba_problem_from_numpy(prob, "cpu"), 15)
+    assert (got.poses.cpu() - want.poses).abs().max() <= 1e-4
+    assert (got.landmarks.cpu() - want.landmarks).abs().max() <= 1e-4
+    assert float(ba.ba_error(got)) < 0.05 * float(ba.ba_error(
+        state_io.ba_problem_from_numpy(prob, cuda)))
+
+
+def _loop_graph(device, seed=0):
+    """A pose graph over the loop-700 tour's keyframes (every 7th pose of
+    its trajectory): noisy odometry edges, closure edges between revisits,
+    and one bad closure edge 2 m and 0.5 rad off."""
+    from lidar_slam_tpu_torch.core import se2
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import posegraph
+
+    rng = np.random.default_rng(seed)
+    traj = simulate.smooth_trajectory(simulate.LOOP_WAYPOINTS,
+                                      speed=0.35)[:700:7]
+    gt = torch.as_tensor(traj, dtype=torch.float32)
+    k = len(gt)
+    g = posegraph.empty_graph(128, 256, device="cpu")
+    noise = torch.as_tensor(rng.normal(0, [0.02, 0.02, 0.005], (k, 3)),
+                            dtype=torch.float32)
+    pose = gt[0]
+    for i in range(k):
+        g, _ = posegraph.add_node(g, pose)
+        if i + 1 < k:
+            z = se2.between(gt[i], gt[i + 1]) + noise[i]
+            g = posegraph.add_edge(g, i, i + 1, z,
+                                   torch.tensor([50., 50., 400.]))
+            pose = se2.compose(pose, z)
+    closures = [(i, j) for i in range(k) for j in range(i + 20, k)
+                if float(torch.dist(gt[i, :2], gt[j, :2])) < 1.0][::5][:12]
+    assert len(closures) >= 4
+    for n, (i, j) in enumerate(closures):
+        z = se2.between(gt[i], gt[j])
+        if n == 0:
+            z = z + torch.tensor([2.0, -1.5, 0.5])   # the bad closure
+        g = posegraph.add_edge(g, i, j, z, torch.tensor([20., 20., 100.]))
+    return type(g)(*[t.to(device) for t in g])
+
+
+def test_robust_posegraph_cuda_is_deterministic_and_near_cpu(cuda):
+    """``optimize(robust=True)`` on a loop graph with one bad closure: two
+    runs on the card give the same bits (the float64 assembly), and the
+    card's poses are within 2e-6 of the CPU's after 10 iterations. Not bit
+    for bit: the card's f32 cos/sin and the f32 LU of cuSOLVER round
+    differently from the CPU's (``python -m
+    lidar_slam_tpu_torch.utils.rounding`` counts how often)."""
+    from lidar_slam_tpu_torch.models import posegraph
+
+    want = posegraph.optimize(_loop_graph("cpu"), iters=10, robust=True)
+    got = posegraph.optimize(_loop_graph(cuda), iters=10, robust=True)
+    again = posegraph.optimize(_loop_graph(cuda), iters=10, robust=True)
+    assert torch.equal(got.poses, again.poses)
+    assert (got.poses.cpu() - want.poses).abs().max() <= 2e-6
+    assert float(posegraph.graph_error(got)) == pytest.approx(
+        float(posegraph.graph_error(want)), rel=1e-5)
+
+
+def test_huber_chi_cuda_equals_cpu(cuda):
+    """The robust weights' chi on the same inputs, card == CPU bit for bit:
+    the loop graph's edges and 100000 random rows. Its sqrt is taken in
+    float64 and rounded once; the card's f32 sqrt would differ from the
+    CPU's in about 0.7% of the rows."""
+    from lidar_slam_tpu_torch.models import posegraph
+
+    g = _loop_graph("cpu")
+    rng = np.random.default_rng(1)
+    w = torch.cat([g.edge_w * g.edge_active.float()[:, None],
+                   torch.as_tensor(rng.uniform(1, 400, (100000, 3)),
+                                   dtype=torch.float32)])
+    r = torch.cat([posegraph._edge_residual(g.poses[g.edge_i.long()],
+                                            g.poses[g.edge_j.long()],
+                                            g.edge_z),
+                   torch.as_tensor(rng.normal(0, 0.5, (100000, 3)),
+                                   dtype=torch.float32)])
+    assert torch.equal(posegraph._huber_chi(w.to(cuda), r.to(cuda)).cpu(),
+                       posegraph._huber_chi(w, r))
+
+
+def test_pf_checkpoint_on_the_card_resumes_bit_identical(cuda, tmp_path):
+    """PF-256 on the card: 30 scans, save, restore into a CUDA template of
+    another seed, 20 more scans: path and state equal the unbroken run's,
+    the CUDA generator included; a CPU template refuses the CUDA state."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, ParticleConfig
+    from lidar_slam_tpu_torch.models import fastslam, scan_matcher
+    from lidar_slam_tpu_torch.utils import checkpoint
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG,
+                              particles=ParticleConfig(n_particles=256))
+    ranges, _ = _museum(51)
+    r = torch.as_tensor(ranges, device=cuda)
+    angles = scan_matcher.angles_tensor(cfg, cuda)
+    state = fastslam.init_particles(r[0], cfg, seed=0)
+    for t in range(1, 31):
+        state, _ = fastslam.pf_step(state, r[t], cfg, angles)
+    ckpt = str(tmp_path / "pf.npz")
+    checkpoint.save_state(ckpt, state)
+    restored = checkpoint.load_state(ckpt,
+                                     fastslam.init_particles(r[0], cfg, 7))
+    for t in range(31, 51):
+        restored, pose_r = fastslam.pf_step(restored, r[t], cfg, angles)
+        state, pose_c = fastslam.pf_step(state, r[t], cfg, angles)
+        assert torch.equal(pose_r, pose_c)
+    for f in ("poses", "prev_poses", "logw", "fine_metric"):
+        assert torch.equal(getattr(restored, f), getattr(state, f)), f
+    with pytest.raises(ValueError, match="cuda generator's state"):
+        checkpoint.load_state(ckpt, fastslam.init_particles(r[0].cpu(), cfg))
+
+
+def test_streaming_on_the_card_equals_offline(cuda):
+    """30 museum scans streamed through a relay to the card equal
+    ``run_host_loop`` on the card on the protocol-rounded ranges."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import server
+    from lidar_slam_tpu_torch.models import scan_matcher
+
+    ranges, _ = _museum(30)
+    srv = server.ScanServer(ranges).start()
+    relay = server.RelayServer(srv.url).start()
+    try:
+        got, _ = server.run_streaming_slam(relay.url, 30, DEFAULT_CONFIG,
+                                           device=cuda)
+    finally:
+        relay.stop()
+        srv.stop()
+    rounded = np.asarray([[round(float(v), 2) for v in row]
+                          for row in ranges], np.float32)
+    want, _ = scan_matcher.run_host_loop(rounded, DEFAULT_CONFIG, device=cuda)
+    assert np.array_equal(got, want)

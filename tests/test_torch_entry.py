@@ -6,9 +6,11 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+import _torch_util  # noqa: F401  (caps torch's threads)
 import lidar_slam_tpu_torch
 from lidar_slam_tpu_torch import _build
 from lidar_slam_tpu_torch.device import resolve_device
@@ -48,6 +50,10 @@ _BLOCK_JAX = (
      "cpu"],
     ["run", "--mode", "submap-graph", "--loop", "--scans", "40", "--device",
      "cpu"],
+    ["run", "--mode", "pf", "--scans", "10", "--particles", "32",
+     "--device", "cpu", "--debug-checks"],
+    ["run", "--mode", "graph", "--loop", "--scans", "40", "--device", "cpu",
+     "--debug-checks"],
 ])
 def test_cli_runs_with_jax_blocked(args):
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=REPO)
@@ -59,6 +65,111 @@ def test_cli_runs_with_jax_blocked(args):
         assert "loop closures" in res.stdout
     if args[2].startswith("submap"):
         assert "submaps" in res.stdout
+    if "--debug-checks" in args:
+        assert "debug-checks: all state invariants hold" in res.stdout
+
+
+def _cli(args, cwd, timeout=300):
+    """The port's CLI in a subprocess with JAX blocked."""
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _BLOCK_JAX, *args], cwd=cwd,
+                         env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return res.stdout
+
+
+def test_cli_simulate_then_run_on_the_csv(tmp_path):
+    """``simulate`` writes a CSV (and its ground truth); ``run --dataset``
+    reads it through the native reader, ``--out-map`` writes the map; the
+    CSV path equals the synthesized tour's to the CSV's six decimals."""
+    csv = str(tmp_path / "tour.csv")
+    out = _cli(["simulate", "--scans", "15", "--out", csv], tmp_path)
+    assert f"wrote 15 scans to {csv}" in out
+    gt = np.loadtxt(str(tmp_path / "tour_gt.csv"), delimiter=",")
+    assert gt.shape == (15, 3)
+    map_csv = str(tmp_path / "map.csv")
+    out = _cli(["run", "--mode", "fidelity", "--dataset", csv, "--device",
+                "cpu", "--out-map", map_csv], tmp_path)
+    assert "fidelity: 15 scans" in out and "ATE" not in out
+    pts = np.loadtxt(map_csv, delimiter=",")
+    assert pts.ndim == 2 and pts.shape[1] == 2 and len(pts) > 100
+    assert f"map ({len(pts)} points) -> {map_csv}" in out
+
+
+def test_cli_oracle(tmp_path):
+    map_csv = str(tmp_path / "omap.csv")
+    out = _cli(["oracle", "--scans", "20", "--out-map", map_csv], REPO)
+    assert "oracle: 20 scans" in out and "(separable EDT)" in out
+    assert "ATE vs ground truth" in out
+    naive = _cli(["oracle", "--scans", "20", "--naive-edt"], REPO)
+    assert "(naive EDT)" in naive
+    # both EDTs give the same trajectory, so the same ATE line
+    ate_line = [l for l in out.splitlines() if l.startswith("ATE")]
+    assert ate_line == [l for l in naive.splitlines() if l.startswith("ATE")]
+    assert np.loadtxt(map_csv, delimiter=",").shape[1] == 2
+
+
+def test_cli_checkpoint_then_resume(tmp_path):
+    """``--checkpoint`` after 12 scans, then ``--resume`` over 20: the
+    resumed run starts at scan 12 and reports ATE over the resumed scans."""
+    ckpt = str(tmp_path / "pf.npz")
+    common = ["run", "--mode", "pf", "--particles", "32", "--device", "cpu"]
+    out = _cli(common + ["--scans", "12", "--checkpoint", ckpt], REPO)
+    assert f"checkpoint -> {ckpt}" in out
+    out = _cli(common + ["--scans", "20", "--resume", ckpt], REPO)
+    assert f"resumed from {ckpt} at scan 12" in out
+    assert "pf: 20 scans" in out and "ATE vs ground truth" in out
+
+
+def test_cli_supervised(tmp_path):
+    run_dir = str(tmp_path / "run")
+    out = _cli(["run", "--mode", "pf", "--particles", "32", "--scans", "10",
+                "--device", "cpu", "--supervised", "--run-dir", run_dir,
+                "--stall-timeout", "300"], REPO)
+    assert "supervised run: completed=True attempts=1 stalls=0" in out
+    assert "pf: 10 scans" in out and "ATE vs ground truth" in out
+    assert os.path.exists(os.path.join(run_dir, "state.npz"))
+
+
+def test_cli_debug_checks_exit_2_on_a_violation(monkeypatch, capsys):
+    from lidar_slam_tpu_torch.__main__ import main
+    from lidar_slam_tpu_torch.utils import debug
+
+    monkeypatch.setattr(debug, "validate_state",
+                        lambda state, name: [f"{name}.pose: injected"])
+    rc = main(["run", "--mode", "fidelity", "--scans", "5", "--device",
+               "cpu", "--debug-checks"])
+    assert rc == 2
+    assert "DEBUG-CHECKS FAILED" in capsys.readouterr().out
+
+
+def test_cli_serve_answers_a_fetch(tmp_path):
+    """``serve`` in a subprocess answers one ``fetch_scan`` with the tour's
+    row rounded as the protocol rounds it; then it is killed."""
+    import socket
+
+    from lidar_slam_tpu_torch.io import dataset, server
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _BLOCK_JAX, "serve", "--scans", "12",
+         "--port", str(port)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert f"serving 12 scans at http://127.0.0.1:{port}" in line, (
+            line, proc.stderr.read() if proc.poll() is not None else "")
+        row = server.fetch_scan(f"http://127.0.0.1:{port}", 5)
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+    ranges, _ = dataset.ensure_dataset(n_scans=12, seed=0)
+    assert np.array_equal(row, np.asarray([round(float(v), 2)
+                                           for v in ranges[5]], np.float32))
 
 
 def _imported_modules(path):
@@ -108,7 +219,10 @@ def _entry_calls():
                                              graph_slam, pf_graph_slam,
                                              posegraph, scan_matcher,
                                              submap_graph_slam, submap_slam)
-    from lidar_slam_tpu_torch.utils import paging
+    from lidar_slam_tpu_torch.io import server, simulate
+    from lidar_slam_tpu_torch.models import ba, state_io
+    from lidar_slam_tpu_torch.utils import (paging, profiling, rounding,
+                                            watchdog)
 
     ranges = np.full((2, DEFAULT_CONFIG.lidar.n_beams), 5.0, np.float32)
     ecfg = ekf_slam.EkfSlamConfig(n_particles=4)
@@ -136,6 +250,16 @@ def _entry_calls():
         "PFGraphSlam": lambda: pf_graph_slam.PFGraphSlam(DEFAULT_CONFIG),
         "GraphSlam": lambda: graph_slam.GraphSlam(DEFAULT_CONFIG),
         "empty_graph": lambda: posegraph.empty_graph(4, 4),
+        "run_streaming_slam": lambda: server.run_streaming_slam(
+            "http://127.0.0.1:1", 2, DEFAULT_CONFIG),
+        "run_pf_supervised": lambda: watchdog.run_pf_supervised(
+            ranges, DEFAULT_CONFIG, "unused-run-dir"),
+        "pf_stage_profile": lambda: profiling.pf_stage_profile(n_scans=2),
+        "StageTimer": lambda: profiling.StageTimer(),
+        "ba_problem_from_numpy": lambda: state_io.ba_problem_from_numpy(
+            ba.BAProblem(**simulate.generate_ba_problem(
+                n_scans=20, kmax=16, fmax=256, emax=16))),
+        "rounding_differences": lambda: rounding.rounding_differences(),
     }
 
 
@@ -144,7 +268,11 @@ def _entry_calls():
                                    "empty_graph", "run_ekf_slam",
                                    "run_ekf_slam_scan", "run_ekf_hybrid",
                                    "submap_run_scan", "submap_run_host_loop",
-                                   "run_host_loop_paged", "SubmapGraphSlam"])
+                                   "run_host_loop_paged", "SubmapGraphSlam",
+                                   "run_streaming_slam", "run_pf_supervised",
+                                   "pf_stage_profile", "StageTimer",
+                                   "ba_problem_from_numpy",
+                                   "rounding_differences"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Without a card, every entry point's default device raises; nothing
     quietly runs on the CPU."""
