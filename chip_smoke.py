@@ -7,12 +7,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100 and a CUDA
 toolkit (``nvcc``). It builds both hand-written kernels from
 ``lidar_slam_tpu_torch/csrc/``, holds each against its plain PyTorch version
 on the card, drives the port's main path (the fidelity pipeline and the
-1024-particle filter on the 1000-scan museum tour; graph SLAM with loop
-closure on the 700-scan loop and the 3800-scan building tours; the
-particle-filter frontend with loop closure on the loop; the scan-driven
-landmark EKF and the hybrid grid + landmark filter at 1024 particles, the
-submap atlas pipeline and the submap graph backend) and checks the
-results:
+1024- and 10240-particle filters on the 1000-scan museum tour; fidelity
+and graph SLAM with loop closure on the 700-scan loop and the 3800-scan
+building tours; the particle-filter frontend with loop closure on both;
+the scan-driven landmark EKF and the hybrid grid + landmark filter at 1024
+particles, the submap atlas pipeline and the submap graph backend; the
+parallel layer on an NCCL world of one) and checks the results:
 
 1. card name and power limit (``nvidia-smi``); TF32 switched off;
 2. kernel build (one nvcc a source, in parallel; sm_90a, --fmad=false) and
@@ -24,6 +24,7 @@ results:
 5. fidelity, museum-1000: trajectory bit-identical to the C++ oracle;
 6. PF-1024, museum-1000: ATE < 0.15 m; then 100 scans on the card and on
    the CPU with the same numpy-made draws, max |pose difference| <= 1e-3;
+   6b. PF-10240, museum-1000 (bench.py's stage_pf10240): ATE < 0.15 m;
 7. K1 and K2 at every shape the main paths launch them with (K1 200^2,
    400^2, 256^2, 512^2, (8,256,256), (8,448,448), and the scan-odometry
    pre-pass's (50,448,448) and (49,448,448); K2 T=7 half=6 on 400^2,
@@ -42,8 +43,14 @@ results:
    ATE < 0.2 m, pinned without frontend feedback; then the same tour with
    feedback, measured and printed but not pinned (its outcome is chaotic
    on this tour, in the JAX package too);
+   9b. fidelity, building-3800: with BUILDING_CONFIG bit-identical to the
+   C++ oracle; with BUILDING_WIDE_CONFIG ATE < 0.5 m;
 10. PF-graph, loop-700, 1024 particles: >= 1 closure, ATE < 0.15 m,
     smoothed-path ATE < ATE + 0.03 m;
+    10b. PF-1024-graph, building-3800, BUILDING_CONFIG with closure
+    feedback (bench.py's stage_building_pf): closures and ATE printed, not
+    pinned (feedback is chaotic on this tour); K2's B=1 T=13 half=6 S=512
+    launched (> 0);
 11. EKF (``--mode ekf``), museum-1000, ``long_tour_config(1024)``: ATE
     printed; 100 scans on the card and on the CPU with the same numpy-made
     draws, max |pose difference| <= 1e-3; museum-400 with the config of
@@ -86,7 +93,26 @@ results:
 18. ``pf_stage_profile`` on the card (ms of each of the six stages);
     ``debug.validate_state`` empty for the final state of every main path
     (phases 5, 6, 8-17); ``debug.checked(slam_step)`` clean over 20 museum
-    scans.
+    scans;
+19-23. the parallel layer (``lidar_slam_tpu_torch/parallel``) on an NCCL
+    world of one, made by ``multihost.initialize`` and destroyed at the
+    end (one card: NCCL takes one rank a GPU; every collective still runs
+    through the process group, and no multi-GPU run happens):
+    19. the building 512^2 and museum 400^2 fine rasters as 2, 4 and 8 row
+    blocks, K1 on each extended block (``edt_row_block``), == K1 on the
+    whole grid, and the world-1 ``edt_sharded``/``edt_replicated`` too;
+    each block shape timed as in phase 7;
+    20. the sharded PF-1024, museum-1000, == phase 6's ``run_pf``, then
+    again with the keyframe field as 4 row blocks; ms a step against phase
+    6, and the collectives' bytes a step (analytic at D = 1, 2, 4);
+    21. the sharded EKF-1024 bank (``long_tour_config(1024)``), 100 museum
+    scans, == ``ekf_slam_step_ml``'s run;
+    22. the matrix-free sharded BA on phase 17's K = 512 problem: card vs
+    CPU <= 1e-4, the error below 5% of its start, its difference from the
+    dense solve printed; ms and host syncs a GN iteration, and the largest
+    tensors it makes, none (K, K) or (L, K);
+    23. ``dryrun_multichip(1)`` and ``scaling_report(world_sizes=(1, 2,
+    4))`` (a spawned world of 1; 2 and 4 skipped: 1 GPU).
 
 Phases 11-14 also profile the first 100 scans of their path: device ops
 a scan and the device busy share (``torch.profiler`` device rows: kernels,
@@ -96,10 +122,12 @@ wall time a scan) and host syncs a scan
 
 Any failed check exits non-zero. The launch counters (a total and a count
 by shape for each kernel) are zeroed right before each main-path run
-(phases 5, 6, 8-15) and read right after it, so they count only the
-main paths (phase 16's workers count in their own processes and write
-their counts to the run directory); each run prints its counts by shape and its scans/s, and the
-kernels line sums them. Every phase prints its seconds. The second-to-last line is a JSON object with one entry per
+(phases 5, 6, 6b, 8-15, 20, 21, 23) and read right after it, so they count
+only the main paths (phase 16's workers count in their own processes and
+write their counts to the run directory; phase 23's spawned rank counts in
+its own process and is not summed); each run prints its counts by shape
+and its scans/s, and the kernels line sums them. Every phase prints its
+seconds. The second-to-last line is a JSON object with one entry per
 kernel; the last line is the run's result JSON. Without a card, or outside
 a checkout, it fails before printing either.
 """
@@ -130,6 +158,7 @@ CPU_CUDA_MAX_DIFF = 1e-3   # max |pose difference|, injected draws
 GRAPH_LOOP_ATE_MAX = 0.1   # m, the pins of tests/test_graph_slam.py
 GRAPH_BUILDING_ATE_MAX = 0.2     # m, bench.py stage_building_graph's target
 GRAPH_BUILDING_MIN_CLOSURES = 5  # tests/test_graph_slam.py, corridor test
+BUILDING_WIDE_ATE_MAX = 0.5      # m, tests/test_pipeline_parity.py
 PF_GRAPH_SMOOTH_MARGIN = 0.03    # m, tests/test_pf_graph_slam.py
 EKF_MUSEUM400_ATE_MAX = 0.15     # m, tests/test_ekf_slam.py museum test
 HYBRID_MUSEUM500_ATE_MAX = 0.12  # m, tests/test_ekf_hybrid.py
@@ -145,6 +174,11 @@ SUP_STALL_S = 20.0         # s without a heartbeat before the kill
 SUP_BOOT_GRACE_S = 300.0   # s a spawned child may take to its first beat
 BA_ITERS = 15              # GN iterations, as tests/test_ba.py
 BA_CPU_CUDA_MAX = 1e-4     # max |pose or landmark difference|, card vs CPU
+BA_CG_ITERS = 50           # phase 22's PCG steps a GN iteration (on the
+#                            CPU 50, 100 and 200 give the same error to 4
+#                            digits)
+TURN_SCANS = 100           # phase 20: scans of each plain/sharded turn
+PROFILE_STEPS = 30         # phase 20: steps of each host profile
 BA_ERROR_RATIO = 0.05      # tests/test_ba.py: error below 5% of its start
 PG_CPU_CUDA_MAX = 2e-6     # robust pose graph, card vs CPU (9.54e-7 read)
 CHI_ROWS = 100000          # random rows of the Huber chi check
@@ -394,6 +428,328 @@ def conv2d_yardstick(metric, cx0, cy0, valid, n_rows, n_cols, half):
     return call
 
 
+def k1_shape_row(label, occ, cross_check: bool = True) -> tuple[dict, float]:
+    """Phase 7's row for K1 at one shape: equal to its plain version; its
+    device time (a CUDA graph of raw launches), the profiler's kernel row
+    (``cross_check``), the wrapper's and the plain version's times (plain,
+    kernel, kernel, plain) and the bound. Returns (row, max_abs_err)."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops import cuda_edt
+    from lidar_slam_tpu_torch.ops import edt as edt_ops
+
+    occ3 = occ.contiguous().view((-1,) + tuple(occ.shape[-2:]))
+    out = torch.empty(occ3.shape, dtype=torch.float32, device=occ.device)
+    got = cuda_edt.edt_clamped_cuda(occ3)
+    want = edt_ops.edt_clamped(occ3)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"K1 differs from plain at {label}")
+    err = (got - want).abs().max().item()
+    raw = lambda: cuda_edt.launch(occ3, out, 10)  # noqa: E731
+    device_ms = graph_time_ms(raw)
+    require(torch.equal(out, want), f"raw K1 differs at {label}")
+    prof_ms = profiler_kernel_ms(raw, K1_KERNEL) if cross_check else None
+    wrap = lambda: cuda_edt.edt_clamped_cuda(occ3)  # noqa: E731
+    plain = lambda: edt_ops.edt_clamped(occ3)  # noqa: E731
+    p1, w1, w2, p2 = (cuda_time_ms(f, iters=50, warmup=5)
+                      for f in (plain, wrap, wrap, plain))
+    bnd, by = bound_ms(occ3.numel() * (1 + 4), 0)
+    tag = 7 if cross_check else 19
+    print(f"[{tag}] K1 {label}: device {device_ms * 1e3:.2f} us (CUDA graph "
+          f"of {GRAPH_LAUNCHES}; profiler kernel row "
+          f"{'n/a' if prof_ms is None else f'{prof_ms * 1e3:.2f}'} us); "
+          f"wrapper {w1 * 1e3:.1f} / {w2 * 1e3:.1f} us; plain "
+          f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us; bound {bnd * 1e3:.3f} us "
+          f"({by}), {bnd / device_ms:.1%} of it reached; library: none",
+          flush=True)
+    return ({"shape": label, "key": tuple(occ3.shape),
+             "device_ms": device_ms, "profiler_ms": prof_ms,
+             "wrapper_ms": min(w1, w2), "plain_ms": min(p1, p2),
+             "bound_ms": bnd, "bound_by": by, "library_ms": None}, err)
+
+
+def parallel_phases(ctx) -> None:
+    """Phases 19-23: the parallel layer on an NCCL world of one (one card:
+    NCCL takes one rank a GPU, so every collective runs through the group
+    on one rank; no multi-GPU run happens here). ``ctx`` carries the
+    earlier phases' inputs, results and launch books; the new K1 shapes
+    join phase 7's table and each run's launches the kernels line."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidar_slam_tpu_torch.core import sensor
+    from lidar_slam_tpu_torch.models import ba, ekf_slam, fastslam
+    from lidar_slam_tpu_torch.utils import debug
+    from lidar_slam_tpu_torch.ops import cuda_edt
+    from lidar_slam_tpu_torch.ops import edt as edt_ops
+    from lidar_slam_tpu_torch.parallel import (dryrun, multihost, sharded,
+                                               sharded_ba, sharded_edt,
+                                               sharded_ekf)
+    from lidar_slam_tpu_torch.parallel import mesh as mesh_lib
+    from lidar_slam_tpu_torch.utils.profiling import tensor_shapes
+
+    dev = ctx.dev
+    known_states = set(ctx.final_states)
+    rank, world = multihost.initialize(device_type="cuda")
+    require((rank, world) == (0, 1), f"world {world}, rank {rank}")
+    print(f"[19] process group: world of {world}, backend "
+          f"{mesh_lib.backend_for('cuda')} (NCCL for CUDA tensors)",
+          flush=True)
+
+    def add_launches(used):
+        for k in used:
+            ctx.launches[k] += used[k]
+
+    # ---- 19. the row-block EDT, K1 on every block
+    axis = mesh_lib.make_axis("map", "cuda")
+    for name, occ in (("building 512^2", ctx.building_occ),
+                      ("museum 400^2", ctx.fine_occ)):
+        occ = occ.contiguous()
+        whole = cuda_edt.edt_clamped_cuda(occ)
+        require(torch.equal(whole, edt_ops.edt_clamped(occ)),
+                f"K1 differs from plain on the {name} raster")
+        size, width = occ.shape
+        for d in (2, 4, 8):
+            blocks = sharded_edt.extended_blocks(occ, d)
+            got = torch.cat([sharded_edt.edt_row_block(b) for b in blocks])
+            require(torch.equal(got, whole),
+                    f"{d} row blocks of the {name} raster differ from K1 on "
+                    f"the whole grid")
+            row, err = k1_shape_row(f"(1,{size // d + 20},{width}) {name} "
+                                    f"in {d} row blocks", blocks[d // 2],
+                                    cross_check=False)
+            ctx.k1_err = max(ctx.k1_err, err)
+            ctx.shape_rows["K1"].append(row)
+            ctx.device_by_shape["K1"][row["key"]] = row["device_ms"]
+        exch = sharded_edt.edt_sharded(occ, axis)
+        rep = sharded_edt.edt_replicated(occ, axis)
+        require(torch.equal(exch, whole) and torch.equal(rep, whole),
+                f"the NCCL world-1 edt_sharded differs on the {name} raster")
+        print(f"[19] {name} fine raster: 2, 4 and 8 row blocks, K1 on each "
+              f"(edt_row_block), == K1 on the whole grid == plain "
+              f"(torch.equal); edt_sharded and edt_replicated on the NCCL "
+              f"world of 1 (edge-row all-gather, K1 on the "
+              f"({size + 20},{width}) block) == too", flush=True)
+    phase_done("19")
+
+    # ---- 20. the sharded PF-1024, museum-1000, on the world of one
+    mesh = mesh_lib.make_mesh(device_type="cuda")
+    steps = len(ctx.ranges) - 1
+    runs = {}
+    for label, edt_fn in (
+            ("sharded PF-1024 museum-1000 (NCCL world of 1)", None),
+            ("sharded PF-1024 museum-1000, 4-block EDT (NCCL world of 1)",
+             lambda o, r: sharded_edt.edt_blocks(o, 4, r))):
+        mesh.particles.reset_counts()
+        ctx.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spath, sstate = sharded.run_sharded_pf(ctx.ranges, ctx.pcfg, mesh,
+                                               seed=0, edt_fn=edt_fn)
+        spath = spath.cpu().numpy()
+        dt = time.perf_counter() - t0
+        used = ctx.read_counts(label)
+        add_launches(used)
+        require(used["K1"] > 0 and used["K2"] > 0,
+                f"{label} launched K1 {used['K1']} / K2 {used['K2']} times")
+        require(np.array_equal(spath, ctx.ppath),
+                f"{label} differs from phase 6's run_pf: max "
+                f"{np.abs(spath - ctx.ppath).max()}")
+        ctx.final_states[label] = sstate
+        ctx.scans_per_s[label] = len(spath) / dt
+        runs[label] = (dt, used, mesh.particles.calls,
+                       mesh.particles.gathered_bytes,
+                       mesh.particles.reduced_bytes)
+    (dt, used, calls, gathered, reduced), (dt4, used4, *_) = runs.values()
+    # the step's cost in turns on one host: plain, sharded, sharded, plain,
+    # twice
+    turns = []
+    for run in ("plain", "sharded", "sharded", "plain") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if run == "plain":
+            p, _ = fastslam.run_pf(ctx.ranges[:TURN_SCANS], ctx.pcfg,
+                                   device=dev)
+        else:
+            p, _ = sharded.run_sharded_pf(ctx.ranges[:TURN_SCANS], ctx.pcfg,
+                                          mesh)
+        p.cpu()
+        turns.append((time.perf_counter() - t0) / (TURN_SCANS - 1) * 1e3)
+    require(used4["K1"] > 0 and any(k[1] == 120 for k in
+                                    ctx.path_counts[label]["K1"]),
+            "the 4-block run launched no K1 at (1,120,400)")
+    print(f"[20] sharded PF-1024 museum-1000 on the NCCL world of 1: path == "
+          f"phase 6's run_pf (np.array_equal), and again with the keyframe "
+          f"field as 4 row blocks (K1 a block); {dt / steps * 1e3:.3f} ms a "
+          f"step sharded, {dt4 / steps * 1e3:.3f} ms with the 4-block EDT, "
+          f"against {ctx.pf_seconds / steps * 1e3:.3f} ms unsharded "
+          f"(phase 6); launches K1 {used['K1']} K2 {used['K2']} / K1 "
+          f"{used4['K1']} K2 {used4['K2']}; in turns over {TURN_SCANS} "
+          f"scans, ms a step plain / sharded / sharded / plain, twice: "
+          + " / ".join(f"{t:.3f}" for t in turns), flush=True)
+    g, r = gathered / steps, reduced / steps
+    # where the sharded step's extra host time goes: a collective's host
+    # cost through the layer's Axis, and the host profile (self CPU time by
+    # op) of 30 steps of each step from the state after 120 scans
+    x = torch.randn(1024, 3, device=dev)
+    y = torch.zeros(1536, dtype=torch.float64, device=dev)
+    gather_us = cuda_time_ms(lambda: mesh.particles.gather(x), iters=1000,
+                             warmup=50) * 1e3
+    reduce_us = cuda_time_ms(lambda: mesh.particles.all_reduce(y),
+                             iters=1000, warmup=50) * 1e3
+    scans_t = torch.as_tensor(ctx.ranges[:PROFILE_STEPS + 121], device=dev)
+    angles = torch.as_tensor(sensor.beam_angles(ctx.pcfg.lidar), device=dev)
+    step, place = sharded.make_sharded_pf_step(ctx.pcfg, mesh)
+    host = {}
+    for run in ("plain", "sharded"):
+        st = fastslam.init_particles(scans_t[0], ctx.pcfg)
+        if run == "plain":
+            def f(s_, r_):
+                return fastslam.pf_step(s_, r_, ctx.pcfg, angles)
+        else:
+            st, f = place(st), step
+        for t in range(1, 121):
+            st, _ = f(st, scans_t[t])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for t in range(121, 121 + PROFILE_STEPS):
+                st, _ = f(st, scans_t[t])
+            torch.cuda.synchronize()
+        rows = {ev.key: (ev.self_cpu_time_total / PROFILE_STEPS / 1e3,
+                         ev.count / PROFILE_STEPS)
+                for ev in prof.key_averages()}
+        host[run] = (sum(v[0] for v in rows.values()), rows)
+    (hp, rp), (hs, rs) = host["plain"], host["sharded"]
+    extra = sorted(((rs[k][0] - rp.get(k, (0.0, 0))[0], k) for k in rs),
+                   reverse=True)[:4]
+    print(f"[20] a collective's host time through the layer (back-to-back "
+          f"calls, CUDA events): Axis.gather of 1024x3 f32 {gather_us:.1f} "
+          f"us, Axis.all_reduce of 1536 f64 {reduce_us:.1f} us; host profile "
+          f"of {PROFILE_STEPS} steps after scan 120, self CPU ms a step: "
+          f"plain {hp:.3f}, sharded {hs:.3f}; the largest increases: "
+          + "; ".join(f"{k[:32]} +{d:.3f} ms ({rs[k][1]:.1f} calls a step)"
+                      for d, k in extra), flush=True)
+    print(f"[20] collectives a step: {calls / steps:.2f} calls (all-gathers "
+          f"of {g:.0f} result bytes, all-reduces of {r:.0f}); bytes a rank "
+          f"receives a step (analytic, P = 1024 over D ranks): " + ", ".join(
+              f"D={d}: {mesh_lib.bytes_per_rank(g, r, d):.0f}"
+              for d in (1, 2, 4)), flush=True)
+    phase_done("20")
+
+    # ---- 21. the sharded EKF-1024 bank, 100 museum scans
+    ecfg = ekf_slam.long_tour_config(1024)
+    label = "sharded EKF-1024 museum-100 (NCCL world of 1)"
+    ctx.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obs, valid, odo, counts = ekf_slam.scan_inputs(
+        ctx.ranges[:100], ecfg, lidar_cfg=ctx.cfg.lidar,
+        max_range=ekf_slam.LONG_TOUR_MAX_RANGE, device=dev)
+    epath, estate = sharded_ekf.run_sharded_ml(obs, valid, odo, ecfg, mesh,
+                                               0, counts=counts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    used = ctx.read_counts(label)
+    add_launches(used)
+    require(used["K1"] > 0, f"{label} launched K1 no time")
+    rpath, rstate = ekf_slam.run_ml(obs, valid, odo, ecfg, 0, dev,
+                                    counts=counts)
+    require(torch.equal(epath, rpath), f"{label}: path differs from "
+            f"ekf_slam_step_ml's run")
+    for f in ekf_slam.PARTICLE_LEAVES:
+        require(torch.equal(getattr(estate, f), getattr(rstate, f)),
+                f"{label}: {f} differs from ekf_slam_step_ml's run")
+    ctx.final_states[label] = estate
+    print(f"[21] {label}: path and every bank == ekf_slam_step_ml's run "
+          f"(torch.equal); {dt:.2f} s with the detections and scan "
+          f"odometry; launches K1 {used['K1']}", flush=True)
+    phase_done("21")
+
+    # ---- 22. the matrix-free sharded BA on phase 17's K = 512 problem
+    gaxis = sharded_ba.make_graph_mesh("cuda")
+    bgpu, bgo = ctx.bgpu, ctx.bgo
+    e0 = float(ba.ba_error(bgpu))
+
+    def solve(p, iters=BA_ITERS, cg_iters=BA_CG_ITERS):
+        return sharded_ba.optimize_ba_sharded(p, gaxis, iters=iters,
+                                              cg_iters=cg_iters)
+
+    out = solve(bgpu)
+    out_cpu = solve(type(bgpu)(*[t.cpu() for t in bgpu]))
+    e1 = float(ba.ba_error(out))
+    card_cpu = max(float((out.poses.cpu() - out_cpu.poses).abs().max()),
+                   float((out.landmarks.cpu() - out_cpu.landmarks)
+                         .abs().max()))
+    dense = max(float((out.poses - bgo.poses).abs().max()),
+                float((out.landmarks - bgo.landmarks).abs().max()))
+    heading0 = float(bgo.poses[0, 2] - bgpu.poses[0, 2])
+    require(card_cpu <= BA_CPU_CUDA_MAX,
+            f"sharded BA card vs CPU: max {card_cpu}")
+    require(e1 < BA_ERROR_RATIO * e0, f"sharded BA error {e1} >= "
+            f"{BA_ERROR_RATIO} x start {e0}")
+    ms_iter = cuda_time_ms(lambda: solve(bgpu), iters=1, warmup=0) / BA_ITERS
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            solve(bgpu)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    _, shapes = tensor_shapes(solve, bgpu, 1, 8)
+    k, l = bgpu.poses.shape[0], bgpu.landmarks.shape[0]
+    dense_like = [sh for sh in shapes
+                  if sh.count(k) >= 2 or tuple(sh[:2]) == (l, k)]
+    require(dense_like == [], f"sharded BA made {dense_like}")
+    largest = sorted(shapes, key=lambda sh: -int(np.prod(sh)))[:4]
+    ctx.final_states["sharded BA museum K=512"] = out
+    print(f"[22] sharded BA museum K=512 on the NCCL world of 1, "
+          f"{BA_ITERS} iterations of {BA_CG_ITERS} PCG steps: error {e0:.1f} "
+          f"-> {e1:.1f} ({e1 / e0:.2%} of start, bar {BA_ERROR_RATIO:.0%}); "
+          f"card vs CPU max {card_cpu:.3g} (bar {BA_CPU_CUDA_MAX}); vs the "
+          f"dense optimize_ba on the card max {dense:.3g} (its soft 1e6 "
+          f"gauge prior let pose 0's heading move {heading0:.3g} rad; the "
+          f"exact gauge holds it); {ms_iter:.3f} ms a GN iteration (CUDA "
+          f"events); host syncs {syncs / BA_ITERS:.2f} an iteration; largest "
+          f"tensors made {largest}, none (K, K) or (L, K) among "
+          f"{len(shapes)} shapes", flush=True)
+    phase_done("22")
+
+    # ---- 23. the dry run and the scaling report
+    ctx.reset_counts()
+    dry = dryrun.dryrun_multichip(1, "cuda")
+    used = ctx.read_counts("dry run (NCCL world of 1)")
+    add_launches(used)
+    require(np.isfinite(dry["pf_est"]).all()
+            and np.isfinite(dry["ekf_est"]).all(), f"dry run: {dry}")
+    multihost.shutdown()
+    rep = multihost.scaling_report(ctx.ranges, n_particles=1024,
+                                   world_sizes=(1, 2, 4), n_scans=60,
+                                   device_type="cuda", timeout_s=300.0)
+    require(set(rep.scans_per_s) == {1} and set(rep.skipped) == {2, 4},
+            f"scaling report: {rep}")
+    print(f"[23] dryrun_multichip(1) on the NCCL world of 1: PF step, BA "
+          f"error {dry['ba_error'][0]:.4f} -> {dry['ba_error'][1]:.4f}, EDT "
+          f"point checks, two EKF steps; launches K1 {used['K1']} K2 "
+          f"{used['K2']}. scaling_report(world_sizes=(1, 2, 4)), PF-1024 "
+          f"museum, 58 timed scans in a spawned world: ran 1 ("
+          f"{rep.scans_per_s[1]:.1f} scans/s); skipped " + ", ".join(
+              f"{d} ({why})" for d, why in sorted(rep.skipped.items()))
+          + "; no multi-GPU run (its rank's launches are counted in its "
+          "own process, not here)", flush=True)
+    for name, st in ctx.final_states.items():
+        if name not in known_states:
+            bad = debug.validate_state(st, name)
+            require(bad == [], f"{name}: {bad}")
+    print(f"[23] validate_state == [] for the final states of phases 20-22 "
+          f"({', '.join(set(ctx.final_states) - known_states)})", flush=True)
+    phase_done("23")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "lidar_slam_tpu_torch")):
         fail("run from the root of a checkout: lidar_slam_tpu_torch/ is "
@@ -423,7 +779,8 @@ def main() -> int:
     phase_done("1")
 
     from lidar_slam_tpu_torch import _build, native
-    from lidar_slam_tpu_torch.config import (BUILDING_WIDE_CONFIG,
+    from lidar_slam_tpu_torch.config import (BUILDING_CONFIG,
+                                             BUILDING_WIDE_CONFIG,
                                              DEFAULT_CONFIG, ParticleConfig)
     from lidar_slam_tpu_torch.core import sensor
     from lidar_slam_tpu_torch.io import dataset, simulate
@@ -643,6 +1000,30 @@ def main() -> int:
           f"{dt_cpu:.1f} s", flush=True)
     phase_done("6")
 
+    # ---- 6b. PF-10240, museum-1000 (bench.py's stage_pf10240)
+    title = "PF-10240 museum-1000"
+    big = dataclasses.replace(cfg, particles=ParticleConfig(n_particles=10240))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xpath, xstate = fastslam.run_pf(ranges, big, seed=0, device=dev)
+    xpath = xpath.cpu().numpy()
+    dt = time.perf_counter() - t0
+    used = read_counts(title)
+    for k in used:
+        launches[k] += used[k]
+    final_states[title] = xstate
+    require(used["K1"] > 0 and used["K2"] > 0,
+            f"{title} launched K1 {used['K1']} / K2 {used['K2']} times")
+    require(np.isfinite(xpath).all(), f"{title} path is not finite")
+    x_ate = ate(xpath, gt)
+    require(x_ate < PF_ATE_MAX, f"{title} ATE {x_ate:.4f} m >= {PF_ATE_MAX}")
+    scans_per_s[title] = len(xpath) / dt
+    print(f"[6b] {title} on cuda: {len(xpath) / dt:.1f} scans/s ({dt:.2f} "
+          f"s); ATE {x_ate:.4f} m (< {PF_ATE_MAX}); launches K1 "
+          f"{used['K1']} K2 {used['K2']}", flush=True)
+    phase_done("6b")
+
     # ---- 7. kernel times at every shape the main paths launch
     # the building shapes: the museum fine raster centred in a 512^2 grid,
     # 13 theta bins
@@ -685,34 +1066,10 @@ def main() -> int:
     # device time of one launch by the shape key of launches_by_shape
     device_by_shape = {"K1": {}, "K2": {}}
     for label, occ in k1_cases:
-        occ3 = occ.contiguous().view((-1,) + tuple(occ.shape[-2:]))
-        out = torch.empty(occ3.shape, dtype=torch.float32, device=dev)
-        got = cuda_edt.edt_clamped_cuda(occ3)
-        want = edt_ops.edt_clamped(occ3)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), f"K1 differs from plain at {label}")
-        k1_err = max(k1_err, (got - want).abs().max().item())
-        raw = lambda: cuda_edt.launch(occ3, out, 10)  # noqa: E731
-        device_ms = graph_time_ms(raw)
-        device_by_shape["K1"][tuple(occ3.shape)] = device_ms
-        require(torch.equal(out, want), f"raw K1 differs at {label}")
-        prof_ms = profiler_kernel_ms(raw, K1_KERNEL)
-        wrap = lambda: cuda_edt.edt_clamped_cuda(occ3)  # noqa: E731
-        plain = lambda: edt_ops.edt_clamped(occ3)  # noqa: E731
-        p1, w1, w2, p2 = (cuda_time_ms(f, iters=50, warmup=5)
-                          for f in (plain, wrap, wrap, plain))
-        bnd, by = bound_ms(occ3.numel() * (1 + 4), 0)
-        shape_rows["K1"].append({
-            "shape": label, "device_ms": device_ms, "profiler_ms": prof_ms,
-            "wrapper_ms": min(w1, w2), "plain_ms": min(p1, p2),
-            "bound_ms": bnd, "bound_by": by, "library_ms": None})
-        print(f"[7] K1 {label}: device {device_ms * 1e3:.2f} us (CUDA graph "
-              f"of {GRAPH_LAUNCHES}; profiler kernel row "
-              f"{'n/a' if prof_ms is None else f'{prof_ms * 1e3:.2f}'} us); "
-              f"wrapper {w1 * 1e3:.1f} / {w2 * 1e3:.1f} us; plain "
-              f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us; bound {bnd * 1e3:.3f} us "
-              f"({by}), {bnd / device_ms:.1%} of it reached; library: none",
-              flush=True)
+        row, err = k1_shape_row(label, occ)
+        k1_err = max(k1_err, err)
+        shape_rows["K1"].append(row)
+        device_by_shape["K1"][row["key"]] = row["device_ms"]
     for label, args in k2_cases:
         metric, ccx_, ccy_, cval_, n_rows, n_cols, khalf = args
         s = metric.shape[-1]
@@ -866,6 +1223,43 @@ def main() -> int:
                 f"feedback; not pinned)", run_graph(BUILDING_WIDE_CONFIG),
                 (branges, bgt))
 
+    # ---- 9b. fidelity on building-3800 (bench.py's stage_building): the
+    # parity window bit-identical to the oracle, the wide window's ATE
+    bopath, _ = native.run_oracle_cfg(branges, BUILDING_CONFIG)
+    for title, bcfg in (
+            (f"fidelity building-{len(branges)} (BUILDING_CONFIG)",
+             BUILDING_CONFIG),
+            (f"fidelity building-{len(branges)} (BUILDING_WIDE_CONFIG)",
+             BUILDING_WIDE_CONFIG)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bpath, bstate = scan_matcher.run_scan(branges, bcfg, device=dev)
+        bpath = bpath.cpu().numpy()
+        dt = time.perf_counter() - t0
+        used = read_counts(title)
+        for k in used:
+            launches[k] += used[k]
+        final_states[title] = bstate
+        scans_per_s[title] = len(bpath) / dt
+        require(used["K1"] > 0, f"{title} launched K1 no time")
+        b_ate = ate(bpath, bgt)
+        if bcfg is BUILDING_CONFIG:
+            require(np.array_equal(bpath, bopath),
+                    f"{title} differs from the oracle: max "
+                    f"{np.abs(bpath - bopath).max()} at scan "
+                    f"{int(np.argmax(np.abs(bpath - bopath).max(axis=1)))}")
+            building_occ = bstate.fine.occ
+            verdict = "bit-identical to the C++ oracle"
+        else:
+            require(b_ate < BUILDING_WIDE_ATE_MAX,
+                    f"{title} ATE {b_ate:.4f} m >= {BUILDING_WIDE_ATE_MAX}")
+            verdict = f"ATE < {BUILDING_WIDE_ATE_MAX} m"
+        print(f"[9b] {title} on cuda: {verdict}; {len(bpath) / dt:.1f} "
+              f"scans/s ({dt:.2f} s); ATE {b_ate:.4f} m; K1 launches "
+              f"{used['K1']}", flush=True)
+    phase_done("9b")
+
     def run_pf_graph(granges):
         gpath, _, gs = pf_graph_slam.run_pf_graph(granges, pcfg, seed=0,
                                                   device=dev)
@@ -877,6 +1271,26 @@ def main() -> int:
     require(err_s < err + PF_GRAPH_SMOOTH_MARGIN,
             f"PF-graph smoothed ATE {err_s:.4f} >= online {err:.4f} + "
             f"{PF_GRAPH_SMOOTH_MARGIN}")
+
+    # ---- 10b. PF-1024-graph on building-3800 with BUILDING_CONFIG and
+    # closure feedback (bench.py's stage_building_pf): printed, not pinned
+    # (feedback on this tour is chaotic); K2's T=13 S=512 shape runs here
+    bpcfg = dataclasses.replace(BUILDING_CONFIG, particles=dataclasses.replace(
+        BUILDING_CONFIG.particles, n_particles=1024))
+
+    def run_building_pf_graph(granges):
+        gpath, _, gs = pf_graph_slam.run_pf_graph(granges, bpcfg, seed=0,
+                                                  device=dev)
+        return gpath, gs
+
+    title = (f"PF-1024-graph building-{len(branges)} (BUILDING_CONFIG, "
+             f"feedback; not pinned)")
+    graph_phase("10b", title, run_building_pf_graph, (branges, bgt))
+    k2_13 = path_counts[title]["K2"].get((1, 13, 6, 512), 0)
+    require(k2_13 > 0, f"{title} launched K2 at B=1 T=13 half=6 S=512 no "
+            f"time")
+    print(f"[10b] K2 B=1 T=13 half=6 S=512 launches on this path: {k2_13}",
+          flush=True)
 
     # ---- 11-14. the EKF and submap families (counters zeroed per run)
     def profile_path(tag, title, run, wall_per_scan):
@@ -1362,6 +1776,19 @@ def main() -> int:
           f"{len(final_states)} main paths ({', '.join(final_states)}); "
           f"debug.checked(slam_step) ran 20 museum scans clean", flush=True)
     phase_done("18")
+
+    import types
+
+    ctx = types.SimpleNamespace(
+        dev=dev, cfg=cfg, pcfg=pcfg, ranges=ranges, ppath=ppath,
+        pf_seconds=pf_seconds, fine_occ=fine_occ, building_occ=building_occ,
+        bgpu=bgpu, bgo=bgo, reset_counts=reset_counts,
+        read_counts=read_counts, path_counts=path_counts, launches=launches,
+        scans_per_s=scans_per_s, final_states=final_states,
+        shape_rows=shape_rows, device_by_shape=device_by_shape,
+        k1_err=k1_err)
+    parallel_phases(ctx)
+    k1_err = ctx.k1_err
 
     # every launch count is summed over the main paths (phases 5, 6, 8-16)
     kernels = []

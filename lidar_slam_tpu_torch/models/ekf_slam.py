@@ -51,7 +51,8 @@ import torch
 
 from lidar_slam_tpu_torch.core import se2
 from lidar_slam_tpu_torch.device import constant, resolve_device, rounded64
-from lidar_slam_tpu_torch.models.fastslam import (_softmax64, draw,
+from lidar_slam_tpu_torch.models.fastslam import (ALL_ROWS, AllRows,
+                                                  _softmax64, draw,
                                                   effective_sample_size,
                                                   systematic_resample)
 
@@ -85,6 +86,11 @@ def long_tour_config(n_particles: int = 1024) -> EkfSlamConfig:
 
 
 LONG_TOUR_MAX_RANGE = 12.0  # detection gating range pairing with the config
+
+
+# the leaves with a leading particle axis (the rest is replicated)
+PARTICLE_LEAVES = ("poses", "prev_poses", "logw", "lm_mean", "lm_cov",
+                   "lm_seen")
 
 
 class EkfSlamState(NamedTuple):
@@ -226,24 +232,32 @@ def _init_landmark(poses_xy, pth, zr, zb, meas_cov):
     return mean, _mm2(_mm2(jac, meas_cov), _t(jac))
 
 
-def _step_draws(state: EkfSlamState, draws):
-    noise, u0 = draw(state) if draws is None else draws
+def _step_draws(state: EkfSlamState, draws, cfg: EkfSlamConfig,
+                rows: AllRows = ALL_ROWS):
+    """This block's rows of the step's proposal noise, and u0: the full
+    (P, 3) is drawn (or given) whatever the block."""
+    noise, u0 = draw(state, cfg.n_particles) if draws is None else draws
     dev = state.poses.device
-    return (torch.as_tensor(noise, dtype=torch.float32, device=dev),
+    return (rows.rows(torch.as_tensor(noise, dtype=torch.float32,
+                                      device=dev)),
             torch.as_tensor(u0, dtype=torch.float32, device=dev))
 
 
 def _resample(state: EkfSlamState, poses, logw, u0, cfg: EkfSlamConfig,
-              banks):
+              banks, rows: AllRows = ALL_ROWS):
     """The ESS-gated systematic resampling shared by both steps: ancestors
-    carry their landmark banks. Returns (poses, prev_poses, logw, banks)."""
-    p = poses.shape[0]
+    carry their landmark banks. ``logw`` holds every particle, ``poses`` and
+    ``banks`` this block's rows (all of them unsharded). Returns (every
+    particle's poses and logw, this block's prev_poses and banks)."""
+    p = cfg.n_particles
     do_rs = effective_sample_size(logw) < cfg.resample_threshold * p
     idx = torch.where(do_rs, systematic_resample(u0, logw),
                       torch.arange(p, device=poses.device))
-    prev = torch.where(do_rs, state.poses[idx], state.poses)
+    mine = rows.rows(idx)
+    prev = torch.where(do_rs, rows.gather(state.poses)[mine], state.poses)
     logw = torch.where(do_rs, torch.zeros_like(logw), logw)
-    return poses[idx], prev, logw, [b[idx] for b in banks]
+    return (rows.gather(poses)[idx], prev, logw,
+            [rows.gather(b)[mine] for b in banks])
 
 
 def ekf_slam_step(state: EkfSlamState, odo: torch.Tensor, obs: torch.Tensor,
@@ -253,7 +267,7 @@ def ekf_slam_step(state: EkfSlamState, odo: torch.Tensor, obs: torch.Tensor,
     (particle, landmark) pair with ``obs`` (L, 2) where ``vis`` (L,), then
     resample. Returns (state, estimated pose)."""
     dev = state.poses.device
-    noise, u0 = _step_draws(state, draws)
+    noise, u0 = _step_draws(state, draws, cfg)
     sigma = constant((cfg.odo_xy_noise, cfg.odo_xy_noise, cfg.odo_th_noise),
                      dev)
     poses = _compose_ref(state.poses, odo[None, :] + noise * sigma)
@@ -402,7 +416,8 @@ def _associate(state: EkfSlamState, poses, lm_mean, lm_cov, seen, zr, zb,
 def ekf_slam_step_ml(state: EkfSlamState, obs: torch.Tensor,
                      obs_valid: torch.Tensor, cfg: EkfSlamConfig,
                      odo: torch.Tensor | None = None, aux_loglik_fn=None,
-                     draws=None, n_det: int | None = None
+                     draws=None, n_det: int | None = None,
+                     rows: AllRows = ALL_ROWS
                      ) -> tuple[EkfSlamState, torch.Tensor]:
     """FastSLAM 1.0 step with per-particle maximum-likelihood association
     of detections ``obs`` (M, 2) where ``obs_valid`` (M,).
@@ -414,9 +429,12 @@ def ekf_slam_step_ml(state: EkfSlamState, obs: torch.Tensor,
     (P, 3)) -> (P,)`` adds a per-particle log-likelihood before resampling
     (the hybrid's grid term). ``n_det`` is the number of valid rows when
     they are the first ones (compacted detections); without it the valid
-    rows are found on the host."""
+    rows are found on the host. ``rows`` (``fastslam.AllRows``): the state
+    may hold one block of the particles (``parallel/sharded_ekf.py``); the
+    max, the resampling and the weighted mean then run over every
+    particle's gathered rows, so a sharded step equals the unsharded one."""
     dev = state.poses.device
-    noise, u0 = _step_draws(state, draws)
+    noise, u0 = _step_draws(state, draws, cfg, rows)
     sigma = constant((cfg.odo_xy_noise, cfg.odo_xy_noise, cfg.odo_th_noise),
                      dev)
     noise = noise * sigma
@@ -440,24 +458,24 @@ def ekf_slam_step_ml(state: EkfSlamState, obs: torch.Tensor,
         poses = _gn_step(state, poses, zr_m, zb_m, obs_valid, r_w_m, b_w,
                          log_p0)
 
-    rows = (range(n_det) if n_det is not None
+    dets = (range(n_det) if n_det is not None
             else torch.nonzero(obs_valid).flatten().tolist())
     lm_mean, lm_cov, seen = state.lm_mean, state.lm_cov, state.lm_seen
     logw_add = torch.zeros_like(state.logw)
-    for k in rows:
+    for k in dets:
         lm_mean, lm_cov, seen, add = _associate(
             state, poses, lm_mean, lm_cov, seen, obs[k, 0], obs[k, 1], cfg)
         logw_add = logw_add + add
     if aux_loglik_fn is not None:
         logw_add = logw_add + aux_loglik_fn(poses)
-    logw = state.logw + logw_add
+    logw = rows.gather(state.logw + logw_add)
     logw = logw - logw.max()
 
     poses, prev, logw, (lm_mean, lm_cov, seen) = _resample(
-        state, poses, logw, u0, cfg, [lm_mean, lm_cov, seen])
-    new_state = EkfSlamState(poses=poses, prev_poses=prev, logw=logw,
-                             lm_mean=lm_mean, lm_cov=lm_cov, lm_seen=seen,
-                             rng=state.rng)
+        state, poses, logw, u0, cfg, [lm_mean, lm_cov, seen], rows)
+    new_state = EkfSlamState(poses=rows.rows(poses), prev_poses=prev,
+                             logw=rows.rows(logw), lm_mean=lm_mean,
+                             lm_cov=lm_cov, lm_seen=seen, rng=state.rng)
     return new_state, _weighted_mean(logw, poses)
 
 
@@ -469,12 +487,13 @@ def _path(ests: list[torch.Tensor], dev) -> torch.Tensor:
 
 
 def run_ml(obs_all, valid_all, odo_all, cfg: EkfSlamConfig, seed: int = 0,
-           device: str | torch.device = "cuda", draws=None, counts=None
-           ) -> tuple[torch.Tensor, EkfSlamState]:
+           device: str | torch.device = "cuda", draws=None, counts=None,
+           rows: AllRows = ALL_ROWS) -> tuple[torch.Tensor, EkfSlamState]:
     """The ML-association filter over scans 1..T-1: obs_all (T-1, M, 2),
     valid_all (T-1, M), odo_all (T-1, 3). ``counts`` (host ints), where
     given, are the detections of each row (valid rows first); ``draws`` a
-    sequence of per-step (noise, u0). Returns (path (T, 3), final
+    sequence of per-step (noise, u0); ``rows``: the particle block this
+    process runs (``ekf_slam_step_ml``). Returns (path (T, 3), final
     state)."""
     dev = resolve_device(device)
     obs_all, valid_all, odo_all = (torch.as_tensor(a, device=dev)
@@ -482,29 +501,28 @@ def run_ml(obs_all, valid_all, odo_all, cfg: EkfSlamConfig, seed: int = 0,
     obs_all = obs_all.to(torch.float32)
     odo_all = odo_all.to(torch.float32)
     state = init_ekf_slam(cfg, seed, dev)
+    state = state._replace(**{f: rows.rows(getattr(state, f))
+                              for f in PARTICLE_LEAVES})
     ests = []
     for t in range(obs_all.shape[0]):
         state, est = ekf_slam_step_ml(
             state, obs_all[t], valid_all[t], cfg, odo=odo_all[t],
             draws=None if draws is None else draws[t],
-            n_det=None if counts is None else int(counts[t]))
+            n_det=None if counts is None else int(counts[t]), rows=rows)
         ests.append(est)
     return _path(ests, dev), state
 
 
-def run_ekf_slam_scan(ranges_all: np.ndarray, cfg: EkfSlamConfig,
-                      lidar_cfg=None, seed: int = 0, max_range: float = 18.0,
-                      include_pillars: bool = False,
-                      device: str | torch.device = "cuda", draws=None,
-                      **extract_kw) -> tuple[torch.Tensor, EkfSlamState]:
-    """Scan-driven EKF-FastSLAM: raw ranges (T, N) -> corner detections
+def scan_inputs(ranges_all: np.ndarray, cfg: EkfSlamConfig, lidar_cfg=None,
+                max_range: float = 18.0, include_pillars: bool = False,
+                device: str | torch.device = "cuda", **extract_kw):
+    """``run_ml``'s inputs from raw ranges (T, N): corner detections
     (``ops/landmarks``, one batch for the whole log; pillars too with
-    ``include_pillars``) -> the ML-association filter. With
-    ``cfg.use_scan_odometry`` the motion prior is the batched scan-to-scan
-    matcher's (``ops/scan_odometry.pairwise_odometry``, kernel K1 on the
-    (50, 448, 448) pair rasters on CUDA). Detections of scan t pair with
-    the pose after step t-1. ``draws``: per-step (noise, u0) for steps
-    1..T-1. Returns (path (T, 3) on ``device``, final state)."""
+    ``include_pillars``) and, with ``cfg.use_scan_odometry``, the batched
+    scan-to-scan matcher's motion prior (``ops/scan_odometry.
+    pairwise_odometry``, kernel K1 on the (50, 448, 448) pair rasters on
+    CUDA). Detections of scan t pair with the pose after step t-1. Returns
+    (obs (T-1, M, 2), valid (T-1, M), odo (T-1, 3), counts (T-1,) host)."""
     from lidar_slam_tpu_torch.config import LidarConfig
     from lidar_slam_tpu_torch.core.sensor import beam_angles
     from lidar_slam_tpu_torch.ops import landmarks as lm_ops
@@ -532,13 +550,27 @@ def run_ekf_slam_scan(ranges_all: np.ndarray, cfg: EkfSlamConfig,
                 "reach boundary (~+-0.06 m/rad) — per-scan motion likely "
                 "exceeds the envelope and the motion prior is clipped; widen "
                 "pairwise_odometry step_t0/step_r0", RuntimeWarning,
-                stacklevel=2)
+                stacklevel=3)
     else:
         odo_all = torch.zeros((ranges.shape[0] - 1, 3), dtype=torch.float32,
                               device=dev)
     counts = det.count[1:].cpu().numpy()       # one copy for the whole log
-    return run_ml(det.rb[1:], det.valid[1:], odo_all, cfg, seed, dev, draws,
-                  counts)
+    return det.rb[1:], det.valid[1:], odo_all, counts
+
+
+def run_ekf_slam_scan(ranges_all: np.ndarray, cfg: EkfSlamConfig,
+                      lidar_cfg=None, seed: int = 0, max_range: float = 18.0,
+                      include_pillars: bool = False,
+                      device: str | torch.device = "cuda", draws=None,
+                      **extract_kw) -> tuple[torch.Tensor, EkfSlamState]:
+    """Scan-driven EKF-FastSLAM: raw ranges (T, N) -> ``scan_inputs`` ->
+    the ML-association filter. ``draws``: per-step (noise, u0) for steps
+    1..T-1. Returns (path (T, 3) on ``device``, final state)."""
+    dev = resolve_device(device)
+    obs, valid, odo, counts = scan_inputs(ranges_all, cfg, lidar_cfg,
+                                          max_range, include_pillars, dev,
+                                          **extract_kw)
+    return run_ml(obs, valid, odo, cfg, seed, dev, draws, counts)
 
 
 def run_ekf_slam(odom: np.ndarray, obs: np.ndarray, vis: np.ndarray,

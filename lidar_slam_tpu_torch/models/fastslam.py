@@ -20,6 +20,14 @@ take the same argmin and resampling decisions on the same draws.
 Random numbers come from the ``torch.Generator`` carried in the state;
 ``pf_step`` also takes ``draws=(noise, u0)`` so a test can feed both
 packages the same proposal noise and resampling offset.
+
+A step may hold only a block of the particles (``parallel/sharded.py``):
+its ``rows`` hook gathers a per-particle tensor from every block and slices
+this block's rows back out. Every cross-particle value (the mean, the ESS,
+the CDF, the max, the weighted estimate) is then reduced from the gathered
+tensor by the code and in the order of the single-process step, and every
+block draws the full (P, 3) noise from the shared generator and keeps its
+rows, so a sharded run equals the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -75,6 +83,23 @@ def init_particles(ranges0: torch.Tensor, cfg: SlamConfig, seed: int = 0,
         rng=rng, clamp_frac=torch.zeros((), dtype=torch.float32, device=dev))
 
 
+class AllRows:
+    """The particle rows of a step that holds every particle: gathering is
+    the identity and this process's rows are all rows. The sharded
+    counterpart is ``parallel.mesh.Axis``."""
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every particle's rows of a per-particle tensor."""
+        return x
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's rows of an every-particle tensor."""
+        return x
+
+
+ALL_ROWS = AllRows()
+
+
 def _softmax64(logw: torch.Tensor) -> torch.Tensor:
     """Softmax evaluated in float64: see ``pf_step`` on reductions."""
     return torch.softmax(logw.to(torch.float64), dim=0)
@@ -99,10 +124,12 @@ def effective_sample_size(logw: torch.Tensor) -> torch.Tensor:
     return (1.0 / torch.sum(w * w)).to(torch.float32)
 
 
-def draw(state: ParticleState) -> tuple[torch.Tensor, torch.Tensor]:
+def draw(state: ParticleState, p: int | None = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
     """One step's draws from the state's generator: standard-normal proposal
-    noise (P, 3) and the resampling offset u0 in [0, 1/P)."""
-    p = state.poses.shape[0]
+    noise (P, 3) and the resampling offset u0 in [0, 1/P). ``p`` is the
+    number of particles in all blocks (default: the state's rows)."""
+    p = state.poses.shape[0] if p is None else p
     dev = state.poses.device
     noise = torch.randn((p, 3), generator=state.rng, device=dev)
     u0 = torch.rand((), generator=state.rng, device=dev) / p
@@ -114,19 +141,25 @@ _OFFS27 = np.stack(np.meshgrid(*([np.asarray([-1.0, 0.0, 1.0], np.float32)] * 3)
 
 
 def pf_step(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
-            angles: torch.Tensor, draws=None
-            ) -> tuple[ParticleState, torch.Tensor]:
+            angles: torch.Tensor, draws=None, edt_fn=None,
+            rows: AllRows = ALL_ROWS) -> tuple[ParticleState, torch.Tensor]:
     """One particle-filter step. Returns (state, best_pose).
 
     ``draws=(noise (P, 3) standard normal, u0 scalar in [0, 1/P))`` replaces
-    the state's generator for this step.
+    the state's generator for this step. ``edt_fn(occ, max_dist)`` computes
+    the keyframe field (default ``ops/edt.edt``: kernel K1 on CUDA; the
+    sharded pipeline passes the row-block transform of
+    ``parallel/sharded_edt.py``). ``rows``: see the module docstring; the
+    state then holds this block's rows of ``poses``, ``prev_poses`` and
+    ``logw``, and P is ``cfg.particles.n_particles`` over all blocks.
     """
     pc, g, m, mc = cfg.particles, cfg.grid, cfg.map, cfg.matcher
+    edt_fn = edt_ops.edt if edt_fn is None else edt_fn
     dev = state.poses.device
-    p = state.poses.shape[0]
+    p = pc.n_particles
     scan = sensor.read_scan(ranges, angles, cfg.lidar)
-    noise, u0 = draw(state) if draws is None else draws
-    noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
+    noise, u0 = draw(state, p) if draws is None else draws
+    noise = rows.rows(torch.as_tensor(noise, dtype=torch.float32, device=dev))
     u0 = torch.as_tensor(u0, dtype=torch.float32, device=dev)
 
     # --- propagate: per-particle constant velocity + Gaussian proposal noise
@@ -135,7 +168,8 @@ def pf_step(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
     prop = state.poses + vel + noise * sigma
 
     # --- correlation volume(s) around the predicted mean pose
-    base = prop.to(torch.float64).mean(dim=0).to(torch.float32)
+    prop_all = rows.gather(prop)
+    base = prop_all.to(torch.float64).mean(dim=0).to(torch.float32)
     vols = correlative.build_cascade(
         state.fine_metric, state.fine, scan.x, scan.y, scan.valid, base,
         n_theta=pc.vol_theta_bins, theta_step=mc.fine_r, half=pc.vol_half,
@@ -153,16 +187,20 @@ def pf_step(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
                 d = correlative.lookup_avg_distance(vols[0], at)
                 (grad,) = torch.autograd.grad(d.sum(), at)
             prop = prop + torch.clamp(-0.01 * grad, -caps, caps)
+        prop_all = rows.gather(prop)
     avg_dist, fine_escape = correlative.lookup_cascade(vols, prop)
-    clamp_frac = fine_escape.to(torch.float32).mean()
+    clamp_frac = rows.gather(fine_escape).to(torch.float32).mean()
 
-    # --- importance weighting and resampling under the ESS gate
-    logw = state.logw - correlative.true_div(avg_dist, pc.score_temperature)
+    # --- importance weighting and resampling under the ESS gate, over
+    # every particle; this block keeps its rows of the result
+    logw = rows.gather(state.logw
+                       - correlative.true_div(avg_dist, pc.score_temperature))
     do_resample = effective_sample_size(logw) < pc.resample_threshold * p
     idx = torch.where(do_resample, systematic_resample(u0, logw),
                       torch.arange(p, device=dev))
-    resampled_poses = prop[idx]
-    prev_for_vel = torch.where(do_resample, state.poses[idx], state.poses)
+    poses = rows.gather(state.poses)
+    resampled_poses = prop_all[idx]
+    prev_for_vel = torch.where(do_resample, poses[idx], poses)
     logw = torch.where(do_resample, torch.zeros_like(logw), logw)
     logw = logw - logw.max()
 
@@ -199,10 +237,11 @@ def pf_step(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
         min_xy, max_xy = gridmap.local_bounds(local)
         fine = gridmap.rasterize(local, g.fine_pixel, g.fine_size, min_xy,
                                  max_xy, g.margin_pixels)
-        fine_metric = edt_ops.edt(fine.occ, int(g.max_dist_px))
+        fine_metric = edt_fn(fine.occ, int(g.max_dist_px))
 
     new_state = ParticleState(
-        poses=resampled_poses, prev_poses=prev_for_vel, logw=logw,
+        poses=rows.rows(resampled_poses), prev_poses=rows.rows(prev_for_vel),
+        logw=rows.rows(logw),
         step=state.step + 1, mini_updated=moved, pmap=pmap, fine=fine,
         fine_metric=fine_metric, rng=state.rng, clamp_frac=clamp_frac)
     return new_state, est_pose

@@ -16,6 +16,9 @@
   repeated dispatches; on the card CUDA events time the call directly.
 - ``pf_stage_profile``: the particle filter step's stages, one by one, on
   the state of a run ``n_scans`` into the museum tour.
+- ``tensor_shapes``: the shape of every tensor the aten ops of a call
+  produce (a ``TorchDispatchMode``), so a test can pin what a call never
+  materialises.
 """
 
 from __future__ import annotations
@@ -215,3 +218,27 @@ def pf_stage_profile(cfg=None, n_scans: int = 120, seed: int = 0,
         lambda r: fastslam.pf_step(state, r, cfg, angles),
         lambda k: (r_last + jitter(k),))
     return out
+
+
+def tensor_shapes(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` and a ``collections.Counter`` of the shapes
+    of every tensor its aten ops produced (views and in-place results
+    included)."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    shapes = Counter()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_flatten(out)[0]:
+                if isinstance(t, torch.Tensor):
+                    shapes[tuple(t.shape)] += 1
+            return out
+
+    with Record():
+        result = fn(*args, **kwargs)
+    return result, shapes

@@ -88,7 +88,11 @@ def test_no_import_of_jax_package_in_sources():
     assert len(_port_sources()) > 20
     names = {os.path.relpath(p, PKG) for p in _port_sources()}
     assert {"models/ba.py", "io/server.py", "utils/checkpoint.py",
-            "utils/watchdog.py", "utils/debug.py", "utils/tree.py"} <= names
+            "utils/watchdog.py", "utils/debug.py", "utils/tree.py",
+            "parallel/mesh.py", "parallel/multihost.py",
+            "parallel/resampling.py", "parallel/sharded.py",
+            "parallel/sharded_edt.py", "parallel/sharded_ekf.py",
+            "parallel/sharded_ba.py", "parallel/dryrun.py"} <= names
     assert found == []
 
 
@@ -116,6 +120,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     got = json.loads(res.stdout.strip().splitlines()[-1])
     for mod in ("ops.cuda_match", "utils.viz", "models.ba", "io.server",
                 "utils.checkpoint", "utils.watchdog", "utils.debug",
-                "utils.profiling", "utils.tree"):
+                "utils.profiling", "utils.tree", "parallel.mesh",
+                "parallel.multihost", "parallel.resampling",
+                "parallel.sharded", "parallel.sharded_edt",
+                "parallel.sharded_ekf", "parallel.sharded_ba",
+                "parallel.dryrun"):
         assert f"lidar_slam_tpu_torch.{mod}" in got["imported"], mod
     assert [m for m in got["new"] if _forbidden(m)] == []

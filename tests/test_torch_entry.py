@@ -186,6 +186,9 @@ def test_package_never_imports_jax():
              if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) > 15
+    assert {os.path.join(PKG, "parallel", f"{m}.py") for m in (
+        "mesh", "multihost", "resampling", "sharded", "sharded_edt",
+        "sharded_ekf", "sharded_ba", "dryrun")} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             assert mod.split(".")[0] not in ("jax", "jaxlib"), (path, mod)
@@ -221,6 +224,9 @@ def _entry_calls():
                                              submap_graph_slam, submap_slam)
     from lidar_slam_tpu_torch.io import server, simulate
     from lidar_slam_tpu_torch.models import ba, state_io
+    from lidar_slam_tpu_torch.parallel import (dryrun, multihost,
+                                               sharded_ba)
+    from lidar_slam_tpu_torch.parallel import mesh as mesh_lib
     from lidar_slam_tpu_torch.utils import (paging, profiling, rounding,
                                             watchdog)
 
@@ -260,6 +266,15 @@ def _entry_calls():
             ba.BAProblem(**simulate.generate_ba_problem(
                 n_scans=20, kmax=16, fmax=256, emax=16))),
         "rounding_differences": lambda: rounding.rounding_differences(),
+        "initialize": lambda: multihost.initialize(),
+        "global_particle_mesh": lambda: multihost.global_particle_mesh(),
+        "launch": lambda: multihost.launch(1, []),
+        "scaling_report": lambda: multihost.scaling_report(ranges),
+        "make_mesh": lambda: mesh_lib.make_mesh(),
+        "make_axis": lambda: mesh_lib.make_axis("map"),
+        "make_graph_mesh": lambda: sharded_ba.make_graph_mesh(),
+        "dryrun_multichip": lambda: dryrun.dryrun_multichip(1),
+        "tiny_ba_problem": lambda: dryrun.tiny_ba_problem(),
     }
 
 
@@ -272,7 +287,11 @@ def _entry_calls():
                                    "run_streaming_slam", "run_pf_supervised",
                                    "pf_stage_profile", "StageTimer",
                                    "ba_problem_from_numpy",
-                                   "rounding_differences"])
+                                   "rounding_differences", "initialize",
+                                   "global_particle_mesh", "launch",
+                                   "scaling_report", "make_mesh", "make_axis",
+                                   "make_graph_mesh", "dryrun_multichip",
+                                   "tiny_ba_problem"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Without a card, every entry point's default device raises; nothing
     quietly runs on the CPU."""
