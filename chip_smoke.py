@@ -21,10 +21,20 @@ parallel layer on an NCCL world of one) and checks the results:
 4. K2 correlation volume == plain, exactly, on quantized EDT fields;
    4b. batched K2 == plain on real loop-tour keyframe rasters (B=8, T=21,
    half=14, 256^2), the closure-matching shape;
-5. fidelity, museum-1000: trajectory bit-identical to the C++ oracle;
-6. PF-1024, museum-1000: ATE < 0.15 m; then 100 scans on the card and on
-   the CPU with the same numpy-made draws, max |pose difference| <= 1e-3;
-   6b. PF-10240, museum-1000 (bench.py's stage_pf10240): ATE < 0.15 m;
+5. fidelity, museum-1000, through the captured driver (``run_scan``: the
+   step's arms as CUDA graphs, ``utils/graphs.py``): trajectory
+   bit-identical to the C++ oracle;
+6. PF-1024, museum-1000, captured (``run_pf``): ATE < 0.15 m; then 100
+   scans on the card and on the CPU with the same numpy-made draws, max
+   |pose difference| <= 1e-3;
+   6b. PF-10240, museum-1000 (bench.py's stage_pf10240), captured: ATE <
+   0.15 m;
+   6c. captured against eager on museum-1000: the eager loops (``slam_step``
+   / ``pf_step`` a scan, seed 0) equal phases 5 and 6 (``np.array_equal``)
+   with the same K1/K2 launches by shape; for each of the four drivers
+   scans/s over the tour, and over scans 101-150 under the profiler and the
+   sync debug mode device ops, device time and host syncs a scan and the
+   busy share; the captured steps' graph count and pool bytes;
 7. K1 and K2 at every shape the main paths launch them with (K1 200^2,
    400^2, 256^2, 512^2, (8,256,256), (8,448,448), and the scan-odometry
    pre-pass's (50,448,448) and (49,448,448); K2 T=7 half=6 on 400^2,
@@ -43,8 +53,9 @@ parallel layer on an NCCL world of one) and checks the results:
    ATE < 0.2 m, pinned without frontend feedback; then the same tour with
    feedback, measured and printed but not pinned (its outcome is chaotic
    on this tour, in the JAX package too);
-   9b. fidelity, building-3800: with BUILDING_CONFIG bit-identical to the
-   C++ oracle; with BUILDING_WIDE_CONFIG ATE < 0.5 m;
+   9b. fidelity, building-3800, captured: with BUILDING_CONFIG
+   bit-identical to the C++ oracle and to the eager loop (the same K1
+   launches by shape); with BUILDING_WIDE_CONFIG ATE < 0.5 m;
 10. PF-graph, loop-700, 1024 particles: >= 1 closure, ATE < 0.15 m,
     smoothed-path ATE < ATE + 0.03 m;
     10b. PF-1024-graph, building-3800, BUILDING_CONFIG with closure
@@ -103,8 +114,9 @@ parallel layer on an NCCL world of one) and checks the results:
     whole grid, and the world-1 ``edt_sharded``/``edt_replicated`` too;
     each block shape timed as in phase 7;
     20. the sharded PF-1024, museum-1000, == phase 6's ``run_pf``, then
-    again with the keyframe field as 4 row blocks; ms a step against phase
-    6, and the collectives' bytes a step (analytic at D = 1, 2, 4);
+    again with the keyframe field as 4 row blocks; ms a step against the
+    eager ``pf_step`` loop it wraps, in turns, and the collectives' bytes
+    a step (analytic at D = 1, 2, 4);
     21. the sharded EKF-1024 bank (``long_tour_config(1024)``), 100 museum
     scans, == ``ekf_slam_step_ml``'s run;
     22. the matrix-free sharded BA on phase 17's K = 512 problem: card vs
@@ -165,6 +177,7 @@ HYBRID_MUSEUM500_ATE_MAX = 0.12  # m, tests/test_ekf_hybrid.py
 HYBRID_OVER_LANDMARK_MARGIN = 0.02  # m, the same test
 SUBMAP_ATE_FACTOR, SUBMAP_ATE_FLOOR = 2.5, 0.08  # tests/test_submap.py
 PROFILE_SCANS = 100        # scans of each new path run under the profiler
+STEADY_SCANS = 50          # phase 6c: scans profiled after PROFILE_SCANS
 STREAM_PACE_S = 0.1       # phase 15: the sensor's 10 Hz
 STREAM_PACED_SCANS = 300   # scans of the paced stream (30 s)
 STREAM_SYNC_SCANS = 100    # scans of the stream that counts host syncs
@@ -264,6 +277,78 @@ def _wedging_pf_worker(run_dir, ranges, cfg, seed, ckpt_every, device,
         fastslam.pf_step = wedging
     watchdog.pf_worker(run_dir, ranges, cfg, seed, ckpt_every, device)
     dump_counts()
+
+
+def eager_fidelity(ranges, cfg, dev):
+    """The eager fidelity loop, ``slam_step`` a scan with the pose brought
+    to the host by the keyframe test's copy (the host loop before the
+    captured drivers): (path (T, 3) numpy, final state)."""
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch.models import scan_matcher
+
+    r = torch.as_tensor(np.asarray(ranges, np.float32), device=dev)
+    angles = scan_matcher.angles_tensor(cfg, dev)
+    state = scan_matcher.init_state(r[0], cfg)
+    poses = [np.zeros(3, np.float32)]
+    for t in range(1, len(r)):
+        state, pose = scan_matcher.slam_step(state, r[t], cfg, angles,
+                                             pose_to_host=True)
+        poses.append(pose)
+    return np.stack(poses), state
+
+
+def eager_pf(ranges, cfg, seed, dev):
+    """The eager particle-filter loop, ``pf_step`` a scan with the poses
+    kept on the device (``run_pf`` before the captured drivers): (path
+    (T, 3) on the card, final state)."""
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch.models import fastslam, scan_matcher
+
+    r = torch.as_tensor(np.asarray(ranges, np.float32), device=dev)
+    angles = scan_matcher.angles_tensor(cfg, dev)
+    state = fastslam.init_particles(r[0], cfg, seed)
+    poses = [torch.zeros(3, device=dev)]
+    for t in range(1, len(r)):
+        state, pose = fastslam.pf_step(state, r[t], cfg, angles)
+        poses.append(pose)
+    return torch.stack(poses), state
+
+
+def profiled(run, n: int) -> tuple[float, float, float]:
+    """``run()`` (n scans) under ``torch.profiler`` (device activity only:
+    recording every CPU op of a 1000-launch scan would double its time)
+    and the sync debug mode: (device ops a scan, device ms a scan, host
+    syncs a scan). Device ops and time: the profiler's rows with device
+    time (kernels, copies, memsets); syncs: the mode's warnings."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    dev_us, n_ops = 0.0, 0
+    for ev in prof.key_averages():
+        t_dev = getattr(ev, "self_device_time_total", None)
+        if t_dev is None:
+            t_dev = ev.self_cuda_time_total
+        if t_dev > 0:
+            dev_us += t_dev
+            n_ops += ev.count
+    return n_ops / n, dev_us / n / 1e3, syncs / n
 
 
 def fail(msg: str) -> None:
@@ -571,9 +656,8 @@ def parallel_phases(ctx) -> None:
     for run in ("plain", "sharded", "sharded", "plain") * 2:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if run == "plain":
-            p, _ = fastslam.run_pf(ctx.ranges[:TURN_SCANS], ctx.pcfg,
-                                   device=dev)
+        if run == "plain":   # the eager step the sharded one wraps
+            p, _ = eager_pf(ctx.ranges[:TURN_SCANS], ctx.pcfg, 0, dev)
         else:
             p, _ = sharded.run_sharded_pf(ctx.ranges[:TURN_SCANS], ctx.pcfg,
                                           mesh)
@@ -587,9 +671,10 @@ def parallel_phases(ctx) -> None:
           f"field as 4 row blocks (K1 a block); {dt / steps * 1e3:.3f} ms a "
           f"step sharded, {dt4 / steps * 1e3:.3f} ms with the 4-block EDT, "
           f"against {ctx.pf_seconds / steps * 1e3:.3f} ms unsharded "
-          f"(phase 6); launches K1 {used['K1']} K2 {used['K2']} / K1 "
+          f"(phase 6, captured); launches K1 {used['K1']} K2 {used['K2']} / K1 "
           f"{used4['K1']} K2 {used4['K2']}; in turns over {TURN_SCANS} "
-          f"scans, ms a step plain / sharded / sharded / plain, twice: "
+          f"scans, ms a step plain (eager) / sharded / sharded / plain, "
+          f"twice: "
           + " / ".join(f"{t:.3f}" for t in turns), flush=True)
     g, r = gathered / steps, reduced / steps
     # where the sharded step's extra host time goes: a collective's host
@@ -953,6 +1038,7 @@ def main() -> int:
             f"{int(np.argmax(np.abs(path - opath).max(axis=1)))}")
     require(used["K1"] > 0, "fidelity run launched K1 no time")
     launches = dict(used)
+    fid_seconds = dt
     scans_per_s = {"fidelity museum-1000": len(path) / dt}
     fid_ate = ate(path, gt)
     print(f"[5] fidelity museum-1000 on cuda: bit-identical to the C++ "
@@ -1023,6 +1109,84 @@ def main() -> int:
           f"s); ATE {x_ate:.4f} m (< {PF_ATE_MAX}); launches K1 "
           f"{used['K1']} K2 {used['K2']}", flush=True)
     phase_done("6b")
+
+    # ---- 6c. captured against eager, museum-1000: the eager loops
+    # (``slam_step`` / ``pf_step`` a scan, the drivers before the captured
+    # ones) equal phases 5 and 6 bit for bit, with the same launches by
+    # shape; then each driver's steady state: scans 1..100 run unprofiled
+    # (the graphs are captured there), scans 101..150 under the profiler
+    mranges = torch.as_tensor(ranges, device=dev)
+    drivers = {}
+    for title, graph_path, graph_seconds, run_eager in (
+            ("fidelity museum-1000", path, fid_seconds,
+             lambda: eager_fidelity(ranges, cfg, dev)[0]),
+            ("PF-1024 museum-1000", ppath, pf_seconds,
+             lambda: eager_pf(ranges, pcfg, 0, dev)[0].cpu().numpy())):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epath = run_eager()
+        dt = time.perf_counter() - t0
+        eager_counts = {"K1": dict(cuda_edt.launches_by_shape),
+                        "K2": dict(cuda_match.launches_by_shape)}
+        require(np.array_equal(epath, graph_path),
+                f"{title}: the eager loop differs from the captured driver: "
+                f"max {np.abs(epath - graph_path).max()}")
+        require(eager_counts == path_counts[title],
+                f"{title}: launches by shape, eager {eager_counts} against "
+                f"captured {path_counts[title]}")
+        drivers[title] = {"eager": len(epath) / dt,
+                          "graph": len(graph_path) / graph_seconds}
+    reset_counts()
+    phase_done("6c")
+
+    def steady(label, step, state, wall_per_scan):
+        """Scans 1..PROFILE_SCANS unprofiled (the captures happen there),
+        the next STEADY_SCANS profiled: prints ops, busy share and syncs."""
+        for t in range(1, PROFILE_SCANS + 1):
+            state, _ = step(state, mranges[t])
+
+        def window():
+            nonlocal state
+            for t in range(PROFILE_SCANS + 1,
+                           PROFILE_SCANS + STEADY_SCANS + 1):
+                state, _ = step(state, mranges[t])
+
+        ops, dev_ms, syncs = profiled(window, STEADY_SCANS)
+        print(f"[6c] {label}: {1 / wall_per_scan:.1f} scans/s; scans "
+              f"{PROFILE_SCANS + 1}-{PROFILE_SCANS + STEADY_SCANS} under the "
+              f"profiler: {ops:.1f} device ops a scan, device time "
+              f"{dev_ms:.3f} ms a scan, busy share "
+              f"{dev_ms / 1e3 / wall_per_scan:.1%} of the unprofiled "
+              f"{wall_per_scan * 1e3:.3f} ms a scan; host syncs {syncs:.2f} "
+              f"a scan", flush=True)
+
+    for title, mk_state, eager_step, graph_step in (
+            ("fidelity museum-1000",
+             lambda: scan_matcher.init_state(mranges[0], cfg),
+             lambda s, x: scan_matcher.slam_step(s, x, cfg, angles,
+                                                 pose_to_host=True),
+             lambda: scan_matcher.make_step_fn(cfg, dev)),
+            ("PF-1024 museum-1000",
+             lambda: fastslam.init_particles(mranges[0], pcfg, 0),
+             lambda s, x: fastslam.pf_step(s, x, pcfg, angles),
+             lambda: fastslam.make_pf_step(pcfg, dev))):
+        rates = drivers[title]
+        steady(f"{title} eager", eager_step, mk_state(), 1 / rates["eager"])
+        step = graph_step()
+        reserved = torch.cuda.memory_reserved()
+        steady(f"{title} captured", step, mk_state(), 1 / rates["graph"])
+        print(f"[6c] {title} captured: {len(step.graphs)} graphs "
+              f"in one pool of {step.graphs.pool_bytes()} bytes; "
+              f"torch.cuda.memory_reserved {reserved} -> "
+              f"{torch.cuda.memory_reserved()} bytes; path == the eager "
+              f"loop's (np.array_equal), launches by shape equal; scans/s "
+              f"captured {rates['graph']:.1f} against eager "
+              f"{rates['eager']:.1f} ({rates['graph'] / rates['eager']:.2f}"
+              f"x) over the whole tour", flush=True)
+        del step
+    reset_counts()
+    phase_done("6c, profile")
 
     # ---- 7. kernel times at every shape the main paths launch
     # the building shapes: the museum fine raster centred in a 512^2 grid,
@@ -1250,7 +1414,22 @@ def main() -> int:
                     f"{np.abs(bpath - bopath).max()} at scan "
                     f"{int(np.argmax(np.abs(bpath - bopath).max(axis=1)))}")
             building_occ = bstate.fine.occ
-            verdict = "bit-identical to the C++ oracle"
+            # the eager loop on the same tour: the same path and launches
+            reset_counts()
+            t0 = time.perf_counter()
+            epath, _ = eager_fidelity(branges, bcfg, dev)
+            e_rate = len(epath) / (time.perf_counter() - t0)
+            require(np.array_equal(epath, bpath),
+                    f"{title}: the eager loop differs from the captured "
+                    f"driver: max {np.abs(epath - bpath).max()}")
+            require(dict(cuda_edt.launches_by_shape)
+                    == path_counts[title]["K1"],
+                    f"{title}: K1 launches by shape differ, eager against "
+                    f"captured")
+            reset_counts()
+            verdict = (f"bit-identical to the C++ oracle and to the eager "
+                       f"loop ({e_rate:.1f} scans/s), with the same K1 "
+                       f"launches by shape")
         else:
             require(b_ate < BUILDING_WIDE_ATE_MAX,
                     f"{title} ATE {b_ate:.4f} m >= {BUILDING_WIDE_ATE_MAX}")
@@ -1295,40 +1474,15 @@ def main() -> int:
     # ---- 11-14. the EKF and submap families (counters zeroed per run)
     def profile_path(tag, title, run, wall_per_scan):
         """Kernels a scan, device busy share and host syncs a scan of
-        ``run()`` (the first PROFILE_SCANS scans of the path): kernel rows
-        of torch.profiler, and the warnings of the sync debug mode."""
-        import warnings
-
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                # device activity only: recording every CPU op of a
-                # 1000-launch scan would double the phase's time
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    run()
-                    torch.cuda.synchronize()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        syncs = sum("synchroniz" in str(w.message) for w in caught)
-        dev_us, n_kernels = 0.0, 0
-        for ev in prof.key_averages():
-            t_dev = getattr(ev, "self_device_time_total", None)
-            if t_dev is None:
-                t_dev = ev.self_cuda_time_total
-            if t_dev > 0:          # kernels, copies and memsets
-                dev_us += t_dev
-                n_kernels += ev.count
+        ``run()`` (the first PROFILE_SCANS scans of the path)."""
         n = PROFILE_SCANS
-        busy = dev_us / 1e6 / n / wall_per_scan
+        ops, dev_ms, syncs = profiled(run, n)
+        busy = dev_ms / 1e3 / wall_per_scan
         print(f"[{tag}] {title}, first {n} scans under the profiler: "
-              f"{n_kernels / n:.1f} device ops a scan, device time "
-              f"{dev_us / n / 1e3:.3f} ms a scan, busy share {busy:.1%} of "
+              f"{ops:.1f} device ops a scan, device time "
+              f"{dev_ms:.3f} ms a scan, busy share {busy:.1%} of "
               f"the unprofiled {wall_per_scan * 1e3:.2f} ms a scan; host "
-              f"syncs {syncs / n:.2f} a scan", flush=True)
+              f"syncs {syncs:.2f} a scan", flush=True)
 
     def timed_run(title, run):
         """One main-path run with its own launch counts: (result, dt)."""

@@ -95,8 +95,7 @@ def _run_pf(args, ranges, cfg, device):
     """The pf mode: plain, resumed from ``--resume``, or supervised.
     Returns (path numpy, final state, scan the ATE starts at)."""
     from lidar_slam_tpu_torch.models import fastslam
-    from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor
-    from lidar_slam_tpu_torch.utils import checkpoint
+    from lidar_slam_tpu_torch.utils import checkpoint, graphs
 
     def template():
         return fastslam.init_particles(
@@ -126,12 +125,12 @@ def _run_pf(args, ranges, cfg, device):
         print(f"resumed from {args.resume} at scan {start}")
         scans = torch.as_tensor(np.asarray(ranges, np.float32),
                                 device=device)
-        angles = angles_tensor(cfg, device)
-        poses = [torch.zeros(3, device=device)] * start
+        step = fastslam.make_pf_step(cfg, device)
+        poses = [np.zeros(3, np.float32)] * start
         for t in range(start, len(scans)):
-            state, pose = fastslam.pf_step(state, scans[t], cfg, angles)
+            state, pose = step(state, scans[t])
             poses.append(pose)
-        return torch.stack(poses).cpu().numpy(), state, start
+        return np.stack(poses), graphs.clone_tree(state), start
     path, state = fastslam.run_pf(ranges, cfg, seed=args.seed, device=device)
     return path.cpu().numpy(), state, 0
 

@@ -24,6 +24,14 @@ class Scan(NamedTuple):
     size: torch.Tensor   # () i32
 
 
+def empty_scan(n: int, device) -> Scan:
+    """An all-zero scan of ``n`` beams (a static buffer to copy scans into)."""
+    return Scan(x=torch.zeros(n, dtype=torch.float32, device=device),
+                y=torch.zeros(n, dtype=torch.float32, device=device),
+                valid=torch.zeros(n, dtype=torch.bool, device=device),
+                size=torch.zeros((), dtype=torch.int32, device=device))
+
+
 def beam_angles(cfg: LidarConfig) -> np.ndarray:
     """Angle table with the reference's f32 ``angle += increment``
     accumulation (main.c:53-57), kept in numpy."""

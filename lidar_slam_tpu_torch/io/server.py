@@ -197,7 +197,8 @@ def run_streaming_slam(url: str, n_scans: int, cfg,
     ``device``. Scan t is fetched while scan t-1 computes (the reference's
     edge loop, esp32_edge.c). Returns (path (T, 3) numpy, final state).
 
-    Each scan goes through pinned host memory to the card without a host
+    Each scan goes from pinned host memory straight into the captured
+    step's static input (``scan_matcher.make_step_fn``) without a host
     sync; the step's keyframe test, its one sync, brings the pose back with
     it. ``latencies``, if given, receives one (arrived, dequeued, pose on
     host) host-clock triple a scan after the first."""
@@ -205,26 +206,26 @@ def run_streaming_slam(url: str, n_scans: int, cfg,
 
     from lidar_slam_tpu_torch.device import resolve_device
     from lidar_slam_tpu_torch.models import scan_matcher
+    from lidar_slam_tpu_torch.utils import graphs
 
     dev = resolve_device(device)
-    pinned = dev.type == "cuda"
 
-    def to_device(scan: np.ndarray) -> torch.Tensor:
-        host = torch.from_numpy(scan)
-        if pinned:     # the caching host allocator keeps the block until
-            host = host.pin_memory()   # the copy that reads it is done
-        return host.to(dev, non_blocking=pinned)
+    def host(scan: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(scan)
+        # the caching host allocator keeps a pinned block until the copy
+        # that reads it is done
+        return t.pin_memory() if dev.type == "cuda" else t
 
-    angles = scan_matcher.angles_tensor(cfg, dev)
+    step = scan_matcher.make_step_fn(cfg, dev)
     stream = _stream(url, n_scans, PREFETCH)
     first, _ = next(stream)
-    state = scan_matcher.init_state(to_device(first), cfg)
+    state = scan_matcher.init_state(host(first).to(dev, non_blocking=True),
+                                    cfg)
     poses = [np.zeros(3, np.float32)]
     for scan, arrived in stream:
         taken = time.perf_counter()
-        state, pose = scan_matcher.slam_step(state, to_device(scan), cfg,
-                                             angles, pose_to_host=True)
+        state, pose = step(state, host(scan))
         poses.append(pose)
         if latencies is not None:
             latencies.append((arrived, taken, time.perf_counter()))
-    return np.stack(poses), state
+    return np.stack(poses), graphs.clone_tree(state)

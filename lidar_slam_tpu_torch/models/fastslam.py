@@ -9,7 +9,10 @@ particle by trilinear lookups, resamples systematically under an ESS gate
 without a host branch, refines the weighted-mean estimate with three argmin
 passes over 27 candidates, and on keyframe steps appends novel points and
 rebuilds the fine raster and its EDT (kernel K1 on CUDA). The keyframe test
-is the step's one device->host sync.
+is the step's one device->host sync: ``pf_step`` is ``pf_head`` up to it and
+``pf_refresh`` after it, and ``make_pf_step`` (JAX's jitted step, driven by
+``run_pf``) replays the two as CUDA graphs over static buffers
+(``utils/graphs``).
 
 Reductions over the particles (the mean, softmax, CDF and weighted sums)
 and the volume's cos/sin are evaluated in float64 and rounded to f32: their
@@ -41,10 +44,12 @@ from lidar_slam_tpu_torch.config import SlamConfig
 from lidar_slam_tpu_torch.core import gridmap, se2, sensor
 from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap
 from lidar_slam_tpu_torch.device import constant, resolve_device
-from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor
+from lidar_slam_tpu_torch.models.scan_matcher import (angles_tensor,
+                                                      pose_and_test)
 from lidar_slam_tpu_torch.ops import correlative
 from lidar_slam_tpu_torch.ops import edt as edt_ops
 from lidar_slam_tpu_torch.ops import matching
+from lidar_slam_tpu_torch.utils import graphs
 
 
 class ParticleState(NamedTuple):
@@ -140,21 +145,20 @@ _OFFS27 = np.stack(np.meshgrid(*([np.asarray([-1.0, 0.0, 1.0], np.float32)] * 3)
                                indexing="ij"), axis=-1).reshape(27, 3)
 
 
-def pf_step(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
-            angles: torch.Tensor, draws=None, edt_fn=None,
-            rows: AllRows = ALL_ROWS) -> tuple[ParticleState, torch.Tensor]:
-    """One particle-filter step. Returns (state, best_pose).
+class PfHead(NamedTuple):
+    """A particle-filter step up to its keyframe test (``pf_head``)."""
+    state: ParticleState      # the next state if the test fails
+    scan: sensor.Scan
+    est_pose: torch.Tensor    # (3,) the step's estimate
+    test: torch.Tensor        # () bool, the mini-update rule's test
 
-    ``draws=(noise (P, 3) standard normal, u0 scalar in [0, 1/P))`` replaces
-    the state's generator for this step. ``edt_fn(occ, max_dist)`` computes
-    the keyframe field (default ``ops/edt.edt``: kernel K1 on CUDA; the
-    sharded pipeline passes the row-block transform of
-    ``parallel/sharded_edt.py``). ``rows``: see the module docstring; the
-    state then holds this block's rows of ``poses``, ``prev_poses`` and
-    ``logw``, and P is ``cfg.particles.n_particles`` over all blocks.
-    """
-    pc, g, m, mc = cfg.particles, cfg.grid, cfg.map, cfg.matcher
-    edt_fn = edt_ops.edt if edt_fn is None else edt_fn
+
+def pf_head(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
+            angles: torch.Tensor, draws=None,
+            rows: AllRows = ALL_ROWS) -> PfHead:
+    """A step up to its keyframe test: propagate, build the volumes, look
+    up, resample, estimate, test. No host sync. Arguments as ``pf_step``."""
+    pc, m, mc = cfg.particles, cfg.map, cfg.matcher
     dev = state.poses.device
     p = pc.n_particles
     scan = sensor.read_scan(ranges, angles, cfg.lidar)
@@ -215,51 +219,175 @@ def pf_step(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
         d, _ = correlative.lookup_cascade(vols, cands)
         est_pose = cands[torch.argmin(d).view(1)][0]   # no host sync
 
-    # --- keyframe refresh (mini-update rule); the step's one host sync
+    # --- the mini-update rule's test
     dp = torch.abs(est_pose - state.pmap.keyframe_pose)
-    moved = state.step == 1 or bool(
-        ((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
-         | (dp[2] > m.mini_update_dr)).item())
-    pmap, fine, fine_metric = state.pmap, state.fine, state.fine_metric
-    if moved:
-        wx, wy = se2.transform_ref(scan.x, scan.y, est_pose)
-        if state.step == 1:
-            novel = scan.valid   # the field is still empty: seed from all
-        else:
-            # novel-surface test against the current field (main.c:943)
-            _, hits, inb = matching.score_candidates(
-                state.fine_metric, state.fine, scan.x, scan.y, scan.valid,
-                est_pose[None])
-            novel = (hits[0] > m.new_point_threshold) & inb[0]
-        pmap = gridmap.append_points(state.pmap, wx, wy, novel, est_pose)
-        local = gridmap.extract_local_map(pmap, wx, wy, scan.valid,
-                                          g.border_size)
-        min_xy, max_xy = gridmap.local_bounds(local)
-        fine = gridmap.rasterize(local, g.fine_pixel, g.fine_size, min_xy,
-                                 max_xy, g.margin_pixels)
-        fine_metric = edt_fn(fine.occ, int(g.max_dist_px))
-
-    new_state = ParticleState(
+    test = ((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
+            | (dp[2] > m.mini_update_dr))
+    kept = state._replace(
         poses=rows.rows(resampled_poses), prev_poses=rows.rows(prev_for_vel),
-        logw=rows.rows(logw),
-        step=state.step + 1, mini_updated=moved, pmap=pmap, fine=fine,
-        fine_metric=fine_metric, rng=state.rng, clamp_frac=clamp_frac)
-    return new_state, est_pose
+        logw=rows.rows(logw), step=state.step + 1, mini_updated=False,
+        clamp_frac=clamp_frac)
+    return PfHead(state=kept, scan=scan, est_pose=est_pose, test=test)
+
+
+def pf_refresh(head: PfHead, first: bool, cfg: SlamConfig, edt_fn=None
+               ) -> ParticleState:
+    """The keyframe refresh when the test passed (or on the first step,
+    ``first``, whose field is still empty): append the novel points, crop,
+    raster, and the keyframe field (``edt_fn``, as ``pf_step``)."""
+    g, m = cfg.grid, cfg.map
+    edt_fn = edt_ops.edt if edt_fn is None else edt_fn
+    st, scan, est_pose = head.state, head.scan, head.est_pose
+    wx, wy = se2.transform_ref(scan.x, scan.y, est_pose)
+    if first:
+        novel = scan.valid   # the field is still empty: seed from all
+    else:
+        # novel-surface test against the current field (main.c:943)
+        _, hits, inb = matching.score_candidates(
+            st.fine_metric, st.fine, scan.x, scan.y, scan.valid,
+            est_pose[None])
+        novel = (hits[0] > m.new_point_threshold) & inb[0]
+    pmap = gridmap.append_points(st.pmap, wx, wy, novel, est_pose)
+    local = gridmap.extract_local_map(pmap, wx, wy, scan.valid,
+                                      g.border_size)
+    min_xy, max_xy = gridmap.local_bounds(local)
+    fine = gridmap.rasterize(local, g.fine_pixel, g.fine_size, min_xy,
+                             max_xy, g.margin_pixels)
+    fine_metric = edt_fn(fine.occ, int(g.max_dist_px))
+    return st._replace(mini_updated=True, pmap=pmap, fine=fine,
+                       fine_metric=fine_metric)
+
+
+def pf_step(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
+            angles: torch.Tensor, draws=None, edt_fn=None,
+            rows: AllRows = ALL_ROWS) -> tuple[ParticleState, torch.Tensor]:
+    """One particle-filter step: ``pf_head``, the keyframe test on the
+    host (the step's one sync; none on the first step, which always
+    refreshes), ``pf_refresh`` if it passed. Returns (state, best_pose).
+
+    ``draws=(noise (P, 3) standard normal, u0 scalar in [0, 1/P))`` replaces
+    the state's generator for this step. ``edt_fn(occ, max_dist)`` computes
+    the keyframe field (default ``ops/edt.edt``: kernel K1 on CUDA; the
+    sharded pipeline passes the row-block transform of
+    ``parallel/sharded_edt.py``). ``rows``: see the module docstring; the
+    state then holds this block's rows of ``poses``, ``prev_poses`` and
+    ``logw``, and P is ``cfg.particles.n_particles`` over all blocks.
+    """
+    head = pf_head(state, ranges, cfg, angles, draws, rows)
+    first = state.step == 1
+    if first or bool(head.test.item()):
+        return pf_refresh(head, first, cfg, edt_fn), head.est_pose
+    return head.state, head.est_pose
+
+
+class _PfStatic(NamedTuple):
+    """The captured PF step's static buffers."""
+    ranges: torch.Tensor   # (N,)
+    noise: torch.Tensor    # (P, 3) the step's proposal noise
+    u0: torch.Tensor       # () the step's resampling offset
+    head: PfHead           # head.state is the step's state
+    out: torch.Tensor      # (4,) the estimate and the test
+
+
+class PfStepFn:
+    """``step(state, ranges, draws=None) -> (state, pose)``: ``pf_step`` as
+    captured CUDA graphs (``utils/graphs``), JAX's jitted step with its
+    state donated: the head is one graph and the refresh another (captured
+    at first use). A step draws its noise and offset with ``draw`` from the
+    state's generator (or copies ``draws``) into static buffers, replays the
+    head, reads the estimate and the test in one 16-byte device->host copy
+    (the step's one host sync) and replays the refresh if the test passed.
+    The draws are the eager step's stream: the same generator calls in the
+    same order. Scan 1 (``state.step == 1``) runs eagerly.
+
+    The returned state's tensors are the step's static buffers, valid until
+    the next call, which takes the state back; a state the step did not
+    return is copied in first (``scan_matcher.StepFn`` has the details).
+    The pose comes back on the host; ``self.pose`` is the same pose on the
+    device, valid until the next call."""
+
+    def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.angles = angles_tensor(cfg, self.device)
+        self.graphs = graphs.Graphs(self.device)
+        self.bufs: _PfStatic | None = None
+        self.state: ParticleState | None = None   # the state last returned
+        self.pose: torch.Tensor | None = None
+
+    def __call__(self, state: ParticleState, ranges: torch.Tensor,
+                 draws=None) -> tuple[ParticleState, np.ndarray]:
+        if state.step == 1:
+            ranges = ranges.to(self.device, non_blocking=True)
+            state, pose = pf_step(state, ranges, self.cfg, self.angles, draws)
+            self.pose = pose
+            return state, pose.cpu().numpy()
+        if state is not self.state:
+            self._load(state)
+        b = self.bufs
+        b.ranges.copy_(ranges, non_blocking=True)
+        noise, u0 = draw(state) if draws is None else draws
+        b.noise.copy_(torch.as_tensor(noise))
+        b.u0.copy_(torch.as_tensor(u0))
+        self.graphs.run("head", self._head_body, b)
+        host = b.out.to("cpu", copy=True)   # a copy on the CPU too
+        moved = bool(host[3])
+        if moved:
+            self.graphs.run("refresh", self._refresh_body, b)
+        self.state = b.head.state._replace(step=state.step + 1,
+                                           mini_updated=moved,
+                                           rng=state.rng)
+        self.pose = b.head.est_pose
+        return self.state, host[:3].numpy()
+
+    def _load(self, state: ParticleState) -> None:
+        if self.bufs is None:
+            n, p = self.cfg.lidar.n_beams, self.cfg.particles.n_particles
+            f32 = dict(dtype=torch.float32, device=self.device)
+            self.bufs = _PfStatic(
+                ranges=torch.zeros(n, **f32),
+                noise=torch.zeros((p, 3), **f32),
+                u0=torch.zeros((), **f32),
+                head=PfHead(
+                    state=graphs.clone_tree(state),
+                    scan=sensor.empty_scan(n, self.device),
+                    est_pose=torch.zeros(3, **f32),
+                    test=torch.zeros((), dtype=torch.bool,
+                                     device=self.device)),
+                out=torch.zeros(4, **f32))
+        else:
+            graphs.copy_into(self.bufs.head.state, state)
+
+    def _head_body(self, b: _PfStatic) -> None:
+        head = pf_head(b.head.state, b.ranges, self.cfg, self.angles,
+                       draws=(b.noise, b.u0))
+        graphs.copy_into(b.head, head)
+        b.out.copy_(pose_and_test(b.head.est_pose, b.head.test))
+
+    def _refresh_body(self, b: _PfStatic) -> None:
+        graphs.copy_into(b.head.state, pf_refresh(b.head, False, self.cfg))
+
+
+def make_pf_step(cfg: SlamConfig, device: str | torch.device = "cuda"
+                 ) -> PfStepFn:
+    """The captured particle-filter step (``PfStepFn``) on ``device``."""
+    return PfStepFn(cfg, device)
 
 
 def run_pf(ranges_all: np.ndarray, cfg: SlamConfig, seed: int = 0,
            device: str | torch.device = "cuda", draws=None
            ) -> tuple[torch.Tensor, ParticleState]:
-    """Whole-dataset particle-filter run. ``draws``, if given, is a sequence
-    of per-step ``(noise, u0)`` pairs for steps 1..T-1. Returns (path (T, 3)
-    on ``device``, final state)."""
+    """Whole-dataset particle-filter run through ``make_pf_step``.
+    ``draws``, if given, is a sequence of per-step ``(noise, u0)`` pairs for
+    steps 1..T-1. Returns (path (T, 3) on ``device``, final state)."""
     ranges = torch.as_tensor(np.asarray(ranges_all, np.float32),
                              device=resolve_device(device))
-    angles = angles_tensor(cfg, ranges.device)
+    step = make_pf_step(cfg, ranges.device)
     state = init_particles(ranges[0], cfg, seed)
-    poses = [torch.zeros(3, dtype=torch.float32, device=ranges.device)]
+    path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32,
+                       device=ranges.device)
     for t in range(1, ranges.shape[0]):
-        state, pose = pf_step(state, ranges[t], cfg, angles,
-                              None if draws is None else draws[t - 1])
-        poses.append(pose)
-    return torch.stack(poses), state
+        state, _ = step(state, ranges[t],
+                        None if draws is None else draws[t - 1])
+        path[t] = step.pose
+    return path, graphs.clone_tree(state)

@@ -24,7 +24,9 @@ import torch
 
 from lidar_slam_tpu_torch import _build
 
-launches = 0  # kernel launches made through this wrapper since the last reset
+# kernel launches made through this wrapper since the last reset; a replay
+# of a captured graph adds the launches it holds (``utils/graphs``)
+launches = 0
 # the same launches keyed by the (B, H, W) they transformed
 launches_by_shape: collections.Counter = collections.Counter()
 

@@ -622,3 +622,103 @@ def test_streaming_on_the_card_equals_offline(cuda):
                           for row in ranges], np.float32)
     want, _ = scan_matcher.run_host_loop(rounded, DEFAULT_CONFIG, device=cuda)
     assert np.array_equal(got, want)
+
+
+def _launches_by_shape():
+    from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match
+
+    return (dict(cuda_edt.launches_by_shape),
+            dict(cuda_match.launches_by_shape))
+
+
+def _reset_launches():
+    from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match
+
+    for mod in (cuda_edt, cuda_match):
+        mod.launches = 0
+        mod.launches_by_shape.clear()
+
+
+def test_captured_fidelity_equals_eager_on_the_card(cuda):
+    """60 museum scans: ``run_scan`` and ``run_host_loop`` (CUDA graphs)
+    equal the eager ``slam_step`` loop bit for bit, path and final state,
+    with the same K1 launches by shape."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.models import scan_matcher
+
+    ranges, _ = _museum(60)
+    r = torch.as_tensor(ranges, device=cuda)
+    angles = scan_matcher.angles_tensor(DEFAULT_CONFIG, cuda)
+    _reset_launches()
+    state = scan_matcher.init_state(r[0], DEFAULT_CONFIG)
+    want = [np.zeros(3, np.float32)]
+    for t in range(1, len(r)):
+        state, pose = scan_matcher.slam_step(state, r[t], DEFAULT_CONFIG,
+                                             angles, pose_to_host=True)
+        want.append(pose)
+    eager = _launches_by_shape()
+    _reset_launches()
+    path, got = scan_matcher.run_scan(ranges, DEFAULT_CONFIG, device=cuda)
+    assert _launches_by_shape() == eager and eager[0]
+    assert np.array_equal(path.cpu().numpy(), np.stack(want))
+    for f in ("pose", "prev_pose", "coarse_metric", "fine_metric",
+              "scan_wx", "scan_wy"):
+        assert torch.equal(getattr(got, f), getattr(state, f)), f
+    assert torch.equal(got.pmap.xy, state.pmap.xy)
+    host, _ = scan_matcher.run_host_loop(ranges, DEFAULT_CONFIG, device=cuda)
+    assert np.array_equal(host, np.stack(want))
+
+
+@pytest.mark.parametrize("draws_from", ["generator", "numpy"])
+def test_captured_pf_equals_eager_on_the_card(cuda, draws_from):
+    """PF-256, 40 museum scans: ``run_pf`` (CUDA graphs) equals the eager
+    ``pf_step`` loop bit for bit, with the card's generator (the same
+    stream: the generator's state ends equal) and with injected draws; the
+    same K1 and K2 launches by shape."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, ParticleConfig
+    from lidar_slam_tpu_torch.models import fastslam, scan_matcher
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG,
+                              particles=ParticleConfig(n_particles=256))
+    ranges, _ = _museum(40)
+    draws = None
+    if draws_from == "numpy":
+        rng = np.random.default_rng(1)
+        draws = [(rng.standard_normal((256, 3)).astype(np.float32),
+                  np.float32(rng.random() / 256)) for _ in ranges[1:]]
+    r = torch.as_tensor(ranges, device=cuda)
+    angles = scan_matcher.angles_tensor(cfg, cuda)
+    _reset_launches()
+    state = fastslam.init_particles(r[0], cfg, seed=0)
+    want = [torch.zeros(3, device=cuda)]
+    for t in range(1, len(r)):
+        state, pose = fastslam.pf_step(
+            state, r[t], cfg, angles, None if draws is None else draws[t - 1])
+        want.append(pose)
+    eager = _launches_by_shape()
+    _reset_launches()
+    path, got = fastslam.run_pf(ranges, cfg, seed=0, device=cuda, draws=draws)
+    assert _launches_by_shape() == eager and eager[0] and eager[1]
+    assert torch.equal(path, torch.stack(want))
+    for f in ("poses", "prev_poses", "logw", "fine_metric", "clamp_frac"):
+        assert torch.equal(getattr(got, f), getattr(state, f)), f
+    assert torch.equal(got.rng.get_state(), state.rng.get_state())
+
+
+def test_capture_refuses_a_host_sync(cuda):
+    """A body that reads the device on the host raises at its warm-up
+    (the sync debug mode is "error" there and in the capture); a clean
+    body captures, replays and counts nothing it did not launch."""
+    from lidar_slam_tpu_torch.utils import graphs
+
+    runner = graphs.Graphs(cuda)
+    buf = torch.zeros(3, device=cuda)
+    with pytest.raises(RuntimeError):
+        runner.run("sync", lambda b: b.add_(float(b.sum().item())), buf)
+    for _ in range(3):
+        runner.run("clean", lambda b: b.add_(1.0), buf)
+    assert torch.equal(buf.cpu(), torch.full((3,), 3.0))
+    assert len(runner) == 1 and runner.pool_bytes() >= 0
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -33,12 +33,16 @@ BOOT_GRACE_S = 120.0     # a spawned child importing torch on a busy host
 # the longest a PF step may go without a beat: a resumed child's first
 # steps on a busy host (six test workers) took over 2 s
 PF_STALL_S = 15.0
+# the longest a counting step may go without a beat: under six test workers
+# and the spawned gloo worlds of the multiprocess tests, a pause between two
+# beats of a few seconds was seen, so the same margin as a PF step
+FLAKY_STALL_S = 15.0
 
 
 def test_recovers_from_injected_hang(tmp_path):
     run_dir = str(tmp_path / "run")
     report = watchdog.run_supervised(
-        _flaky_worker, (20, 7), run_dir, stall_timeout_s=1.5,
+        _flaky_worker, (20, 7), run_dir, stall_timeout_s=FLAKY_STALL_S,
         max_restarts=1, poll_s=0.1, boot_grace_s=BOOT_GRACE_S)
     assert report.completed, report
     assert report.attempts == 2 and report.stalls == 1
