@@ -48,7 +48,9 @@ parallel layer on an NCCL world of one) and checks the results:
    3.35 TB/s or adds over 67 TFLOP/s) and the share of it reached; for K2
    one grouped conv2d computing the same sums (TF32 off) and whether it
    equals K2;
-8. graph SLAM, loop-700: >= 1 closure, graph error per edge < 1, ATE < 0.1 m;
+8. graph SLAM, loop-700, its frontend captured (``GraphSlam.run`` over
+   ``scan_matcher.make_step_fn``; phases 9, 10, 10b and 14 likewise): >= 1
+   closure, graph error per edge < 1, ATE < 0.1 m;
 9. graph SLAM, building-3800 with BUILDING_WIDE_CONFIG: >= 5 closures,
    ATE < 0.2 m, pinned without frontend feedback; then the same tour with
    feedback, measured and printed but not pinned (its outcome is chaotic
@@ -62,7 +64,9 @@ parallel layer on an NCCL world of one) and checks the results:
     feedback (bench.py's stage_building_pf): closures and ATE printed, not
     pinned (feedback is chaotic on this tour); K2's B=1 T=13 half=6 S=512
     launched (> 0);
-11. EKF (``--mode ekf``), museum-1000, ``long_tour_config(1024)``: ATE
+11. EKF (``--mode ekf``), museum-1000, ``long_tour_config(1024)``,
+    captured (``EkfStepFn``; phase 12's hybrid and 13's submap runs
+    through ``HybridStepFn`` and ``submap_slam.make_step_fn``): ATE
     printed; 100 scans on the card and on the CPU with the same numpy-made
     draws, max |pose difference| <= 1e-3; museum-400 with the config of
     ``tests/test_ekf_slam.py``'s museum test: ATE < 0.15 m;
@@ -77,6 +81,15 @@ parallel layer on an NCCL world of one) and checks the results:
 14. submap graph SLAM (``--mode submap-graph``), loop-700: >= 1 closure,
     ATE < 0.1 m, graph error per edge < 1, >= 2 submaps all tied to a
     keyframe, map within the tour's extent + 30 m;
+    14c. captured against eager: the eager loops (``GraphSlam(eager=True)``,
+    ``slam_step`` / ``ekf_slam_step_ml`` / ``hybrid_step`` a scan) equal
+    phases 8, 13 and 14 and captured EKF-1024 and hybrid-EKF-1024 runs on
+    the first 300 museum scans (``np.array_equal``), with the same K1/K2
+    launches by shape; for each of the five drivers, eager and captured,
+    scans/s over the run and, over scans 101-150 after 100 unprofiled,
+    device ops, device time and host syncs a scan and the busy share (the
+    graph runs profile that window from inside their chunk loop); the
+    captured steps' graph count and pool bytes;
 15. streamed fidelity, museum-1000: a ``ScanServer`` on the tour, a
     ``RelayServer`` in front of it, ``run_streaming_slam`` on the card;
     the path bit-identical to ``run_host_loop`` on the card and to the C++
@@ -126,15 +139,16 @@ parallel layer on an NCCL world of one) and checks the results:
     23. ``dryrun_multichip(1)`` and ``scaling_report(world_sizes=(1, 2,
     4))`` (a spawned world of 1; 2 and 4 skipped: 1 GPU).
 
-Phases 11-14 also profile the first 100 scans of their path: device ops
-a scan and the device busy share (``torch.profiler`` device rows: kernels,
+Phases 6c and 14c profile a steady window of each driver: device ops a
+scan and the device busy share (``torch.profiler`` device rows: kernels,
 copies, memsets; the share is their time a scan over the unprofiled run's
 wall time a scan) and host syncs a scan
 (``torch.cuda.set_sync_debug_mode("warn")`` warnings).
 
 Any failed check exits non-zero. The launch counters (a total and a count
 by shape for each kernel) are zeroed right before each main-path run
-(phases 5, 6, 6b, 8-15, 20, 21, 23) and read right after it, so they count
+(phases 5, 6, 6b, 8-15, 14c's captured filter runs, 20, 21, 23) and read
+right after it, so they count
 only the main paths (phase 16's workers count in their own processes and
 write their counts to the run directory; phase 23's spawned rank counts in
 its own process and is not summed); each run prints its counts by shape
@@ -177,7 +191,10 @@ HYBRID_MUSEUM500_ATE_MAX = 0.12  # m, tests/test_ekf_hybrid.py
 HYBRID_OVER_LANDMARK_MARGIN = 0.02  # m, the same test
 SUBMAP_ATE_FACTOR, SUBMAP_ATE_FLOOR = 2.5, 0.08  # tests/test_submap.py
 PROFILE_SCANS = 100        # scans of each new path run under the profiler
-STEADY_SCANS = 50          # phase 6c: scans profiled after PROFILE_SCANS
+STEADY_SCANS = 50          # phases 6c, 14c: scans profiled after
+#                            PROFILE_SCANS
+FILTER_SCANS = 300         # phase 14c: museum scans of the EKF and hybrid
+#                            comparisons
 STREAM_PACE_S = 0.1       # phase 15: the sensor's 10 Hz
 STREAM_PACED_SCANS = 300   # scans of the paced stream (30 s)
 STREAM_SYNC_SCANS = 100    # scans of the stream that counts host syncs
@@ -318,37 +335,212 @@ def eager_pf(ranges, cfg, seed, dev):
     return torch.stack(poses), state
 
 
-def profiled(run, n: int) -> tuple[float, float, float]:
-    """``run()`` (n scans) under ``torch.profiler`` (device activity only:
-    recording every CPU op of a 1000-launch scan would double its time)
-    and the sync debug mode: (device ops a scan, device ms a scan, host
-    syncs a scan). Device ops and time: the profiler's rows with device
-    time (kernels, copies, memsets); syncs: the mode's warnings."""
-    import warnings
-
+def eager_submap(ranges, cfg, dev):
+    """The eager submap loop, ``slam_step`` a scan with the poses kept on
+    the device (``run_scan`` before the captured step): (path (T, 3)
+    numpy, final state)."""
+    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    from lidar_slam_tpu_torch.models import scan_matcher, submap_slam
+
+    r = torch.as_tensor(np.asarray(ranges, np.float32), device=dev)
+    angles = scan_matcher.angles_tensor(cfg, dev)
+    state = submap_slam.init_state(r[0], cfg)
+    poses = [state.pose]
+    for t in range(1, len(r)):
+        state, pose = submap_slam.slam_step(state, r[t], cfg, angles)
+        poses.append(pose)
+    return torch.stack(poses).cpu().numpy(), state
+
+
+def eager_ekf(ranges, ecfg, cfg, dev):
+    """The eager scan-driven EKF (``run_ekf_slam_scan``'s pre-pass, then
+    ``ekf_slam_step_ml`` a scan, seed 0): (path (T, 3) numpy, final
+    state)."""
+    import torch
+
+    from lidar_slam_tpu_torch.models import ekf_slam
+
+    obs, valid, odo, counts = ekf_slam.scan_inputs(
+        ranges, ecfg, cfg.lidar, ekf_slam.LONG_TOUR_MAX_RANGE, device=dev)
+    state = ekf_slam.init_ekf_slam(ecfg, 0, dev)
+    poses = [torch.zeros(3, device=dev)]
+    for t in range(obs.shape[0]):
+        state, est = ekf_slam.ekf_slam_step_ml(
+            state, obs[t], valid[t], ecfg, odo=odo[t], n_det=int(counts[t]))
+        poses.append(est)
+    return torch.stack(poses).cpu().numpy(), state
+
+
+def hybrid_inputs(ranges, cfg, dev):
+    """``run_ekf_hybrid``'s pre-pass: (ranges on the card, detections,
+    scan odometry, detection counts on the host)."""
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch.models import scan_matcher
+    from lidar_slam_tpu_torch.ops import landmarks
+    from lidar_slam_tpu_torch.ops.scan_odometry import pairwise_odometry
+
+    r = torch.as_tensor(np.asarray(ranges, np.float32), device=dev)
+    angles = scan_matcher.angles_tensor(cfg, dev)
+    det = landmarks.extract_corners(
+        r, angles, range_min=cfg.lidar.range_min,
+        usable_range=cfg.lidar.usable_range, max_range=12.0)
+    odo = pairwise_odometry(r, angles, cfg.lidar)
+    return r, det, odo, det.count.cpu().numpy()
+
+
+def eager_hybrid(ranges, ecfg, cfg, dev):
+    """The eager hybrid loop (``run_ekf_hybrid``'s pre-pass, then
+    ``hybrid_step`` a scan, seed 0): (path (T, 3) numpy, final state)."""
+    import torch
+
+    from lidar_slam_tpu_torch.models import ekf_hybrid, scan_matcher
+
+    r, det, odo, counts = hybrid_inputs(ranges, cfg, dev)
+    angles = scan_matcher.angles_tensor(cfg, dev)
+    state = ekf_hybrid.init_hybrid(r[0], ecfg, cfg, 0)
+    poses = [torch.zeros(3, device=dev)]
+    for t in range(1, len(r)):
+        state, est = ekf_hybrid.hybrid_step(
+            state, r[t], det.rb[t], det.valid[t], odo[t - 1], ecfg, cfg,
+            angles, n_det=int(counts[t]))
+        poses.append(est)
+    return torch.stack(poses).cpu().numpy(), state
+
+
+class ProfileWindow:
+    """``torch.profiler`` (device activity only: recording every CPU op of
+    a 1000-launch scan would double its time) and the sync debug mode
+    "warn" from ``start()`` to ``stop(n)``, which returns (device ops a
+    scan, device ms a scan, host syncs a scan) over the n scans run in
+    between. Device ops and time: the profiler's rows with device time
+    (kernels, copies, memsets); syncs: the mode's warnings."""
+
+    def start(self) -> None:
+        import warnings
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self._warnings = warnings.catch_warnings(record=True)
+        self._caught = self._warnings.__enter__()
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.start()
+
+    def stop(self, n: int) -> tuple[float, float, float]:
+        import torch
+
         try:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                run()
-                torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            self._prof.stop()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    dev_us, n_ops = 0.0, 0
-    for ev in prof.key_averages():
-        t_dev = getattr(ev, "self_device_time_total", None)
-        if t_dev is None:
-            t_dev = ev.self_cuda_time_total
-        if t_dev > 0:
-            dev_us += t_dev
-            n_ops += ev.count
-    return n_ops / n, dev_us / n / 1e3, syncs / n
+            self._warnings.__exit__(None, None, None)
+        syncs = sum("synchroniz" in str(w.message) for w in self._caught)
+        dev_us, n_ops = 0.0, 0
+        for ev in self._prof.key_averages():
+            t_dev = getattr(ev, "self_device_time_total", None)
+            if t_dev is None:
+                t_dev = ev.self_cuda_time_total
+            if t_dev > 0:
+                dev_us += t_dev
+                n_ops += ev.count
+        return n_ops / n, dev_us / n / 1e3, syncs / n
+
+
+def profiled(run, n: int) -> tuple[float, float, float]:
+    """``run()`` (n scans) in a ``ProfileWindow``: (device ops a scan,
+    device ms a scan, host syncs a scan)."""
+    window = ProfileWindow()
+    window.start()
+    try:
+        run()
+    finally:
+        numbers = window.stop(n)
+    return numbers
+
+
+class WindowedFrontend:
+    """A ``GraphSlam`` frontend (``GraphSlam.frontend``) that counts the
+    run's scans and measures scans ``first`` .. ``first + n - 1`` from
+    inside the chunk loop: under a ``ProfileWindow`` with ``profile``,
+    else on the host clock, unprofiled. The scans before them run
+    unprofiled, and the captures happen there. ``result`` holds the
+    window's numbers once the run has passed it (the profile's, or the
+    wall seconds a scan); ``step`` is the captured step object the run made
+    (None for an eager run)."""
+
+    def __init__(self, frontend, first: int, n: int, profile: bool):
+        self.frontend, self.first, self.n = frontend, first, n
+        self.profile = profile
+        self.t, self.result, self.step = 0, None, None
+        self.window = ProfileWindow()
+
+    def counted(self, step, *args):
+        """``step(*args)`` as scan ``t``: the window opens before scan
+        ``first`` and closes after scan ``first + n - 1``."""
+        import torch
+
+        self.t += 1
+        if self.t == self.first:
+            if self.profile:
+                self.window.start()
+            else:
+                torch.cuda.synchronize()
+                self._t0 = time.perf_counter()
+        out = step(*args)
+        if self.t == self.first + self.n - 1:
+            if self.profile:
+                self.result = self.window.stop(self.n)
+            else:
+                torch.cuda.synchronize()
+                self.result = (time.perf_counter() - self._t0) / self.n
+        return out
+
+    def init_state(self, ranges0, cfg):
+        return self.frontend.init_state(ranges0, cfg)
+
+    def slam_step(self, state, ranges, cfg, angles):
+        return self.counted(self.frontend.slam_step, state, ranges, cfg,
+                            angles)
+
+    def make_step_fn(self, cfg, device):
+        self.step = self.frontend.make_step_fn(cfg, device)
+        return _CountedStep(self)
+
+
+class ByScan:
+    """A captured step object driven by scan index: ``step(state, t)``
+    calls ``obj(state, *inputs(t))``; ``graphs`` is the object's."""
+
+    def __init__(self, obj, inputs):
+        self.obj, self.inputs = obj, inputs
+
+    def __call__(self, state, t: int):
+        return self.obj(state, *self.inputs(t))
+
+    @property
+    def graphs(self):
+        return self.obj.graphs
+
+
+class _CountedStep:
+    """The captured step of a ``WindowedFrontend``, counted a call."""
+
+    def __init__(self, frontend: WindowedFrontend):
+        self.frontend = frontend
+
+    def __call__(self, state, ranges):
+        return self.frontend.counted(self.frontend.step, state, ranges)
+
+    def __getattr__(self, name):   # pose, scan, graphs
+        return getattr(self.frontend.step, name)
 
 
 def fail(msg: str) -> None:
@@ -1140,50 +1332,82 @@ def main() -> int:
     reset_counts()
     phase_done("6c")
 
-    def steady(label, step, state, wall_per_scan):
-        """Scans 1..PROFILE_SCANS unprofiled (the captures happen there),
-        the next STEADY_SCANS profiled: prints ops, busy share and syncs."""
-        for t in range(1, PROFILE_SCANS + 1):
-            state, _ = step(state, mranges[t])
+    def report(tag, label, numbers, wall_per_scan, steady_wall):
+        """Prints a steady window's ops, device time, busy share and syncs
+        beside the unprofiled wall time a scan, over the whole run and over
+        the same window run unprofiled."""
+        ops, dev_ms, syncs = numbers
+        print(f"[{tag}] {label}: {1 / wall_per_scan:.1f} scans/s; scans "
+              f"{PROFILE_SCANS + 1}-{PROFILE_SCANS + STEADY_SCANS}: "
+              f"{steady_wall * 1e3:.3f} ms a scan unprofiled (host clock), "
+              f"and under the profiler {ops:.1f} device ops a scan, device "
+              f"time {dev_ms:.3f} ms a scan, busy share "
+              f"{dev_ms / 1e3 / steady_wall:.1%} of those scans' unprofiled "
+              f"time and {dev_ms / 1e3 / wall_per_scan:.1%} of the run's "
+              f"{wall_per_scan * 1e3:.3f} ms a scan; host syncs "
+              f"{syncs:.2f} a scan", flush=True)
 
-        def window():
-            nonlocal state
-            for t in range(PROFILE_SCANS + 1,
-                           PROFILE_SCANS + STEADY_SCANS + 1):
-                state, _ = step(state, mranges[t])
+    def steady(tag, label, make, wall_per_scan):
+        """Two fresh runs of scans 1..PROFILE_SCANS + STEADY_SCANS
+        (``make() -> (step, state)``; ``step(state, t) -> (state, pose)``
+        runs scan t; the captures happen in the first PROFILE_SCANS): the
+        first times its last STEADY_SCANS unprofiled on the host clock, the
+        second profiles them (``report``). Returns the second run's
+        step."""
+        numbers = wall = None
+        for profile in (False, True):
+            step, state = make()
+            for t in range(1, PROFILE_SCANS + 1):
+                state, _ = step(state, t)
 
-        ops, dev_ms, syncs = profiled(window, STEADY_SCANS)
-        print(f"[6c] {label}: {1 / wall_per_scan:.1f} scans/s; scans "
-              f"{PROFILE_SCANS + 1}-{PROFILE_SCANS + STEADY_SCANS} under the "
-              f"profiler: {ops:.1f} device ops a scan, device time "
-              f"{dev_ms:.3f} ms a scan, busy share "
-              f"{dev_ms / 1e3 / wall_per_scan:.1%} of the unprofiled "
-              f"{wall_per_scan * 1e3:.3f} ms a scan; host syncs {syncs:.2f} "
-              f"a scan", flush=True)
+            def window():
+                nonlocal state
+                for t in range(PROFILE_SCANS + 1,
+                               PROFILE_SCANS + STEADY_SCANS + 1):
+                    state, _ = step(state, t)  # noqa: B023
 
-    for title, mk_state, eager_step, graph_step in (
-            ("fidelity museum-1000",
-             lambda: scan_matcher.init_state(mranges[0], cfg),
-             lambda s, x: scan_matcher.slam_step(s, x, cfg, angles,
-                                                 pose_to_host=True),
-             lambda: scan_matcher.make_step_fn(cfg, dev)),
-            ("PF-1024 museum-1000",
-             lambda: fastslam.init_particles(mranges[0], pcfg, 0),
-             lambda s, x: fastslam.pf_step(s, x, pcfg, angles),
-             lambda: fastslam.make_pf_step(pcfg, dev))):
-        rates = drivers[title]
-        steady(f"{title} eager", eager_step, mk_state(), 1 / rates["eager"])
-        step = graph_step()
-        reserved = torch.cuda.memory_reserved()
-        steady(f"{title} captured", step, mk_state(), 1 / rates["graph"])
-        print(f"[6c] {title} captured: {len(step.graphs)} graphs "
+            if profile:
+                numbers = profiled(window, STEADY_SCANS)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                window()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / STEADY_SCANS
+        report(tag, label, numbers, wall_per_scan, wall)
+        return step
+
+    def graph_report(tag, title, step, reserved, rates):
+        """Prints a captured driver's graphs and pool beside its scans/s
+        against the eager loop's."""
+        print(f"[{tag}] {title} captured: {len(step.graphs)} graphs "
               f"in one pool of {step.graphs.pool_bytes()} bytes; "
               f"torch.cuda.memory_reserved {reserved} -> "
               f"{torch.cuda.memory_reserved()} bytes; path == the eager "
               f"loop's (np.array_equal), launches by shape equal; scans/s "
               f"captured {rates['graph']:.1f} against eager "
               f"{rates['eager']:.1f} ({rates['graph'] / rates['eager']:.2f}"
-              f"x) over the whole tour", flush=True)
+              f"x) over the whole run", flush=True)
+
+    for title, mk_state, eager_step, graph_step in (
+            ("fidelity museum-1000",
+             lambda: scan_matcher.init_state(mranges[0], cfg),
+             lambda s, t: scan_matcher.slam_step(s, mranges[t], cfg, angles,
+                                                 pose_to_host=True),
+             lambda: scan_matcher.make_step_fn(cfg, dev)),
+            ("PF-1024 museum-1000",
+             lambda: fastslam.init_particles(mranges[0], pcfg, 0),
+             lambda s, t: fastslam.pf_step(s, mranges[t], pcfg, angles),
+             lambda: fastslam.make_pf_step(pcfg, dev))):
+        rates = drivers[title]
+        steady("6c", f"{title} eager",
+               lambda: (eager_step, mk_state()),  # noqa: B023
+               1 / rates["eager"])
+        reserved = torch.cuda.memory_reserved()
+        step = steady("6c", f"{title} captured", lambda: (  # noqa: B023
+            ByScan(graph_step(), lambda t: (mranges[t],)), mk_state()),
+            1 / rates["graph"])
+        graph_report("6c", title, step, reserved, rates)
         del step
     reset_counts()
     phase_done("6c, profile")
@@ -1472,18 +1696,6 @@ def main() -> int:
           flush=True)
 
     # ---- 11-14. the EKF and submap families (counters zeroed per run)
-    def profile_path(tag, title, run, wall_per_scan):
-        """Kernels a scan, device busy share and host syncs a scan of
-        ``run()`` (the first PROFILE_SCANS scans of the path)."""
-        n = PROFILE_SCANS
-        ops, dev_ms, syncs = profiled(run, n)
-        busy = dev_ms / 1e3 / wall_per_scan
-        print(f"[{tag}] {title}, first {n} scans under the profiler: "
-              f"{ops:.1f} device ops a scan, device time "
-              f"{dev_ms:.3f} ms a scan, busy share {busy:.1%} of "
-              f"the unprofiled {wall_per_scan * 1e3:.2f} ms a scan; host "
-              f"syncs {syncs:.2f} a scan", flush=True)
-
     def timed_run(title, run):
         """One main-path run with its own launch counts: (result, dt)."""
         reset_counts()
@@ -1535,8 +1747,6 @@ def main() -> int:
           f"s); ATE {ate(epath, gt):.4f} m; landmark slots in use "
           f"{float(efinal.lm_seen.sum(dim=1).float().mean()):.1f}; launches "
           f"K1 {used['K1']} K2 {used['K2']}", flush=True)
-    profile_path("11", title, lambda: run_ekf(ranges[:PROFILE_SCANS + 1],
-                                              dev), dt / len(epath))
     cuda_vs_cpu("11", "EKF-1024", run_ekf)
     pin_cfg = ekf_slam.EkfSlamConfig(
         n_particles=512, max_landmarks=48, r_noise=0.05, b_noise=0.008,
@@ -1565,8 +1775,6 @@ def main() -> int:
     print(f"[12] {title} on cuda: {len(hpath) / dt:.1f} scans/s ({dt:.2f} "
           f"s); ATE {ate(hpath, gt):.4f} m; map {int(hfinal.pmap.size)} "
           f"points; launches K1 {used['K1']} K2 {used['K2']}", flush=True)
-    profile_path("12", title, lambda: run_hybrid(
-        ranges[:PROFILE_SCANS + 1], dev), dt / len(hpath))
     cuda_vs_cpu("12", "hybrid-EKF-1024", run_hybrid)
     c512 = ekf_slam.long_tour_config(512)
     h500, _ = run_hybrid(ranges[:500], dev, c=c512)
@@ -1584,7 +1792,7 @@ def main() -> int:
     title = "submap museum-1000"
     (spath, sfinal), dt, used = timed_run(
         title, lambda: submap_slam.run_scan(ranges, cfg, device=dev))
-    spath = spath.cpu().numpy()
+    spath = submap_path = spath.cpu().numpy()
     final_states[title] = sfinal
     require(used["K1"] > 0, f"{title} launched K1 no time")
     scans_per_s[title] = len(spath) / dt
@@ -1594,8 +1802,6 @@ def main() -> int:
     print(f"[13] {title} on cuda: {len(spath) / dt:.1f} scans/s ({dt:.2f} "
           f"s); ATE {s_ate:.4f} m (< {s_max:.4f}); submaps "
           f"{sfinal.atlas.n_submaps}; launches K1 {used['K1']}", flush=True)
-    profile_path("13", title, lambda: submap_slam.run_scan(
-        ranges[:PROFILE_SCANS + 1], cfg, device=dev), dt / len(spath))
     s_cuda, _ = submap_slam.run_scan(ranges[:n_cmp], cfg, device=dev)
     s_cpu, _ = submap_slam.run_scan(ranges[:n_cmp], cfg, device="cpu")
     require(torch.equal(s_cuda.cpu(), s_cpu),
@@ -1645,11 +1851,152 @@ def main() -> int:
             f"{np.abs(pts).max() if len(pts) else 0}")
     print(f"[14] submap-graph: {n_sub} submaps, all tied to keyframes; map "
           f"{len(pts)} points within {extent:.1f} m", flush=True)
-    profile_path("14", "submap-graph loop-700", lambda: run_submap_graph(
-        lranges[:PROFILE_SCANS + 1]),
-        1.0 / scans_per_s["submap-graph loop-700"])
 
-    phase_done("14, profile")
+    phase_done("14")
+
+    # ---- 14c. the captured graph, submap, EKF and hybrid drivers against
+    # their eager loops: graph loop-700, submap museum-1000 and submap-graph
+    # loop-700 whole (phases 8, 13 and 14 ran them captured), EKF-1024 and
+    # hybrid-EKF-1024 on the first FILTER_SCANS museum scans (captured here,
+    # main paths); the same path (np.array_equal) and the same K1/K2
+    # launches by shape, then each driver's steady state as in 6c
+    fr = ranges[:FILTER_SCANS]
+    filter_runs = {}
+    for title, run in (
+            (f"EKF-1024 museum-{FILTER_SCANS}", lambda: run_ekf(fr, dev)),
+            (f"hybrid-EKF-1024 museum-{FILTER_SCANS}",
+             lambda: run_hybrid(fr, dev))):
+        (fpath, ffinal), dt, used = timed_run(title, run)
+        fpath = fpath.cpu().numpy()
+        require(used["K1"] > 0, f"{title} launched K1 no time")
+        require(np.isfinite(fpath).all(), f"{title} path is not finite")
+        final_states[title] = ffinal
+        scans_per_s[title] = len(fpath) / dt
+        filter_runs[title] = fpath
+    f_ekf, f_hybrid = filter_runs
+    # the share of those runs that their pre-pass takes (corner detections
+    # and the scan-odometry matcher, batched over the whole log)
+    for title, prepass in (
+            (f_ekf, lambda: ekf_slam.scan_inputs(
+                fr, ecfg, cfg.lidar, ekf_slam.LONG_TOUR_MAX_RANGE,
+                device=dev)),
+            (f_hybrid, lambda: hybrid_inputs(fr, cfg, dev))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prepass()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        run_s = len(filter_runs[title]) / scans_per_s[title]
+        print(f"[14c] {title}: its pre-pass alone {dt:.3f} s of the "
+              f"captured run's {run_s:.3f} s", flush=True)
+
+    def eager_graph(cls):
+        return lambda: cls(cfg, device=dev, eager=True).run(lranges)[0]
+
+    drivers14 = {}
+    for title, graph_path, run_eager, per_scan in (
+            ("graph loop-700", loop_gs._last_path,
+             eager_graph(graph_slam.GraphSlam), 1),
+            ("submap museum-1000", submap_path,
+             lambda: eager_submap(ranges, cfg, dev)[0], 0),
+            ("submap-graph loop-700", sgs._last_path,
+             eager_graph(SubmapGraphSlam), 1),
+            (f_ekf, filter_runs[f_ekf],
+             lambda: eager_ekf(fr, ecfg, cfg, dev)[0], 0),
+            (f_hybrid, filter_runs[f_hybrid],
+             lambda: eager_hybrid(fr, ecfg, cfg, dev)[0], 0)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epath = run_eager()
+        dt = time.perf_counter() - t0
+        eager_counts = {"K1": dict(cuda_edt.launches_by_shape),
+                        "K2": dict(cuda_match.launches_by_shape)}
+        require(np.array_equal(epath, graph_path),
+                f"{title}: the eager loop differs from the captured driver: "
+                f"max {np.abs(epath - graph_path).max()}")
+        require(eager_counts == path_counts[title],
+                f"{title}: launches by shape, eager {eager_counts} against "
+                f"captured {path_counts[title]}")
+        drivers14[title] = {"eager": (len(epath) - per_scan) / dt,
+                            "graph": scans_per_s[title]}
+        print(f"[14c] {title}: the eager loop's path == the captured "
+              f"driver's (np.array_equal), launches by shape equal; "
+              f"scans/s captured {scans_per_s[title]:.1f} against eager "
+              f"{drivers14[title]['eager']:.1f}", flush=True)
+    reset_counts()
+    phase_done("14c")
+
+    # steady state: scans 1..PROFILE_SCANS unprofiled, the next
+    # STEADY_SCANS under the profiler; the graph runs count their scans
+    # from inside the chunk loop (WindowedFrontend)
+    n_steady = PROFILE_SCANS + STEADY_SCANS
+    for title, cls in (("graph loop-700", graph_slam.GraphSlam),
+                       ("submap-graph loop-700", SubmapGraphSlam)):
+        rates = drivers14[title]
+        for eager in (True, False):
+            reserved = torch.cuda.memory_reserved()
+            result = {}
+            for profile in (False, True):
+                gs = cls(cfg, device=dev, eager=eager)
+                gs.frontend = WindowedFrontend(
+                    type(gs).frontend, PROFILE_SCANS + 1, STEADY_SCANS,
+                    profile)
+                gs.run(lranges[:n_steady + 1])   # scans 1..n_steady
+                require(gs.frontend.result is not None,
+                        f"{title}: the measured window did not close")
+                result[profile] = gs.frontend.result
+            report("14c", f"{title} {'eager' if eager else 'captured'}",
+                   result[True], 1 / rates["eager" if eager else "graph"],
+                   result[False])
+            if not eager:
+                graph_report("14c", title, gs.frontend.step, reserved, rates)
+    sangles = scan_matcher.angles_tensor(cfg, dev)
+    obs14, valid14, odo14, counts14 = ekf_slam.scan_inputs(
+        ranges[:n_steady + 1], ecfg, cfg.lidar,
+        ekf_slam.LONG_TOUR_MAX_RANGE, device=dev)
+    hr14, hdet14, hodo14, hcounts14 = hybrid_inputs(ranges[:n_steady + 1],
+                                                    cfg, dev)
+
+    def ekf_inputs(t):
+        return (obs14[t - 1], valid14[t - 1], odo14[t - 1],
+                int(counts14[t - 1]))
+
+    def hybrid_in(t):
+        return (hr14[t], hdet14.rb[t], hdet14.valid[t], hodo14[t - 1],
+                int(hcounts14[t]))
+
+    for title, mk_state, eager_step, mk_graph_step in (
+            ("submap museum-1000",
+             lambda: submap_slam.init_state(mranges[0], cfg),
+             lambda s, t: submap_slam.slam_step(s, mranges[t], cfg, sangles),
+             lambda: ByScan(submap_slam.make_step_fn(cfg, dev),
+                            lambda t: (mranges[t],))),
+            (f_ekf,
+             lambda: ekf_slam.init_ekf_slam(ecfg, 0, dev),
+             lambda s, t: ekf_slam.ekf_slam_step_ml(
+                 s, *ekf_inputs(t)[:2], ecfg, odo=ekf_inputs(t)[2],
+                 n_det=ekf_inputs(t)[3]),
+             lambda: ByScan(ekf_slam.EkfStepFn(ecfg, dev), ekf_inputs)),
+            (f_hybrid,
+             lambda: ekf_hybrid.init_hybrid(hr14[0], ecfg, cfg, 0),
+             lambda s, t: ekf_hybrid.hybrid_step(
+                 s, *hybrid_in(t)[:4], ecfg, cfg, sangles,
+                 n_det=hybrid_in(t)[4]),
+             lambda: ByScan(ekf_hybrid.HybridStepFn(ecfg, cfg, dev),
+                            hybrid_in))):
+        rates = drivers14[title]
+        steady("14c", f"{title} eager",
+               lambda: (eager_step, mk_state()),  # noqa: B023
+               1 / rates["eager"])
+        reserved = torch.cuda.memory_reserved()
+        step = steady("14c", f"{title} captured",
+                      lambda: (mk_graph_step(), mk_state()),  # noqa: B023
+                      1 / rates["graph"])
+        graph_report("14c", title, step, reserved, rates)
+        del step
+    reset_counts()
+    phase_done("14c, profile")
 
     # ---- 15. streamed fidelity, museum-1000: ScanServer -> RelayServer ->
     # run_streaming_slam on the card (counters zeroed just before)

@@ -13,7 +13,12 @@ Point storage keeps the JAX package's fixed shapes: (M, Ns, 2) points,
 (M,) sizes, (M, 3) anchors on the device. The slot counts ``n_submaps``
 and ``active`` are host ints here: they change only where the host already
 branches (a new submap, paging), so no step reads them back from the card,
-and JAX's ``.at[slot].set(mode="drop")`` on a full pool is a host test.
+and JAX's ``.at[slot].set(mode="drop")`` on a full pool is a host test
+(``spawned``). The device functions index with the same two ints as a (2,)
+device tensor, ``slots`` (``device_slots``; a captured step passes a static
+buffer that the host rewrites when the ints change), through 1-element
+slices and ``index_select`` / ``index_copy``: a graph captured with one
+slot would replay that slot forever.
 
 Frame convention: anchors are reference-convention poses (rotation by
 -theta, ``se2.transform_ref``).
@@ -28,7 +33,7 @@ import torch
 from lidar_slam_tpu_torch.core import se2
 from lidar_slam_tpu_torch.core.gridmap import LocalMap
 from lidar_slam_tpu_torch.core.sensor import compact, scatter_rows
-from lidar_slam_tpu_torch.device import rounded64
+from lidar_slam_tpu_torch.device import constant, rounded64
 
 _BIG = 1e30
 
@@ -62,37 +67,59 @@ def world_to_anchor(wx: torch.Tensor, wy: torch.Tensor, anchor: torch.Tensor):
     return ct * dx - st * dy, st * dx + ct * dy
 
 
-def start_submap(atlas: SubmapAtlas, anchor: torch.Tensor) -> SubmapAtlas:
-    """Open a new submap anchored at ``anchor`` and make it active. With
-    the pool full nothing is written and the last slot stays active (paging
-    evicts cold slots before that happens in the paged host loop)."""
+def device_slots(atlas: SubmapAtlas) -> torch.Tensor:
+    """(2,) int64 on the atlas's device: ``n_submaps`` and ``active``, a
+    cached constant (no host->device copy a step; never write to it)."""
+    return constant((atlas.n_submaps, atlas.active), atlas.pts.device,
+                    torch.int64)
+
+
+def spawned(atlas: SubmapAtlas) -> tuple[SubmapAtlas, bool]:
+    """The host side of ``start_submap``: the atlas with its slot ints after
+    a new submap opens, and whether a slot is written. With the pool full
+    nothing is written and the last slot stays active (paging evicts cold
+    slots before that happens in the paged host loop)."""
     m = atlas.pts.shape[0]
-    slot = atlas.n_submaps
-    if slot >= m:
-        return atlas._replace(active=m - 1)
-    pts, sizes, anchors = (atlas.pts.clone(), atlas.sizes.clone(),
-                           atlas.anchors.clone())
-    pts[slot] = 0.0
-    sizes[slot] = 0
-    anchors[slot] = anchor
-    return SubmapAtlas(pts=pts, sizes=sizes, anchors=anchors,
-                       n_submaps=slot + 1, active=slot)
+    if atlas.n_submaps >= m:
+        return atlas._replace(active=m - 1), False
+    return atlas._replace(n_submaps=atlas.n_submaps + 1,
+                          active=atlas.n_submaps), True
+
+
+def open_slot(atlas: SubmapAtlas, anchor: torch.Tensor,
+              k: torch.Tensor) -> SubmapAtlas:
+    """Slot ``k`` ((1,) int64) emptied and anchored at ``anchor``."""
+    return atlas._replace(pts=atlas.pts.index_fill(0, k, 0.0),
+                          sizes=atlas.sizes.index_fill(0, k, 0),
+                          anchors=atlas.anchors.index_copy(0, k, anchor[None]))
+
+
+def start_submap(atlas: SubmapAtlas, anchor: torch.Tensor) -> SubmapAtlas:
+    """Open a new submap anchored at ``anchor`` and make it active
+    (``spawned``, then ``open_slot``)."""
+    atlas, write = spawned(atlas)
+    if not write:
+        return atlas
+    return open_slot(atlas, anchor, device_slots(atlas)[1:2])
 
 
 def insert_world_points(atlas: SubmapAtlas, wx: torch.Tensor, wy: torch.Tensor,
-                        select: torch.Tensor) -> SubmapAtlas:
+                        select: torch.Tensor,
+                        k: torch.Tensor | None = None) -> SubmapAtlas:
     """Append the selected world-frame points, in order, to the active
-    submap in its anchor's frame; writes past capacity are dropped and the
-    size saturates (``gridmap.append_points``)."""
-    k = atlas.active
-    ax, ay = world_to_anchor(wx, wy, atlas.anchors[k][None])
+    submap (slot ``k``, (1,) int64; default the atlas's ``active``) in its
+    anchor's frame; writes past capacity are dropped and the size saturates
+    (``gridmap.append_points``)."""
+    k = device_slots(atlas)[1:2] if k is None else k
+    ax, ay = world_to_anchor(wx, wy, atlas.anchors.index_select(0, k))
     cap = atlas.pts.shape[1]
-    size = atlas.sizes[k]
+    size = atlas.sizes.index_select(0, k)
     pos, _ = compact(select, offset=size, capacity=cap)
-    pts, sizes = atlas.pts.clone(), atlas.sizes.clone()
-    pts[k] = scatter_rows(atlas.pts[k], pos, torch.stack([ax[0], ay[0]], 1))
-    sizes[k] = torch.clamp(size + select.sum(), max=cap)
-    return atlas._replace(pts=pts, sizes=sizes)
+    row = scatter_rows(atlas.pts.index_select(0, k)[0], pos,
+                       torch.stack([ax[0], ay[0]], 1))
+    size = torch.clamp(size + select.sum(), max=cap).to(atlas.sizes.dtype)
+    return atlas._replace(pts=atlas.pts.index_copy(0, k, row[None]),
+                          sizes=atlas.sizes.index_copy(0, k, size))
 
 
 def submap_world_points(atlas: SubmapAtlas):
@@ -107,34 +134,40 @@ def submap_world_points(atlas: SubmapAtlas):
 
 
 def nearest_submaps(atlas: SubmapAtlas, pose: torch.Tensor,
-                    k_nearest: int) -> torch.Tensor:
+                    k_nearest: int,
+                    slots: torch.Tensor | None = None) -> torch.Tensor:
     """Indices (K,) of the K nearest allocated submaps by anchor xy
     distance, the active one first (distance forced to -1). Unallocated
     slots tie at +inf; a stable sort orders every tie by slot, as JAX's
-    ``top_k`` does (``torch.topk`` leaves ties in no fixed order)."""
+    ``top_k`` does (``torch.topk`` leaves ties in no fixed order).
+    ``slots``: see the module docstring (default ``device_slots``)."""
+    slots = device_slots(atlas) if slots is None else slots
     m = atlas.pts.shape[0]
     diff = atlas.anchors[:, :2] - pose[:2]
     d2 = diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]
-    d2 = torch.where(torch.arange(m, device=d2.device) < atlas.n_submaps, d2,
+    d2 = torch.where(torch.arange(m, device=d2.device) < slots[0:1], d2,
                      torch.inf)
-    d2[atlas.active] = -1.0
+    d2 = d2.index_fill(0, slots[1:2], -1.0)
     return torch.sort(d2, stable=True).indices[:k_nearest]
 
 
 def extract_local_from_atlas(atlas: SubmapAtlas, pose: torch.Tensor,
                              scan_wx: torch.Tensor, scan_wy: torch.Tensor,
                              scan_valid: torch.Tensor, border: float,
-                             k_nearest: int) -> LocalMap:
+                             k_nearest: int,
+                             slots: torch.Tensor | None = None) -> LocalMap:
     """The matcher's local map: the K nearest submaps' points in the world
     frame, cropped to the scan's bounding box plus ``border`` (strict
-    inequalities, as ``gridmap.extract_local_map``). Capacity K * Ns."""
-    idx = nearest_submaps(atlas, pose, k_nearest)          # (K,)
+    inequalities, as ``gridmap.extract_local_map``). Capacity K * Ns.
+    ``slots``: as ``nearest_submaps``."""
+    slots = device_slots(atlas) if slots is None else slots
+    idx = nearest_submaps(atlas, pose, k_nearest, slots)   # (K,)
     pts = atlas.pts[idx]                                   # (K, Ns, 2)
     wx, wy = se2.transform_ref(pts[..., 0], pts[..., 1], atlas.anchors[idx])
     ns = pts.shape[1]
     valid = ((torch.arange(ns, device=pts.device)[None, :]
               < atlas.sizes[idx][:, None])
-             & (idx[:, None] < atlas.n_submaps))
+             & (idx[:, None] < slots[0:1]))
     min_x = torch.where(scan_valid, scan_wx, _BIG).min() - border
     min_y = torch.where(scan_valid, scan_wy, _BIG).min() - border
     max_x = torch.where(scan_valid, scan_wx, -_BIG).max() + border

@@ -24,16 +24,23 @@ def resolve_device(name: str | torch.device) -> torch.device:
     return dev
 
 
-@functools.lru_cache(maxsize=256)
+@functools.cache
 def constant(value, device: torch.device,
              dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A small constant tensor on ``device``, copied there once per process.
 
-    A host->device copy of a freshly made tensor synchronizes the stream, so
-    per-step constants come from here. ``value`` is a number or a (nested)
-    tuple; callers must never write to the returned tensor.
+    A host->device copy of a freshly made tensor from pageable memory
+    synchronizes the stream, so per-step constants come from here, copied
+    from pinned memory without a sync: a captured step's warm-up, which
+    runs under the sync debug mode "error", may make the first one. The
+    cache never drops a constant, since a captured graph reads it by its
+    address. ``value`` is a number or a (nested) tuple; callers must never
+    write to the returned tensor.
     """
-    return torch.tensor(value, dtype=dtype, device=device)
+    host = torch.tensor(value, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def rounded64(fn, *args: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,10 @@ come from batched pre-passes over the whole log (``ops/landmarks``;
 
 JAX's ``lax.cond`` on the keyframe test becomes one host branch a scan
 (the step's one device->host sync); ``step`` and ``mini_updated`` are host
-values.
+values. ``hybrid_step`` is ``hybrid_head`` (up to the test), that sync, and
+``hybrid_refresh`` when the test passed; ``HybridStepFn`` (JAX's jitted
+``_run_hybrid_jit``, driven by ``run_ekf_hybrid``) replays those arms as
+CUDA graphs over static buffers (``utils/graphs``).
 """
 
 from __future__ import annotations
@@ -37,11 +40,13 @@ from lidar_slam_tpu_torch.models import ekf_slam
 from lidar_slam_tpu_torch.models.ekf_slam import (EkfSlamConfig, EkfSlamState,
                                                   ekf_slam_step_ml,
                                                   init_ekf_slam)
-from lidar_slam_tpu_torch.models.fastslam import _OFFS27
-from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor
+from lidar_slam_tpu_torch.models.fastslam import _OFFS27, draw
+from lidar_slam_tpu_torch.models.scan_matcher import (angles_tensor,
+                                                      pose_and_test)
 from lidar_slam_tpu_torch.ops import correlative
 from lidar_slam_tpu_torch.ops import edt as edt_ops
 from lidar_slam_tpu_torch.ops import matching
+from lidar_slam_tpu_torch.utils import graphs
 
 
 class HybridState(NamedTuple):
@@ -72,15 +77,22 @@ def init_hybrid(ranges0: torch.Tensor, ekf_cfg: EkfSlamConfig,
         step=1, mini_updated=True)
 
 
-def hybrid_step(state: HybridState, ranges: torch.Tensor, obs: torch.Tensor,
+class HybridHead(NamedTuple):
+    """A hybrid step up to its keyframe test (``hybrid_head``)."""
+    state: HybridState        # the next state if the test fails
+    scan: sensor.Scan
+    est_pose: torch.Tensor    # (3,) the step's estimate
+    test: torch.Tensor        # () bool, the mini-update rule's test
+
+
+def hybrid_head(state: HybridState, ranges: torch.Tensor, obs: torch.Tensor,
                 obs_valid: torch.Tensor, odo: torch.Tensor,
                 ekf_cfg: EkfSlamConfig, cfg: SlamConfig,
-                angles: torch.Tensor, draws=None, n_det: int | None = None
-                ) -> tuple[HybridState, torch.Tensor]:
-    """One hybrid step: obs (M, 2) corner detections of this scan (the
-    first ``n_det`` valid), odo (3,) its scan-odometry delta. Returns
-    (state, estimated pose)."""
-    pc, g, m, mc = cfg.particles, cfg.grid, cfg.map, cfg.matcher
+                angles: torch.Tensor, draws=None, n_det=None) -> HybridHead:
+    """A step up to its keyframe test: the volume, the ML step with the grid
+    term, the estimate and the test. No host sync. Arguments as
+    ``hybrid_step``."""
+    pc, m, mc = cfg.particles, cfg.map, cfg.matcher
     dev = ranges.device
     scan = sensor.read_scan(ranges, angles, cfg.lidar)
 
@@ -112,32 +124,157 @@ def hybrid_step(state: HybridState, ranges: torch.Tensor, obs: torch.Tensor,
         d, _ = correlative.lookup_cascade(vols, cands)
         est_pose = cands[torch.argmin(d).view(1)][0]   # no host sync
 
-    # --- keyframe refresh of the shared map; the step's one host sync
+    # --- the mini-update rule's test
     dp = torch.abs(est_pose - state.pmap.keyframe_pose)
-    moved = state.step == 1 or bool(
-        ((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
-         | (dp[2] > m.mini_update_dr)).item())
-    pmap, fine, fine_metric = state.pmap, state.fine, state.fine_metric
-    if moved:
-        wx, wy = se2.transform_ref(scan.x, scan.y, est_pose)
-        if state.step == 1:
-            novel = scan.valid   # the field is still empty: seed from all
-        else:
-            _, hits, inb = matching.score_candidates(
-                state.fine_metric, state.fine, scan.x, scan.y, scan.valid,
-                est_pose[None])
-            novel = (hits[0] > m.new_point_threshold) & inb[0]
-        pmap = gridmap.append_points(state.pmap, wx, wy, novel, est_pose)
-        local = gridmap.extract_local_map(pmap, wx, wy, scan.valid,
-                                          g.border_size)
-        min_xy, max_xy = gridmap.local_bounds(local)
-        fine = gridmap.rasterize(local, g.fine_pixel, g.fine_size, min_xy,
-                                 max_xy, g.margin_pixels)
-        fine_metric = edt_ops.edt(fine.occ, int(g.max_dist_px))
+    test = ((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
+            | (dp[2] > m.mini_update_dr))
+    kept = state._replace(ekf=ekf2, step=state.step + 1, mini_updated=False)
+    return HybridHead(state=kept, scan=scan, est_pose=est_pose, test=test)
 
-    return HybridState(ekf=ekf2, pmap=pmap, fine=fine,
-                       fine_metric=fine_metric, step=state.step + 1,
-                       mini_updated=moved), est_pose
+
+def hybrid_refresh(head: HybridHead, first: bool, cfg: SlamConfig
+                   ) -> HybridState:
+    """The keyframe refresh of the shared map when the test passed (or on
+    the first step, ``first``, whose field is still empty): append the
+    novel points, crop, raster and the field (K1 on CUDA)."""
+    g, m = cfg.grid, cfg.map
+    st, scan, est_pose = head.state, head.scan, head.est_pose
+    wx, wy = se2.transform_ref(scan.x, scan.y, est_pose)
+    if first:
+        novel = scan.valid   # the field is still empty: seed from all
+    else:
+        _, hits, inb = matching.score_candidates(
+            st.fine_metric, st.fine, scan.x, scan.y, scan.valid,
+            est_pose[None])
+        novel = (hits[0] > m.new_point_threshold) & inb[0]
+    pmap = gridmap.append_points(st.pmap, wx, wy, novel, est_pose)
+    local = gridmap.extract_local_map(pmap, wx, wy, scan.valid,
+                                      g.border_size)
+    min_xy, max_xy = gridmap.local_bounds(local)
+    fine = gridmap.rasterize(local, g.fine_pixel, g.fine_size, min_xy,
+                             max_xy, g.margin_pixels)
+    fine_metric = edt_ops.edt(fine.occ, int(g.max_dist_px))
+    return st._replace(pmap=pmap, fine=fine, fine_metric=fine_metric,
+                       mini_updated=True)
+
+
+def hybrid_step(state: HybridState, ranges: torch.Tensor, obs: torch.Tensor,
+                obs_valid: torch.Tensor, odo: torch.Tensor,
+                ekf_cfg: EkfSlamConfig, cfg: SlamConfig,
+                angles: torch.Tensor, draws=None, n_det: int | None = None
+                ) -> tuple[HybridState, torch.Tensor]:
+    """One hybrid step: obs (M, 2) corner detections of this scan (the
+    first ``n_det`` valid), odo (3,) its scan-odometry delta. Returns
+    (state, estimated pose): ``hybrid_head``, the keyframe test on the host
+    (the step's one sync; none on the first step, which always refreshes),
+    ``hybrid_refresh`` if it passed."""
+    head = hybrid_head(state, ranges, obs, obs_valid, odo, ekf_cfg, cfg,
+                       angles, draws, n_det)
+    first = state.step == 1
+    if first or bool(head.test.item()):
+        return hybrid_refresh(head, first, cfg), head.est_pose
+    return head.state, head.est_pose
+
+
+class _Static(NamedTuple):
+    """The captured hybrid step's static buffers."""
+    ranges: torch.Tensor   # (N,)
+    obs: torch.Tensor      # (M, 2)
+    valid: torch.Tensor    # (M,)
+    odo: torch.Tensor      # (3,)
+    noise: torch.Tensor    # (P, 3) the step's proposal noise
+    u0: torch.Tensor       # () the step's resampling offset
+    head: HybridHead       # head.state is the step's state
+    out: torch.Tensor      # (4,) the estimate and the test
+
+
+class HybridStepFn:
+    """``step(state, ranges, obs, valid, odo, n_det, draws=None) -> (state,
+    pose)``: ``hybrid_step`` as captured CUDA graphs (``utils/graphs``),
+    JAX's jitted step with its state donated (``scan_matcher.StepFn`` has
+    the conventions): a head graph for each detection count ``n_det`` and
+    one refresh graph, in one memory pool. A step draws with ``draw`` from
+    the filter's generator (or copies ``draws``) into static buffers,
+    replays the head, reads the estimate and the test in one 16-byte
+    device->host copy (the step's one host sync) and replays the refresh if
+    the test passed. Scan 1 (``state.step == 1``, the seed arm) runs
+    eagerly. The pose comes back on the host; ``self.pose`` is the same
+    pose on the device, valid until the next call."""
+
+    def __init__(self, ekf_cfg: EkfSlamConfig, cfg: SlamConfig,
+                 device: str | torch.device = "cuda"):
+        self.ekf_cfg, self.cfg = ekf_cfg, cfg
+        self.device = resolve_device(device)
+        self.angles = angles_tensor(cfg, self.device)
+        self.graphs = graphs.Graphs(self.device)
+        self.bufs: _Static | None = None
+        self.state: HybridState | None = None   # the state last returned
+        self.pose: torch.Tensor | None = None
+
+    def __call__(self, state: HybridState, ranges: torch.Tensor,
+                 obs: torch.Tensor, valid: torch.Tensor, odo: torch.Tensor,
+                 n_det=None, draws=None) -> tuple[HybridState, np.ndarray]:
+        if state.step == 1:
+            state, pose = hybrid_step(state, ranges, obs, valid, odo,
+                                      self.ekf_cfg, self.cfg, self.angles,
+                                      draws, n_det)
+            self.pose = pose
+            return state, pose.cpu().numpy()
+        if state is not self.state:
+            self._load(state, obs)
+        b = self.bufs
+        for buf, x in ((b.ranges, ranges), (b.obs, obs), (b.valid, valid),
+                       (b.odo, odo)):
+            buf.copy_(x, non_blocking=True)
+        noise, u0 = draw(state.ekf, self.ekf_cfg.n_particles) \
+            if draws is None else draws
+        b.noise.copy_(torch.as_tensor(noise))
+        b.u0.copy_(torch.as_tensor(u0))
+        self.graphs.run(("head", n_det), self._head_body(n_det), b)
+        host = b.out.to("cpu", copy=True)   # a copy on the CPU too
+        moved = bool(host[3])
+        if moved:
+            self.graphs.run("refresh", self._refresh_body, b)
+        st = b.head.state
+        self.state = st._replace(ekf=st.ekf._replace(rng=state.ekf.rng),
+                                 step=state.step + 1, mini_updated=moved)
+        self.pose = b.head.est_pose
+        return self.state, host[:3].numpy()
+
+    def _load(self, state: HybridState, obs: torch.Tensor) -> None:
+        if self.bufs is None:
+            n, p = self.cfg.lidar.n_beams, self.ekf_cfg.n_particles
+            f32 = dict(dtype=torch.float32, device=self.device)
+            self.bufs = _Static(
+                ranges=torch.zeros(n, **f32),
+                obs=torch.zeros(obs.shape, **f32),
+                valid=torch.zeros(obs.shape[:1], dtype=torch.bool,
+                                  device=self.device),
+                odo=torch.zeros(3, **f32),
+                noise=torch.zeros((p, 3), **f32),
+                u0=torch.zeros((), **f32),
+                head=HybridHead(
+                    state=graphs.clone_tree(state),
+                    scan=sensor.empty_scan(n, self.device),
+                    est_pose=torch.zeros(3, **f32),
+                    test=torch.zeros((), dtype=torch.bool,
+                                     device=self.device)),
+                out=torch.zeros(4, **f32))
+        else:
+            graphs.copy_into(self.bufs.head.state, state)
+
+    def _head_body(self, n_det):
+        def body(b: _Static) -> None:
+            head = hybrid_head(b.head.state, b.ranges, b.obs, b.valid, b.odo,
+                               self.ekf_cfg, self.cfg, self.angles,
+                               draws=(b.noise, b.u0), n_det=n_det)
+            graphs.copy_into(b.head, head)
+            b.out.copy_(pose_and_test(b.head.est_pose, b.head.test))
+        return body
+
+    def _refresh_body(self, b: _Static) -> None:
+        graphs.copy_into(b.head.state, hybrid_refresh(b.head, False,
+                                                      self.cfg))
 
 
 def run_ekf_hybrid(ranges_all: np.ndarray, ekf_cfg: EkfSlamConfig,
@@ -145,10 +282,10 @@ def run_ekf_hybrid(ranges_all: np.ndarray, ekf_cfg: EkfSlamConfig,
                    max_range: float = 12.0,
                    device: str | torch.device = "cuda", draws=None,
                    **extract_kw) -> tuple[torch.Tensor, HybridState]:
-    """Whole-log hybrid run: raw (T, N) ranges -> (path (T, 3) on
-    ``device``, final state). Corner detections and scan odometry come
-    from batched pre-passes; the detection counts reach the host in one
-    copy. ``draws``: per-step (noise, u0) for steps 1..T-1."""
+    """Whole-log hybrid run through ``HybridStepFn``: raw (T, N) ranges ->
+    (path (T, 3) on ``device``, final state). Corner detections and scan
+    odometry come from batched pre-passes; the detection counts reach the
+    host in one copy. ``draws``: per-step (noise, u0) for steps 1..T-1."""
     from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
     from lidar_slam_tpu_torch.ops import landmarks as lm_ops
     from lidar_slam_tpu_torch.ops.scan_odometry import pairwise_odometry
@@ -164,11 +301,11 @@ def run_ekf_hybrid(ranges_all: np.ndarray, ekf_cfg: EkfSlamConfig,
     odo_all = pairwise_odometry(ranges, angles, cfg.lidar)
     counts = det.count.cpu().numpy()            # one copy for the whole log
     state = init_hybrid(ranges[0], ekf_cfg, cfg, seed)
-    ests = []
+    step = HybridStepFn(ekf_cfg, cfg, dev)
+    path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32, device=dev)
     for t in range(1, ranges.shape[0]):
-        state, est = hybrid_step(
-            state, ranges[t], det.rb[t], det.valid[t], odo_all[t - 1],
-            ekf_cfg, cfg, angles, None if draws is None else draws[t - 1],
-            n_det=int(counts[t]))
-        ests.append(est)
-    return ekf_slam._path(ests, dev), state
+        state, _ = step(state, ranges[t], det.rb[t], det.valid[t],
+                        odo_all[t - 1], int(counts[t]),
+                        None if draws is None else draws[t - 1])
+        path[t] = step.pose
+    return path, graphs.clone_tree(state)

@@ -24,7 +24,10 @@ Detections are compacted, so the caller passes each scan's detection count
 (copied to the host once for the whole log) and the step loops over the
 valid rows only: an invalid row changes nothing, and no step waits for the
 device to count. The resampling decision is a device-side ``where``; the
-step has no host sync.
+step has no host sync. ``run_ml`` and ``run_ekf_slam`` (JAX's jitted
+``_run_ml_jit`` / ``_run_jit``) drive ``EkfStepFn``, the steps as CUDA
+graphs over static buffers (``utils/graphs``), one graph for each detection
+count.
 
 Random numbers come from the ``torch.Generator`` in the state; the steps
 take ``draws=(noise (P, 3) standard normal, u0 in [0, 1/P))`` from outside
@@ -55,6 +58,7 @@ from lidar_slam_tpu_torch.models.fastslam import (ALL_ROWS, AllRows,
                                                   _softmax64, draw,
                                                   effective_sample_size,
                                                   systematic_resample)
+from lidar_slam_tpu_torch.utils import graphs
 
 
 class EkfSlamConfig(NamedTuple):
@@ -428,11 +432,12 @@ def ekf_slam_step_ml(state: EkfSlamState, obs: torch.Tensor,
     valid detections are then associated in order. ``aux_loglik_fn(poses
     (P, 3)) -> (P,)`` adds a per-particle log-likelihood before resampling
     (the hybrid's grid term). ``n_det`` is the number of valid rows when
-    they are the first ones (compacted detections); without it the valid
-    rows are found on the host. ``rows`` (``fastslam.AllRows``): the state
-    may hold one block of the particles (``parallel/sharded_ekf.py``); the
-    max, the resampling and the weighted mean then run over every
-    particle's gathered rows, so a sharded step equals the unsharded one."""
+    they are the first ones (compacted detections), or a tuple of the valid
+    rows; without it the valid rows are found on the host. ``rows``
+    (``fastslam.AllRows``): the state may hold one block of the particles
+    (``parallel/sharded_ekf.py``); the max, the resampling and the weighted
+    mean then run over every particle's gathered rows, so a sharded step
+    equals the unsharded one."""
     dev = state.poses.device
     noise, u0 = _step_draws(state, draws, cfg, rows)
     sigma = constant((cfg.odo_xy_noise, cfg.odo_xy_noise, cfg.odo_th_noise),
@@ -458,8 +463,10 @@ def ekf_slam_step_ml(state: EkfSlamState, obs: torch.Tensor,
         poses = _gn_step(state, poses, zr_m, zb_m, obs_valid, r_w_m, b_w,
                          log_p0)
 
-    dets = (range(n_det) if n_det is not None
-            else torch.nonzero(obs_valid).flatten().tolist())
+    if n_det is None:
+        dets = torch.nonzero(obs_valid).flatten().tolist()
+    else:
+        dets = range(n_det) if isinstance(n_det, int) else n_det
     lm_mean, lm_cov, seen = state.lm_mean, state.lm_cov, state.lm_seen
     logw_add = torch.zeros_like(state.logw)
     for k in dets:
@@ -479,6 +486,91 @@ def ekf_slam_step_ml(state: EkfSlamState, obs: torch.Tensor,
     return new_state, _weighted_mean(logw, poses)
 
 
+class _Static(NamedTuple):
+    """The captured EKF step's static buffers."""
+    obs: torch.Tensor     # (M, 2) detections, or (L, 2) known observations
+    valid: torch.Tensor   # (M,) / (L,) bool
+    odo: torch.Tensor     # (3,)
+    noise: torch.Tensor   # (P, 3) the step's proposal noise
+    u0: torch.Tensor      # () the step's resampling offset
+    state: EkfSlamState   # the step's state
+    pose: torch.Tensor    # (3,) the step's estimate
+
+
+class EkfStepFn:
+    """``step(state, obs, valid, odo, n_det, draws=None) -> (state, pose)``:
+    ``ekf_slam_step_ml`` as captured CUDA graphs (``utils/graphs``), one
+    for each ``n_det`` (a count, 0-16 with the detector's 16 rows, or a
+    tuple of the valid rows) in one memory pool; with ``known`` one graph of
+    ``ekf_slam_step`` (``obs`` the (L, 2) observations, ``valid`` their
+    visibility; ``n_det`` unused). JAX's jitted scans with the state donated
+    (``scan_matcher.StepFn`` has the conventions).
+
+    A step draws its noise and offset with ``draw`` from the state's
+    generator (or copies ``draws``) into static buffers, as the eager step
+    does, and replays its graph; nothing comes back to the host. The
+    returned state's tensors and the estimate ``pose`` are the step's
+    buffers, valid until the next call (``self.pose`` is the same
+    tensor)."""
+
+    def __init__(self, cfg: EkfSlamConfig, device: str | torch.device = "cuda",
+                 known: bool = False):
+        self.cfg = cfg
+        self.known = known
+        self.device = resolve_device(device)
+        self.graphs = graphs.Graphs(self.device)
+        self.bufs: _Static | None = None
+        self.state: EkfSlamState | None = None   # the state last returned
+        self.pose: torch.Tensor | None = None
+
+    def __call__(self, state: EkfSlamState, obs: torch.Tensor,
+                 valid: torch.Tensor, odo: torch.Tensor, n_det=None,
+                 draws=None) -> tuple[EkfSlamState, torch.Tensor]:
+        if state is not self.state:
+            self._load(state, obs, valid)
+        b = self.bufs
+        b.obs.copy_(obs, non_blocking=True)
+        b.valid.copy_(valid, non_blocking=True)
+        b.odo.copy_(odo, non_blocking=True)
+        noise, u0 = draw(state, self.cfg.n_particles) if draws is None \
+            else draws
+        b.noise.copy_(torch.as_tensor(noise))
+        b.u0.copy_(torch.as_tensor(u0))
+        key = None if self.known else n_det
+        self.graphs.run(key, self._body(key), b)
+        self.state = b.state._replace(rng=state.rng)
+        self.pose = b.pose
+        return self.state, b.pose
+
+    def _load(self, state: EkfSlamState, obs: torch.Tensor,
+              valid: torch.Tensor) -> None:
+        if self.bufs is None:
+            f32 = dict(dtype=torch.float32, device=self.device)
+            self.bufs = _Static(
+                obs=torch.zeros(obs.shape, **f32),
+                valid=torch.zeros(valid.shape, dtype=torch.bool,
+                                  device=self.device),
+                odo=torch.zeros(3, **f32),
+                noise=torch.zeros((self.cfg.n_particles, 3), **f32),
+                u0=torch.zeros((), **f32),
+                state=graphs.clone_tree(state), pose=torch.zeros(3, **f32))
+        else:
+            graphs.copy_into(self.bufs.state, state)
+
+    def _body(self, n_det):
+        def body(b: _Static) -> None:
+            if self.known:
+                new, pose = ekf_slam_step(b.state, b.odo, b.obs, b.valid,
+                                          self.cfg, draws=(b.noise, b.u0))
+            else:
+                new, pose = ekf_slam_step_ml(
+                    b.state, b.obs, b.valid, self.cfg, odo=b.odo,
+                    draws=(b.noise, b.u0), n_det=n_det)
+            graphs.copy_into(b.state, new)
+            b.pose.copy_(pose)
+        return body
+
+
 def _path(ests: list[torch.Tensor], dev) -> torch.Tensor:
     """The estimates after scan 0, behind the origin (pose 0 by
     convention)."""
@@ -491,26 +583,42 @@ def run_ml(obs_all, valid_all, odo_all, cfg: EkfSlamConfig, seed: int = 0,
            rows: AllRows = ALL_ROWS) -> tuple[torch.Tensor, EkfSlamState]:
     """The ML-association filter over scans 1..T-1: obs_all (T-1, M, 2),
     valid_all (T-1, M), odo_all (T-1, 3). ``counts`` (host ints), where
-    given, are the detections of each row (valid rows first); ``draws`` a
-    sequence of per-step (noise, u0); ``rows``: the particle block this
-    process runs (``ekf_slam_step_ml``). Returns (path (T, 3), final
-    state)."""
+    given, are the detections of each row (valid rows first); without them
+    each row's valid rows come to the host in one copy. ``draws`` a
+    sequence of per-step (noise, u0). The steps run captured
+    (``EkfStepFn``); with ``rows``, the particle block this process runs
+    (``ekf_slam_step_ml``; the sharded steps are not captured), eagerly.
+    Returns (path (T, 3) on ``device``, final state)."""
     dev = resolve_device(device)
     obs_all, valid_all, odo_all = (torch.as_tensor(a, device=dev)
                                    for a in (obs_all, valid_all, odo_all))
     obs_all = obs_all.to(torch.float32)
     odo_all = odo_all.to(torch.float32)
     state = init_ekf_slam(cfg, seed, dev)
-    state = state._replace(**{f: rows.rows(getattr(state, f))
-                              for f in PARTICLE_LEAVES})
-    ests = []
-    for t in range(obs_all.shape[0]):
-        state, est = ekf_slam_step_ml(
-            state, obs_all[t], valid_all[t], cfg, odo=odo_all[t],
-            draws=None if draws is None else draws[t],
-            n_det=None if counts is None else int(counts[t]), rows=rows)
-        ests.append(est)
-    return _path(ests, dev), state
+    n = obs_all.shape[0]
+    if counts is None:
+        dets = [tuple(np.flatnonzero(v).tolist())
+                for v in valid_all.cpu().numpy()]
+    else:
+        dets = [int(c) for c in counts]
+    if rows is not ALL_ROWS:
+        state = state._replace(**{f: rows.rows(getattr(state, f))
+                                  for f in PARTICLE_LEAVES})
+        ests = []
+        for t in range(n):
+            state, est = ekf_slam_step_ml(
+                state, obs_all[t], valid_all[t], cfg, odo=odo_all[t],
+                draws=None if draws is None else draws[t], n_det=dets[t],
+                rows=rows)
+            ests.append(est)
+        return _path(ests, dev), state
+    step = EkfStepFn(cfg, dev)
+    path = torch.zeros((n + 1, 3), dtype=torch.float32, device=dev)
+    for t in range(n):
+        state, _ = step(state, obs_all[t], valid_all[t], odo_all[t], dets[t],
+                        None if draws is None else draws[t])
+        path[t + 1] = step.pose
+    return path, graphs.clone_tree(state)
 
 
 def scan_inputs(ranges_all: np.ndarray, cfg: EkfSlamConfig, lidar_cfg=None,
@@ -577,20 +685,23 @@ def run_ekf_slam(odom: np.ndarray, obs: np.ndarray, vis: np.ndarray,
                  cfg: EkfSlamConfig, seed: int = 0,
                  device: str | torch.device = "cuda", draws=None
                  ) -> tuple[torch.Tensor, EkfSlamState]:
-    """Known-association run. obs (T, L, 2) and vis (T, L) include t=0,
-    which is skipped: obs[t] pairs with the pose after odom[t-1]. Returns
-    (path (T, 3) on ``device``, final state)."""
+    """Known-association run through ``EkfStepFn(known=True)``. obs (T, L,
+    2) and vis (T, L) include t=0, which is skipped: obs[t] pairs with the
+    pose after odom[t-1]. Returns (path (T, 3) on ``device``, final
+    state)."""
     dev = resolve_device(device)
     odom = torch.as_tensor(np.asarray(odom, np.float32), device=dev)
     obs = torch.as_tensor(np.asarray(obs, np.float32), device=dev)
     vis = torch.as_tensor(np.asarray(vis, bool), device=dev)
     state = init_ekf_slam(cfg, seed, dev)
-    ests = []
+    step = EkfStepFn(cfg, dev, known=True)
+    path = torch.zeros((odom.shape[0] + 1, 3), dtype=torch.float32,
+                       device=dev)
     for t in range(odom.shape[0]):
-        state, est = ekf_slam_step(state, odom[t], obs[t + 1], vis[t + 1],
-                                   cfg, None if draws is None else draws[t])
-        ests.append(est)
-    return _path(ests, dev), state
+        state, _ = step(state, obs[t + 1], vis[t + 1], odom[t],
+                        draws=None if draws is None else draws[t])
+        path[t + 1] = step.pose
+    return path, graphs.clone_tree(state)
 
 
 def landmark_estimates(state: EkfSlamState) -> np.ndarray:

@@ -304,7 +304,8 @@ class PfStepFn:
     the next call, which takes the state back; a state the step did not
     return is copied in first (``scan_matcher.StepFn`` has the details).
     The pose comes back on the host; ``self.pose`` is the same pose on the
-    device, valid until the next call."""
+    device and ``self.scan`` the step's gated scan (None after the eager
+    scan 1), valid until the next call."""
 
     def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -314,13 +315,14 @@ class PfStepFn:
         self.bufs: _PfStatic | None = None
         self.state: ParticleState | None = None   # the state last returned
         self.pose: torch.Tensor | None = None
+        self.scan: sensor.Scan | None = None
 
     def __call__(self, state: ParticleState, ranges: torch.Tensor,
                  draws=None) -> tuple[ParticleState, np.ndarray]:
         if state.step == 1:
             ranges = ranges.to(self.device, non_blocking=True)
             state, pose = pf_step(state, ranges, self.cfg, self.angles, draws)
-            self.pose = pose
+            self.pose, self.scan = pose, None
             return state, pose.cpu().numpy()
         if state is not self.state:
             self._load(state)
@@ -337,7 +339,7 @@ class PfStepFn:
         self.state = b.head.state._replace(step=state.step + 1,
                                            mini_updated=moved,
                                            rng=state.rng)
-        self.pose = b.head.est_pose
+        self.pose, self.scan = b.head.est_pose, b.head.scan
         return self.state, host[:3].numpy()
 
     def _load(self, state: ParticleState) -> None:

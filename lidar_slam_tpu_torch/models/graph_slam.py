@@ -10,11 +10,16 @@ damped Gauss-Newton solve, and the frontend is rebuilt from the optimized
 keyframe poses.
 
 The run goes chunk by chunk. Inside a chunk the frontend is the per-scan
-loop of ``scan_matcher`` (or the particle filter), whose keyframe flag is
-already a host bool; a chunk's poses and keyframe scans come to the host in
-one copy. The keyframe scans and their 256^2 EDT rasters (kernel K1,
-batched) stay on the device, so closure matching moves no field across the
-bus. Bookkeeping — keyframes, edges, the closure gates, the jump gate — is
+loop of ``scan_matcher``'s captured step (or the particle filter's, or the
+submap frontend's: ``make_step_fn``, CUDA graphs over static buffers, the
+counterpart of JAX's jitted ``run_chunk``), whose keyframe flag is already a
+host bool. Each scan's pose and frontend quality and each keyframe's gated
+scan (from the step's own buffers) are copied on the device into the
+chunk's buffers, which come to the host in one copy a chunk. ``eager=True``
+runs the frontend's ``slam_step`` a scan instead (the reference the tests
+and chip_smoke hold the captured run to). The keyframe scans and their
+256^2 EDT rasters (kernel K1, batched) stay on the device, so closure
+matching moves no field across the bus. Bookkeeping — keyframes, edges, the closure gates, the jump gate — is
 host numpy, as in the JAX package, with the same numbers.
 
 Differences from the JAX package that change no result: JAX pads every
@@ -41,6 +46,7 @@ from lidar_slam_tpu_torch.models import posegraph, scan_matcher
 from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor
 from lidar_slam_tpu_torch.ops import correlative, scan_odometry
 from lidar_slam_tpu_torch.ops import edt as edt_ops
+from lidar_slam_tpu_torch.utils import graphs
 from lidar_slam_tpu_torch.utils.profiling import StageTimer
 
 
@@ -262,22 +268,41 @@ def _rebuilt_map_points(kf_x, kf_y, kf_valid, poses, cap: int):
     return xy, len(allpts)
 
 
+class _EagerStep:
+    """A frontend's eager ``slam_step`` with a step object's surface:
+    ``step(state, ranges) -> (state, pose)``, ``pose`` on the device, and
+    no ``scan`` (the loop gates the keyframe scans itself)."""
+
+    scan = None
+
+    def __init__(self, frontend, cfg: SlamConfig, angles: torch.Tensor):
+        self.frontend, self.cfg, self.angles = frontend, cfg, angles
+        self.pose: torch.Tensor | None = None
+
+    def __call__(self, state, ranges: torch.Tensor):
+        state, self.pose = self.frontend.slam_step(state, ranges, self.cfg,
+                                                   self.angles)
+        return state, self.pose
+
+
 class GraphSlam:
     """Host-side orchestrator. See the module docstring.
 
     ``device`` holds the frontend state, the keyframe scans and rasters and
     every batched match; on CUDA the two kernels run there and nothing on
-    the path falls back to a plain version."""
+    the path falls back to a plain version. ``eager``: the frontend runs its
+    eager ``slam_step`` a scan instead of its captured step."""
 
-    frontend = scan_matcher  # provides init_state / slam_step
+    frontend = scan_matcher  # provides init_state, slam_step, make_step_fn
 
     def __init__(self, cfg: SlamConfig, lc: LoopClosureConfig = LoopClosureConfig(),
                  max_keyframes: int = 512,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", eager: bool = False):
         self.cfg = cfg
         self.lc = lc
         self.max_keyframes = max_keyframes
         self.device = resolve_device(device)
+        self.eager = eager
         self.angles = angles_tensor(cfg, self.device)
         n = cfg.lidar.n_beams
         self._kf_x = np.zeros((max_keyframes, n), np.float32)
@@ -633,34 +658,38 @@ class GraphSlam:
         self._store_kf_scans(0, s0[None])
         self._compute_kf_metrics([0])  # keyframe 0 is a closure target too
         path = [np.zeros(3, np.float32)]
-        slam_step = self.frontend.slam_step
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        step = (_EagerStep(self.frontend, cfg, self.angles) if self.eager
+                else self.frontend.make_step_fn(cfg, dev))
+        # the chunk's rows: pose and frontend quality (the PF's share of
+        # particles escaping the scoring window; 0 for the others), and the
+        # keyframes' gated scans (x, y, valid)
+        rows = torch.zeros((chunk_size, 4), dtype=torch.float32, device=dev)
+        kf_buf = torch.zeros((chunk_size, 3, self.angles.shape[0]),
+                             dtype=torch.float32, device=dev)
 
         t = 1
         n_scans = ranges.shape[0]
         while t < n_scans:
             n_real = min(chunk_size, n_scans - t)
-            poses, quals, kf_rows, kf_scans = [], [], [], []
+            kf_rows = []
             with self.timer.stage("frontend_chunk"):
                 for i in range(n_real):
                     r = ranges[t + i]
-                    state, pose = slam_step(state, r, cfg, self.angles)
-                    poses.append(pose)
-                    # frontend health where the frontend has one (the PF's
-                    # share of particles escaping the scoring window)
+                    state, _ = step(state, r)
+                    rows[i, :3] = step.pose
                     q = getattr(state, "clamp_frac", None)
-                    quals.append(zero if q is None else q)
+                    if q is not None:
+                        rows[i, 3] = q
                     if state.mini_updated:   # a host bool: a keyframe
-                        sc = sensor.read_scan(r, self.angles, cfg.lidar)
+                        sc = step.scan
+                        if sc is None:
+                            sc = sensor.read_scan(r, self.angles, cfg.lidar)
+                        kf_buf[len(kf_rows)] = torch.stack(
+                            [sc.x, sc.y, sc.valid.to(torch.float32)])
                         kf_rows.append(i)
-                        kf_scans.append(torch.stack(
-                            [sc.x, sc.y, sc.valid.to(torch.float32)]))
             with self.timer.stage("kf_fetch"):
-                packed = torch.cat([torch.stack(poses),
-                                    torch.stack(quals)[:, None]], dim=1)
-                kf_dev = (torch.stack(kf_scans) if kf_scans else
-                          packed.new_zeros((0, 3, self.angles.shape[0])))
-                host = torch.cat([packed.reshape(-1),
+                kf_dev = kf_buf[:len(kf_rows)]
+                host = torch.cat([rows[:n_real].reshape(-1),
                                   kf_dev.reshape(-1)]).cpu().numpy()
             packed_h = host[: 4 * n_real].reshape(n_real, 4)
             kf_h = host[4 * n_real:].reshape(kf_dev.shape)
@@ -705,7 +734,7 @@ class GraphSlam:
             with self.timer.stage("optimize"):
                 self._optimize()
 
-        self.final_state = state
+        self.final_state = graphs.clone_tree(state)
         self._last_path = np.stack(path)
         return self._last_path, np.stack(list(self.kf_poses))
 

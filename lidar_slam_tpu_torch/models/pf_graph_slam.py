@@ -1,8 +1,9 @@
 """Particle-filter frontend + pose-graph closure feedback (counterpart of
 ``lidar_slam_tpu.models.pf_graph_slam``).
 
-The particle filter (``models/fastslam.py``) runs as the frontend inside the
-``GraphSlam`` orchestrator; every accepted closure that moves the graph
+The particle filter (``models/fastslam.py``, its captured step
+``make_pf_step``) runs as the frontend inside the ``GraphSlam``
+orchestrator; every accepted closure that moves the graph
 re-anchors the whole particle cloud rigidly by the optimized correction
 (pose' = opt_k (+) (old_k (-) pose), relative weights kept), rebuilds the
 shared point map from the keyframe scans at their optimized poses, and
@@ -43,12 +44,42 @@ class _PFFrontend:
         self._t = 0
         return fastslam.init_particles(ranges0, cfg, self._seed)
 
-    def slam_step(self, state, ranges, cfg, angles):
-        draws = None
-        if self._draws is not None:
-            draws = self._draws[self._t]
+    def next_draws(self):
+        """This step's injected draws (None: the state's generator)."""
+        draws = None if self._draws is None else self._draws[self._t]
         self._t += 1
-        return fastslam.pf_step(state, ranges, cfg, angles, draws=draws)
+        return draws
+
+    def slam_step(self, state, ranges, cfg, angles):
+        return fastslam.pf_step(state, ranges, cfg, angles,
+                                draws=self.next_draws())
+
+    def make_step_fn(self, cfg: SlamConfig, device):
+        return _PFStep(self, fastslam.make_pf_step(cfg, device))
+
+
+class _PFStep:
+    """``fastslam.PfStepFn`` fed the frontend's draws: ``step(state,
+    ranges) -> (state, pose)``, with its ``pose``, ``scan`` and
+    ``graphs``."""
+
+    def __init__(self, frontend: _PFFrontend, step: fastslam.PfStepFn):
+        self.frontend, self.step = frontend, step
+
+    def __call__(self, state, ranges: torch.Tensor):
+        return self.step(state, ranges, self.frontend.next_draws())
+
+    @property
+    def pose(self) -> torch.Tensor:
+        return self.step.pose
+
+    @property
+    def scan(self):
+        return self.step.scan
+
+    @property
+    def graphs(self):
+        return self.step.graphs
 
 
 def _np_correct_cloud(poses: np.ndarray, old_last: np.ndarray,
@@ -88,10 +119,11 @@ class PFGraphSlam(GraphSlam):
 
     def __init__(self, cfg: SlamConfig, lc: LoopClosureConfig | None = None,
                  max_keyframes: int = 512, seed: int = 0,
-                 device: str | torch.device = "cuda", draws=None):
+                 device: str | torch.device = "cuda", draws=None,
+                 eager: bool = False):
         if lc is None:
             lc = LoopClosureConfig(weak_closures=True)
-        super().__init__(cfg, lc, max_keyframes, device)
+        super().__init__(cfg, lc, max_keyframes, device, eager)
         self.frontend = _PFFrontend(seed, draws)
 
     def _rebuild_frontend(self, state: fastslam.ParticleState):

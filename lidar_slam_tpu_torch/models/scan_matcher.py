@@ -210,7 +210,8 @@ class StepFn:
     ``donate_argnums``); ``graphs.clone_tree`` keeps a copy. A state the
     step did not return is copied into the buffers first. The pose comes
     back on the host (numpy); ``self.pose`` is the same pose on the state's
-    device, valid until the next call. On the CPU the same bodies run
+    device and ``self.scan`` the step's gated scan (None after the eager
+    scan 1), valid until the next call. On the CPU the same bodies run
     uncaptured on the same buffers."""
 
     def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda"):
@@ -221,6 +222,7 @@ class StepFn:
         self.bufs: _Static | None = None
         self.state: SlamState | None = None   # the state last returned
         self.pose: torch.Tensor | None = None
+        self.scan: sensor.Scan | None = None
 
     def __call__(self, state: SlamState, ranges: torch.Tensor
                  ) -> tuple[SlamState, np.ndarray]:
@@ -228,7 +230,7 @@ class StepFn:
             ranges = ranges.to(self.device, non_blocking=True)
             state, pose = slam_step(state, ranges, self.cfg, self.angles,
                                     pose_to_host=True)
-            self.pose = state.pose
+            self.pose, self.scan = state.pose, None
             return state, pose
         if state is not self.state:
             self._load(state)
@@ -243,7 +245,7 @@ class StepFn:
                             self._moved_body(refreshed), b)
         self.state = b.head.state._replace(step=state.step + 1,
                                            mini_updated=moved)
-        self.pose = b.head.state.pose
+        self.pose, self.scan = b.head.state.pose, b.head.scan
         return self.state, host[:3].numpy()
 
     def _load(self, state: SlamState) -> None:

@@ -156,16 +156,18 @@ def run_host_loop_paged(ranges_all: np.ndarray, cfg, paged: PagedAtlas,
                         manage_every: int = 16,
                         device: str | torch.device = "cuda"):
     """Host loop with paging every ``manage_every`` scans: unbounded
-    maps on a fixed device pool. Returns (path (T, 3) numpy, final
-    state)."""
+    maps on a fixed device pool. Paging rewrites the atlas between steps,
+    so the loop runs the eager ``slam_step``. Returns (path (T, 3) numpy,
+    final state)."""
     from lidar_slam_tpu_torch.models import submap_slam
+    from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor
 
     ranges = submap_slam._as_ranges(ranges_all, device)
-    step = submap_slam.make_step_fn(cfg, ranges.device)
+    angles = angles_tensor(cfg, ranges.device)
     state = submap_slam.init_state(ranges[0], cfg)
     poses = [np.zeros(3, np.float32)]
     for t in range(1, ranges.shape[0]):
-        state, pose = step(state, ranges[t])
+        state, pose = submap_slam.slam_step(state, ranges[t], cfg, angles)
         poses.append(pose.cpu().numpy())
         if t % manage_every == 0:
             new_atlas = paged.manage(state.atlas, poses[-1])

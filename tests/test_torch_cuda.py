@@ -722,3 +722,181 @@ def test_capture_refuses_a_host_sync(cuda):
     assert torch.equal(buf.cpu(), torch.full((3,), 3.0))
     assert len(runner) == 1 and runner.pool_bytes() >= 0
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# -- the captured graph frontends, submap, EKF and hybrid drivers (CUDA
+# graphs) against their eager loops
+
+@pytest.mark.parametrize("frontend", ["graph", "submap-graph", "pf-graph"])
+def test_captured_graph_frontends_equal_eager_on_the_card(cuda, frontend):
+    """160 loop-tour scans in chunks of 32, closures from min_gap 3 (a
+    feedback happens): the captured run equals ``eager=True`` bit for bit,
+    path, keyframes, closures and final state, with the same K1 and K2
+    launches by shape."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, ParticleConfig
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import graph_slam, pf_graph_slam
+    from lidar_slam_tpu_torch.models.submap_graph_slam import SubmapGraphSlam
+
+    ranges, _ = simulate.generate_dataset(160, seed=1,
+                                          waypoints=simulate.LOOP_WAYPOINTS)
+    lc = graph_slam.LoopClosureConfig(min_gap=3,
+                                      weak_closures=frontend == "pf-graph")
+    cfg = DEFAULT_CONFIG
+    if frontend == "pf-graph":
+        cfg = dataclasses.replace(cfg, particles=ParticleConfig(
+            n_particles=256))
+    runs = []
+    for eager in (False, True):
+        _reset_launches()
+        if frontend == "pf-graph":
+            gs = pf_graph_slam.PFGraphSlam(cfg, lc, device=cuda, eager=eager)
+        else:
+            cls = (graph_slam.GraphSlam if frontend == "graph"
+                   else SubmapGraphSlam)
+            gs = cls(cfg, lc, device=cuda, eager=eager)
+        path, opt = gs.run(ranges, chunk_size=32)
+        runs.append((gs, path, opt, _launches_by_shape()))
+    (g, path, opt, counts), (e, epath, eopt, ecounts) = runs
+    assert counts == ecounts and counts[0] and counts[1]
+    assert np.array_equal(path, epath) and np.array_equal(opt, eopt)
+    assert g.closures == e.closures and g.path_epoch == e.path_epoch
+    state, estate = g.final_state, e.final_state
+    for f in state._fields:
+        a, b = getattr(state, f), getattr(estate, f)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), f
+
+
+def test_captured_submap_equals_eager_on_the_card(cuda):
+    """120 museum scans with a pool of 4 small submaps (every slot opened,
+    then the pool-full branch): ``run_scan`` equals the eager
+    ``slam_step`` loop, path and atlas, with the same K1 launches."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, SubmapConfig
+    from lidar_slam_tpu_torch.models import scan_matcher, submap_slam
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, submaps=SubmapConfig(
+        n_submaps=4, submap_capacity=512, k_nearest=2, spawn_dist=0.4,
+        spawn_fill_frac=0.8))
+    ranges, _ = _museum(120)
+    r = torch.as_tensor(ranges, device=cuda)
+    angles = scan_matcher.angles_tensor(cfg, cuda)
+    _reset_launches()
+    state = submap_slam.init_state(r[0], cfg)
+    want = [state.pose]
+    for t in range(1, len(r)):
+        state, pose = submap_slam.slam_step(state, r[t], cfg, angles)
+        want.append(pose)
+    eager = _launches_by_shape()
+    _reset_launches()
+    path, got = submap_slam.run_scan(ranges, cfg, device=cuda)
+    assert _launches_by_shape() == eager and eager[0]
+    assert torch.equal(path, torch.stack(want))
+    assert (got.atlas.n_submaps, got.atlas.active) == (4, 3)
+    assert (state.atlas.n_submaps, state.atlas.active) == (4, 3)
+    for f in ("pts", "sizes", "anchors"):
+        assert torch.equal(getattr(got.atlas, f), getattr(state.atlas, f)), f
+
+
+@pytest.mark.parametrize("draws_from", ["generator", "numpy"])
+def test_captured_ekf_equals_eager_on_the_card(cuda, draws_from):
+    """EKF-1024 ML association over 60 museum scans and the known-
+    association filter over 120 steps: the captured runs equal the eager
+    step loops bit for bit (path, banks, the generator's state)."""
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import ekf_slam
+
+    cfg = ekf_slam.long_tour_config(1024)
+    ranges, det, draws = _ekf_inputs(61, 1024)
+    draws = None if draws_from == "generator" else draws
+    obs, valid = det.rb[1:].to(cuda), det.valid[1:].to(cuda)
+    odo = torch.zeros((60, 3), device=cuda)
+    counts = det.count[1:].numpy()
+    state = ekf_slam.init_ekf_slam(cfg, 0, cuda)
+    want = [torch.zeros(3, device=cuda)]
+    for t in range(60):
+        state, est = ekf_slam.ekf_slam_step_ml(
+            state, obs[t], valid[t], cfg, odo=odo[t],
+            draws=None if draws is None else draws[t], n_det=int(counts[t]))
+        want.append(est)
+    path, got = ekf_slam.run_ml(obs, valid, odo, cfg, device=cuda,
+                                draws=draws, counts=counts)
+    assert torch.equal(path, torch.stack(want))
+    for f in EKF_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(state, f)), f
+    assert torch.equal(got.rng.get_state(), state.rng.get_state())
+
+    kodom, kobs, kvis, _, lms = simulate.generate_ekf_dataset(n_scans=120,
+                                                              seed=2)
+    kcfg = ekf_slam.EkfSlamConfig(n_particles=1024,
+                                  max_landmarks=lms.shape[0])
+    kdraws = None if draws is None else _ekf_inputs(121, 1024)[2]
+    state = ekf_slam.init_ekf_slam(kcfg, 0, cuda)
+    want = [torch.zeros(3, device=cuda)]
+    for t in range(len(kodom)):
+        state, est = ekf_slam.ekf_slam_step(
+            state, torch.as_tensor(kodom[t], device=cuda),
+            torch.as_tensor(kobs[t + 1], device=cuda),
+            torch.as_tensor(kvis[t + 1], device=cuda), kcfg,
+            None if kdraws is None else kdraws[t])
+        want.append(est)
+    path, got = ekf_slam.run_ekf_slam(kodom, kobs, kvis, kcfg, device=cuda,
+                                      draws=kdraws)
+    assert torch.equal(path, torch.stack(want))
+    for f in EKF_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(state, f)), f
+
+
+def test_captured_hybrid_equals_eager_on_the_card(cuda):
+    """Forty hybrid steps at 1024 particles on the same draws: the captured
+    ``run_ekf_hybrid`` equals the eager ``hybrid_step`` loop bit for bit,
+    with the same K1 and K2 launches by shape."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.models import ekf_hybrid, ekf_slam, scan_matcher
+    from lidar_slam_tpu_torch.ops import landmarks
+    from lidar_slam_tpu_torch.ops.scan_odometry import pairwise_odometry
+
+    cfg = ekf_slam.long_tour_config(1024)
+    ranges, _, draws = _ekf_inputs(41, 1024)
+    r = torch.as_tensor(ranges, device=cuda)
+    angles = scan_matcher.angles_tensor(DEFAULT_CONFIG, cuda)
+    _reset_launches()   # the run's pre-pass is counted in both
+    det = landmarks.extract_corners(r, angles, max_range=12.0)
+    odo = pairwise_odometry(r, angles, DEFAULT_CONFIG.lidar)
+    counts = det.count.cpu().numpy()
+    state = ekf_hybrid.init_hybrid(r[0], cfg, DEFAULT_CONFIG, 0)
+    want = [torch.zeros(3, device=cuda)]
+    for t in range(1, len(r)):
+        state, est = ekf_hybrid.hybrid_step(
+            state, r[t], det.rb[t], det.valid[t], odo[t - 1], cfg,
+            DEFAULT_CONFIG, angles, draws[t - 1], n_det=int(counts[t]))
+        want.append(est)
+    eager = _launches_by_shape()
+    _reset_launches()
+    path, got = ekf_hybrid.run_ekf_hybrid(ranges, cfg, DEFAULT_CONFIG,
+                                          device=cuda, draws=draws)
+    assert _launches_by_shape() == eager and eager[0] and eager[1]
+    assert torch.equal(path, torch.stack(want))
+    for f in EKF_FIELDS:
+        assert torch.equal(getattr(got.ekf, f), getattr(state.ekf, f)), f
+    assert torch.equal(got.fine_metric, state.fine_metric)
+
+
+def test_captured_step_makes_its_constants_without_a_sync(cuda):
+    """With ``device.constant``'s cache empty, a captured EKF step's
+    warm-up (under the sync debug mode "error") makes the step's constants
+    itself: the copies from pinned memory do not synchronize."""
+    from lidar_slam_tpu_torch import device
+    from lidar_slam_tpu_torch.models import ekf_slam
+
+    cfg = ekf_slam.long_tour_config(256)
+    _, det, _ = _ekf_inputs(11, 256)
+    device.constant.cache_clear()
+    path, state = ekf_slam.run_ml(det.rb[1:], det.valid[1:],
+                                  torch.zeros((10, 3)), cfg, device=cuda,
+                                  counts=det.count[1:].numpy())
+    assert torch.isfinite(path).all() and int(det.count[1:].sum()) > 0

@@ -253,6 +253,11 @@ def _entry_calls():
         "run_pf": lambda: fastslam.run_pf(ranges, DEFAULT_CONFIG),
         "make_step_fn": lambda: scan_matcher.make_step_fn(DEFAULT_CONFIG),
         "make_pf_step": lambda: fastslam.make_pf_step(DEFAULT_CONFIG),
+        "submap_make_step_fn": lambda: submap_slam.make_step_fn(
+            DEFAULT_CONFIG),
+        "EkfStepFn": lambda: ekf_slam.EkfStepFn(ecfg),
+        "HybridStepFn": lambda: ekf_hybrid.HybridStepFn(ecfg,
+                                                        DEFAULT_CONFIG),
         "run_pf_graph": lambda: pf_graph_slam.run_pf_graph(ranges,
                                                            DEFAULT_CONFIG),
         "PFGraphSlam": lambda: pf_graph_slam.PFGraphSlam(DEFAULT_CONFIG),
@@ -282,6 +287,8 @@ def _entry_calls():
 
 @pytest.mark.parametrize("entry", ["run_scan", "run_host_loop", "run_pf",
                                    "make_step_fn", "make_pf_step",
+                                   "submap_make_step_fn", "EkfStepFn",
+                                   "HybridStepFn",
                                    "run_pf_graph", "PFGraphSlam", "GraphSlam",
                                    "empty_graph", "run_ekf_slam",
                                    "run_ekf_slam_scan", "run_ekf_hybrid",
