@@ -48,9 +48,12 @@ parallel layer on an NCCL world of one) and checks the results:
    3.35 TB/s or adds over 67 TFLOP/s) and the share of it reached; for K2
    one grouped conv2d computing the same sums (TF32 off) and whether it
    equals K2;
-8. graph SLAM, loop-700, its frontend captured (``GraphSlam.run`` over
-   ``scan_matcher.make_step_fn``; phases 9, 10, 10b and 14 likewise): >= 1
-   closure, graph error per edge < 1, ATE < 0.1 m;
+8. graph SLAM, loop-700, captured (``GraphSlam.run`` over
+   ``scan_matcher.make_step_fn``, and its backend's keyframe rasters,
+   closure matching, fine refinement and optimize as CUDA graphs; phases
+   9, 10, 10b and 14 likewise, PF-graph's re-raster too): >= 1 closure,
+   graph error per edge < 1, ATE < 0.1 m; the backend's graph count and
+   pool bytes;
 9. graph SLAM, building-3800 with BUILDING_WIDE_CONFIG: >= 5 closures,
    ATE < 0.2 m, pinned without frontend feedback; then the same tour with
    feedback, measured and printed but not pinned (its outcome is chaotic
@@ -82,10 +85,15 @@ parallel layer on an NCCL world of one) and checks the results:
     ATE < 0.1 m, graph error per edge < 1, >= 2 submaps all tied to a
     keyframe, map within the tour's extent + 30 m;
     14c. captured against eager: the eager loops (``GraphSlam(eager=True)``,
-    ``slam_step`` / ``ekf_slam_step_ml`` / ``hybrid_step`` a scan) equal
-    phases 8, 13 and 14 and captured EKF-1024 and hybrid-EKF-1024 runs on
-    the first 300 museum scans (``np.array_equal``), with the same K1/K2
-    launches by shape; for each of the five drivers, eager and captured,
+    frontend and backend eager; ``slam_step`` / ``ekf_slam_step_ml`` /
+    ``hybrid_step`` a scan) equal phases 8, 9 (without feedback), 10, 13
+    and 14 and captured EKF-1024 and hybrid-EKF-1024 runs on the first 300
+    museum scans (``np.array_equal``), with the same K1/K2 launches by
+    shape; the graph runs' closures, attempt logs and keyframe poses equal
+    too, and each backend stage's seconds and share of its run print
+    eager against captured; graph loop-700 captured once more in the same
+    process (its backend stages and capture time); for each of the five
+    drivers, eager and captured,
     scans/s over the run and, over scans 101-150 after 100 unprofiled,
     device ops, device time and host syncs a scan and the busy share (the
     graph runs profile that window from inside their chunk loop); the
@@ -106,14 +114,17 @@ parallel layer on an NCCL world of one) and checks the results:
     1 stall, the resumed path equal to phase 6's (the checkpoint carries
     the CUDA generator); the workers' launch counts join the kernels line;
 17. landmark BA on the museum landmark tour (K = 512 pose slots, a 1536^2
-    reduced system), TF32 off: card against CPU <= 1e-4 after 15
-    iterations, the error below 5% of its start; ms and host syncs a
-    Gauss-Newton iteration, and its largest device rows;
+    reduced system), TF32 off, captured (``optimize_ba``: one Gauss-Newton
+    iteration a CUDA graph replay): == ``optimize_ba_eager`` bit for bit,
+    card against CPU <= 1e-4 after 15 iterations, the error below 5% of
+    its start; ms a Gauss-Newton iteration captured and eager, host syncs
+    an iteration, and its largest device rows;
     17b. the robust pose graph on phase 8's graph plus one bad closure:
     two card runs equal, card against CPU <= 2e-6 (printed: how many pose
-    values differ); its Huber chi on the same inputs (the graph's edges
-    and 100000 random rows) card == CPU, and how many rows an f32 sqrt
-    would change;
+    values differ); the captured optimize (``posegraph.OptimizeFn``) ==
+    the eager one, robust and not, and ms an optimize of each; its Huber
+    chi on the same inputs (the graph's edges and 100000 random rows) card
+    == CPU, and how many rows an f32 sqrt would change;
 18. ``pf_stage_profile`` on the card (ms of each of the six stages);
     ``debug.validate_state`` empty for the final state of every main path
     (phases 5, 6, 8-17); ``debug.checked(slam_step)`` clean over 20 museum
@@ -212,6 +223,8 @@ PROFILE_STEPS = 30         # phase 20: steps of each host profile
 BA_ERROR_RATIO = 0.05      # tests/test_ba.py: error below 5% of its start
 PG_CPU_CUDA_MAX = 2e-6     # robust pose graph, card vs CPU (9.54e-7 read)
 CHI_ROWS = 100000          # random rows of the Huber chi check
+# GraphSlam.timer's stages of the graph backend (14c prints them)
+BACKEND_STAGES = ("kf_raster_edt", "closure_match", "optimize", "feedback")
 
 
 def _serve_chain(ranges, conn) -> None:
@@ -653,6 +666,29 @@ def profiler_kernel_ms(launch, name: str, iters: int = 50):
 # H100 SXM peaks (NVIDIA's data sheet) for the least-time bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+
+
+def device_rows(fn, per: int) -> str:
+    """``fn()``'s device time under the profiler (its device rows) over
+    ``per``, and its six largest rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        t_dev = getattr(ev, "self_device_time_total", None)
+        if t_dev is None:
+            t_dev = ev.self_cuda_time_total
+        if t_dev > 0:
+            rows.append((t_dev, ev.count, ev.key))
+    rows.sort(reverse=True)
+    dev_ms = sum(r[0] for r in rows) / 1e3 / per
+    return (f"{dev_ms:.3f} ms (profiler device rows); largest: " + "; ".join(
+        f"{k[:60]} {t / 1e3 / per:.3f} ms x{n // per}"
+        for t, n, k in rows[:6]))
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -1573,6 +1609,8 @@ def main() -> int:
               f"{g_err:.4f}; launches K1 {used['K1']} K2 {used['K2']}",
               flush=True)
         print(gs.timer.report(), flush=True)
+        print(f"[{tag}] {title}: {backend_graphs(gs)}", flush=True)
+        graph_runs[title] = (gs, dt)
         if pinned:
             require(len(gs.closures) >= min_closures,
                     f"{title}: {len(gs.closures)} closures < {min_closures}")
@@ -1582,6 +1620,25 @@ def main() -> int:
         final_states[title] = gs.final_state
         phase_done(tag)
         return g_err, err, err_s, gs
+
+    graph_runs = {}   # title -> (GraphSlam, seconds): 14c's references
+
+    def backend_graphs(gs):
+        """A captured backend's graphs, pools and capture time."""
+        be = gs._backend
+        return (f"backend {len(be.graphs)} graphs in one pool of "
+                f"{be.graphs.pool_bytes()} bytes, optimize "
+                f"{len(be.optimizer.graphs)} graph in a pool of "
+                f"{be.optimizer.graphs.pool_bytes()} bytes; their captures "
+                f"(warm-up, capture, instantiation) "
+                f"{be.graphs.capture_seconds:.3f} + "
+                f"{be.optimizer.graphs.capture_seconds:.3f} s of host time")
+
+    def stage_times(gs, seconds):
+        """The backend stages' seconds and share of a run."""
+        return "; ".join(f"{st} {gs.timer.totals[st]:.3f} "
+                         f"({gs.timer.totals[st] / seconds:.1%})"
+                         for st in BACKEND_STAGES)
 
     def run_graph(graph_cfg, feedback=True):
         def run(granges):
@@ -1890,17 +1947,38 @@ def main() -> int:
         print(f"[14c] {title}: its pre-pass alone {dt:.3f} s of the "
               f"captured run's {run_s:.3f} s", flush=True)
 
-    def eager_graph(cls):
-        return lambda: cls(cfg, device=dev, eager=True).run(lranges)[0]
+    eager_graphs = {}   # title -> the eager GraphSlam
 
+    def eager_graph(title, make, granges, **kw):
+        """The eager frontend and backend (``eager=True``) on a phase's
+        tour: its path."""
+        def run():
+            gs = eager_graphs[title] = make()
+            return gs.run(granges, **kw)[0]
+        return run
+
+    b9 = (f"graph building-{len(branges)} (BUILDING_WIDE_CONFIG, no "
+          f"feedback)")
     drivers14 = {}
     for title, graph_path, run_eager, per_scan in (
-            ("graph loop-700", loop_gs._last_path,
-             eager_graph(graph_slam.GraphSlam), 1),
+            ("graph loop-700", loop_gs._last_path, eager_graph(
+                "graph loop-700", lambda: graph_slam.GraphSlam(
+                    cfg, device=dev, eager=True), lranges), 1),
+            (b9, graph_runs[b9][0]._last_path, eager_graph(
+                b9, lambda: graph_slam.GraphSlam(
+                    BUILDING_WIDE_CONFIG, device=dev, eager=True), branges,
+                feedback=False), 1),
+            ("PF-1024-graph loop-700",
+             graph_runs["PF-1024-graph loop-700"][0]._last_path,
+             eager_graph("PF-1024-graph loop-700",
+                         lambda: pf_graph_slam.PFGraphSlam(
+                             pcfg, seed=0, device=dev, eager=True), lranges,
+                         chunk_size=128), 1),
             ("submap museum-1000", submap_path,
              lambda: eager_submap(ranges, cfg, dev)[0], 0),
-            ("submap-graph loop-700", sgs._last_path,
-             eager_graph(SubmapGraphSlam), 1),
+            ("submap-graph loop-700", sgs._last_path, eager_graph(
+                "submap-graph loop-700", lambda: SubmapGraphSlam(
+                    cfg, device=dev, eager=True), lranges), 1),
             (f_ekf, filter_runs[f_ekf],
              lambda: eager_ekf(fr, ecfg, cfg, dev)[0], 0),
             (f_hybrid, filter_runs[f_hybrid],
@@ -1909,6 +1987,7 @@ def main() -> int:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         epath = run_eager()
+        torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         eager_counts = {"K1": dict(cuda_edt.launches_by_shape),
                         "K2": dict(cuda_match.launches_by_shape)}
@@ -1924,6 +2003,38 @@ def main() -> int:
               f"driver's (np.array_equal), launches by shape equal; "
               f"scans/s captured {scans_per_s[title]:.1f} against eager "
               f"{drivers14[title]['eager']:.1f}", flush=True)
+        if title in eager_graphs:
+            gs, gdt = graph_runs[title]
+            egs = eager_graphs[title]
+            require(egs.closures == gs.closures
+                    and egs.weak_closures == gs.weak_closures
+                    and egs.attempt_log == gs.attempt_log
+                    and np.array_equal(np.stack(egs.kf_poses),
+                                       np.stack(gs.kf_poses)),
+                    f"{title}: the eager backend's closures, attempts or "
+                    f"keyframe poses differ from the captured backend's")
+            print(f"[14c] {title}: closures, weak closures, attempt log and "
+                  f"keyframe poses == the captured backend's; backend "
+                  f"stages, s (share of the run): captured "
+                  f"{stage_times(gs, gdt)}; eager {stage_times(egs, dt)}",
+                  flush=True)
+    # graph loop-700 captured once more, in a process whose libraries
+    # (cuSOLVER, the pools' first segments) phase 8 already started: the
+    # backend's cost on a 700-scan tour without the process's first use
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = graph_slam.GraphSlam(cfg, device=dev)
+    again_path, _ = again.run(lranges)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    require(np.array_equal(again_path, loop_gs._last_path),
+            "graph loop-700: a second captured run differs from phase 8's")
+    print(f"[14c] graph loop-700 captured again in this process: "
+          f"{(len(again_path) - 1) / dt:.1f} scans/s ({dt:.2f} s), path == "
+          f"phase 8's; backend stages, s (share of the run): "
+          f"{stage_times(again, dt)}; {backend_graphs(again)}", flush=True)
+    del again
     reset_counts()
     phase_done("14c")
 
@@ -2157,6 +2268,10 @@ def main() -> int:
     bcpu = state_io.ba_problem_from_numpy(bprob, "cpu")
     e0 = float(ba.ba_error(bgpu))
     bgo = ba.optimize_ba(bgpu, iters=BA_ITERS)
+    bgo_eager = ba.optimize_ba_eager(bgpu, iters=BA_ITERS)
+    require(torch.equal(bgo.poses, bgo_eager.poses)
+            and torch.equal(bgo.landmarks, bgo_eager.landmarks),
+            "BA: the captured optimize_ba differs from optimize_ba_eager")
     bco = ba.optimize_ba(bcpu, iters=BA_ITERS)
     e1 = float(ba.ba_error(bgo))
     bdiff = max(float((bgo.poses.cpu() - bco.poses).abs().max()),
@@ -2167,6 +2282,11 @@ def main() -> int:
     final_states["BA museum K=512"] = bgo
     ms_iter = cuda_time_ms(lambda: ba.optimize_ba(bgpu, iters=BA_ITERS),
                            iters=3, warmup=1) / BA_ITERS
+    ms_iter_eager = cuda_time_ms(
+        lambda: ba.optimize_ba_eager(bgpu, iters=BA_ITERS), iters=3,
+        warmup=1) / BA_ITERS
+    ba_fn = next(fn for fn in ba._OPTIMIZE_BA_FNS.values()
+                 if fn.problem.poses.is_cuda)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -2175,24 +2295,9 @@ def main() -> int:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     bsyncs = sum("synchroniz" in str(w.message) for w in caught)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ba.optimize_ba(bgpu, iters=BA_ITERS)
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        t_dev = getattr(ev, "self_device_time_total", None)
-        if t_dev is None:
-            t_dev = ev.self_cuda_time_total
-        if t_dev > 0:
-            rows.append((t_dev, ev.count, ev.key))
-    rows.sort(reverse=True)
-    dev_ms = sum(r[0] for r in rows) / 1e3 / BA_ITERS
-    print(f"[17] BA device time {dev_ms:.3f} ms an iteration (profiler "
-          f"device rows); largest: " + "; ".join(
-              f"{k[:60]} {t / 1e3 / BA_ITERS:.3f} ms x{n // BA_ITERS}"
-              for t, n, k in rows[:6]), flush=True)
+    ba_rows = device_rows(lambda: ba.optimize_ba(bgpu, iters=BA_ITERS),
+                          BA_ITERS)
+    print(f"[17] BA device time an iteration: {ba_rows}", flush=True)
     print(f"[17] BA museum K=512 ({int(bprob.pose_active.sum())} poses, "
           f"{int(bprob.lm_active.sum())} landmarks, "
           f"{int(bprob.obs_active.sum())} observations, "
@@ -2200,9 +2305,11 @@ def main() -> int:
           f"system), TF32 off: error {e0:.1f} -> {e1:.1f} "
           f"({e1 / e0:.2%} of start, bar {BA_ERROR_RATIO:.0%}) in "
           f"{BA_ITERS} iterations; card vs CPU max {bdiff:.3g} (bar "
-          f"{BA_CPU_CUDA_MAX}); {ms_iter:.3f} ms a GN iteration (CUDA "
-          f"events); host syncs {bsyncs / BA_ITERS:.2f} an iteration",
-          flush=True)
+          f"{BA_CPU_CUDA_MAX}); captured == optimize_ba_eager bit for bit; "
+          f"{ms_iter:.3f} ms a GN iteration captured, {ms_iter_eager:.3f} "
+          f"eager (CUDA events); {len(ba_fn.graphs)} graph in a pool of "
+          f"{ba_fn.graphs.pool_bytes()} bytes; host syncs "
+          f"{bsyncs / BA_ITERS:.2f} an iteration", flush=True)
     phase_done("17")
 
     # ---- 17b. the robust pose graph, card against CPU: phase 8's loop-700
@@ -2225,6 +2332,21 @@ def main() -> int:
     pg_d = (pg_card.cpu() - pg_cpu).abs()[:n_kf]
     require(float(pg_d.max()) <= PG_CPU_CUDA_MAX,
             f"robust pose graph card vs CPU: max {float(pg_d.max())}")
+    # the captured optimize (GraphSlam's OptimizeFn) == the eager one
+    opt_fn = posegraph.OptimizeFn(lg.poses.shape[0], lg.edge_i.shape[0], dev)
+    pg_ms = {}
+    for robust in (True, False):
+        want = (pg_card if robust else
+                posegraph.optimize(lg, iters=10, robust=False).poses)
+        got = opt_fn(lg, iters=10, robust=robust).poses
+        require(torch.equal(got, want),
+                f"pose graph (robust={robust}): the captured optimize "
+                f"differs from the eager one")
+    for name, fn in (("captured", lambda: opt_fn(lg, iters=10)),
+                     ("eager", lambda: posegraph.optimize(lg, iters=10))):
+        pg_ms[name] = cuda_time_ms(fn, iters=5, warmup=1)
+    print(f"[17b] captured optimize (10 iterations) device time "
+          f"{device_rows(lambda: opt_fn(lg, iters=10), 1)}", flush=True)
     # the chi on the CPU's inputs: this graph's edges at its start, then
     # random weights and residuals
     crng = np.random.default_rng(0)
@@ -2249,8 +2371,11 @@ def main() -> int:
           f", {int((pg_d > 0).sum())} of {pg_d.numel()} pose values differ, "
           f"max {float(pg_d.max()):.3g} (bar {PG_CPU_CUDA_MAX}); Huber chi "
           f"card == CPU on {len(chi_cpu)} rows (the graph's edges and "
-          f"{CHI_ROWS} random); an f32 sqrt would differ in {chi_f32_off}",
-          flush=True)
+          f"{CHI_ROWS} random); an f32 sqrt would differ in {chi_f32_off}; "
+          f"the captured optimize (OptimizeFn, {len(opt_fn.graphs)} graphs "
+          f"in a pool of {opt_fn.graphs.pool_bytes()} bytes) == the eager "
+          f"one, robust and not; {pg_ms['captured']:.3f} ms an optimize "
+          f"captured, {pg_ms['eager']:.3f} eager (CUDA events)", flush=True)
     phase_done("17b")
 
     # ---- 18. profiling and debug audit

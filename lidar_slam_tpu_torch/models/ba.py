@@ -19,6 +19,12 @@ product (``einsum``), TF32 off; the reduced (3K, 3K) system is solved with
 ``solve_ex``, which leaves the error check on the device. No step of an
 iteration waits for the host.
 
+``optimize_ba`` is the counterpart of JAX's jitted ``fori_loop``: its body,
+one iteration, as a CUDA graph per problem shape (``utils/graphs``),
+captured with TF32 off and replayed once an iteration;
+``optimize_ba_eager`` runs the same iterations op by op, the reference the
+captured one is held to.
+
 Observation convention as in ``models/ekf_slam.py``: reference-convention
 poses, z = (range, bearing) with bearing = atan2(dy, dx) + theta.
 """
@@ -34,6 +40,7 @@ from lidar_slam_tpu_torch.core import se2
 from lidar_slam_tpu_torch.device import rounded64
 from lidar_slam_tpu_torch.models.posegraph import (_edge_jacobians,
                                                    _edge_residual)
+from lidar_slam_tpu_torch.utils import graphs
 
 
 class BAProblem(NamedTuple):
@@ -121,9 +128,21 @@ def _scatter64(shape, index, values: torch.Tensor) -> torch.Tensor:
     return out.to(torch.float32)
 
 
-def optimize_ba(p: BAProblem, iters: int = 10, damping: float = 1e-3
-                ) -> BAProblem:
-    """Damped Gauss-Newton with Schur-complement landmark elimination."""
+def optimize_ba_eager(p: BAProblem, iters: int = 10, damping: float = 1e-3
+                      ) -> BAProblem:
+    """Damped Gauss-Newton with Schur-complement landmark elimination, op
+    by op."""
+    poses, lms = p.poses, p.landmarks
+    with _true_f32():
+        for _ in range(iters):
+            poses, lms = _gn_step(p, poses, lms, damping)
+    return p._replace(poses=poses, landmarks=lms)
+
+
+def _gn_step(p: BAProblem, poses: torch.Tensor, lms: torch.Tensor,
+             damping: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Gauss-Newton iteration of ``p`` from ``poses`` and ``lms``
+    (TF32 off, the caller's context): the new poses and landmarks."""
     kmax, lmax = p.poses.shape[0], p.landmarks.shape[0]
     dev = p.poses.device
     oi, oj = p.odo_i.long(), p.odo_j.long()
@@ -138,59 +157,102 @@ def optimize_ba(p: BAProblem, iters: int = 10, damping: float = 1e-3
                  kmax, 3).reshape(-1) + damping)
     pose_on = p.pose_active.to(torch.float32)[:, None]
     lm_on = p.lm_active.to(torch.float32)[:, None]
-    poses, lms = p.poses, p.landmarks
-    with _true_f32():
+    # odometry factor blocks (as in posegraph.optimize)
+    xi, xj = poses[oi], poses[oj]
+    ji, jj = _edge_jacobians(xi, xj)
+    ro = _odo_residual(xi, xj, p.odo_z)
+    h_ii = torch.einsum("eab,ea,eac->ebc", ji, wo, ji)
+    h_jj = torch.einsum("eab,ea,eac->ebc", jj, wo, jj)
+    h_ij = torch.einsum("eab,ea,eac->ebc", ji, wo, jj)
+    b_i = torch.einsum("eab,ea,ea->eb", ji, wo, ro)
+    b_j = torch.einsum("eab,ea,ea->eb", jj, wo, ro)
+
+    # observation factor blocks
+    xo, lo = poses[fi], lms[fj]
+    jp, jl = _obs_jacobians(xo, lo)
+    rv = _obs_residual(xo, lo, p.obs_z)
+    hpp_o = torch.einsum("fab,fa,fac->fbc", jp, wv, jp)   # (F,3,3)
+    hll_o = torch.einsum("fab,fa,fac->fbc", jl, wv, jl)   # (F,2,2)
+    hpl_o = torch.einsum("fab,fa,fac->fbc", jp, wv, jl)   # (F,3,2)
+    bp_o = torch.einsum("fab,fa,fa->fb", jp, wv, rv)      # (F,3)
+    bl_o = torch.einsum("fab,fa,fa->fb", jl, wv, rv)      # (F,2)
+
+    hpp = _scatter64(
+        (kmax, kmax, 3, 3),
+        (torch.cat([oi, oj, oi, oj, fi]),
+         torch.cat([oi, oj, oj, oi, fi])),
+        torch.cat([h_ii, h_jj, h_ij, h_ij.transpose(1, 2), hpp_o]))
+    bp = _scatter64((kmax, 3), (torch.cat([oi, oj, fi]),),
+                    torch.cat([b_i, b_j, bp_o]))
+    hll = _scatter64((lmax, 2, 2), (fj,), hll_o) + lm_damp
+    bl = _scatter64((lmax, 2), (fj,), bl_o)
+    hll_inv = _inv2(hll)                                  # (L,2,2)
+
+    # Schur complement: Hpl's nonzero (pose, landmark) blocks in U
+    # (L, K, 3, 2); the correction folds over the landmark axis
+    u = _scatter64((lmax, kmax, 3, 2), (fj, fi), hpl_o)
+    s_corr = torch.einsum("lkab,lbc,lmdc->kmad", u, hll_inv, u)
+    bp_corr = torch.einsum("lkab,lbc,lc->ka", u, hll_inv, bl)
+
+    s = (hpp - s_corr).permute(0, 2, 1, 3).reshape(3 * kmax,
+                                                   3 * kmax)
+    s = s + torch.diag(extra)
+    dp, _ = torch.linalg.solve_ex(s, -(bp - bp_corr).reshape(-1))
+    dp = dp.reshape(kmax, 3) * pose_on
+    # back-substitute landmarks: dl = Hll^-1 (-bl - Hlp dp)
+    hlp_dp = torch.einsum("lkba,kb->la", u, dp)
+    dl = torch.einsum("lab,lb->la", hll_inv, -bl - hlp_dp) * lm_on
+
+    new = poses + dp
+    poses = torch.cat([new[:, :2], se2.wrap_angle(new[:, 2:3])], 1)
+    lms = lms + dl
+    return poses, lms
+
+
+class _OptimizeBaFn:
+    """``optimize_ba_eager`` over a static copy of one problem shape: one
+    Gauss-Newton iteration captured per ``damping`` (TF32 off in the
+    warm-up and the capture), replayed once an iteration over the static
+    poses and landmarks ``out``."""
+
+    def __init__(self, p: BAProblem):
+        self.problem = graphs.clone_tree(p)
+        self.out = (torch.zeros_like(p.poses), torch.zeros_like(p.landmarks))
+        self.graphs = graphs.Graphs(p.poses.device)
+
+    def __call__(self, p: BAProblem, iters: int, damping: float
+                 ) -> BAProblem:
+        graphs.copy_into(self.problem, p)
+        graphs.copy_into(self.out, (self.problem.poses,
+                                    self.problem.landmarks))
+
+        def body(bufs) -> None:
+            problem, (poses, lms) = bufs
+            with _true_f32():
+                graphs.copy_into((poses, lms),
+                                 _gn_step(problem, poses, lms, damping))
+
         for _ in range(iters):
-            # odometry factor blocks (as in posegraph.optimize)
-            xi, xj = poses[oi], poses[oj]
-            ji, jj = _edge_jacobians(xi, xj)
-            ro = _odo_residual(xi, xj, p.odo_z)
-            h_ii = torch.einsum("eab,ea,eac->ebc", ji, wo, ji)
-            h_jj = torch.einsum("eab,ea,eac->ebc", jj, wo, jj)
-            h_ij = torch.einsum("eab,ea,eac->ebc", ji, wo, jj)
-            b_i = torch.einsum("eab,ea,ea->eb", ji, wo, ro)
-            b_j = torch.einsum("eab,ea,ea->eb", jj, wo, ro)
+            self.graphs.run(damping, body, (self.problem, self.out))
+        return p._replace(poses=self.out[0].clone(),
+                          landmarks=self.out[1].clone())
 
-            # observation factor blocks
-            xo, lo = poses[fi], lms[fj]
-            jp, jl = _obs_jacobians(xo, lo)
-            rv = _obs_residual(xo, lo, p.obs_z)
-            hpp_o = torch.einsum("fab,fa,fac->fbc", jp, wv, jp)   # (F,3,3)
-            hll_o = torch.einsum("fab,fa,fac->fbc", jl, wv, jl)   # (F,2,2)
-            hpl_o = torch.einsum("fab,fa,fac->fbc", jp, wv, jl)   # (F,3,2)
-            bp_o = torch.einsum("fab,fa,fa->fb", jp, wv, rv)      # (F,3)
-            bl_o = torch.einsum("fab,fa,fa->fb", jl, wv, rv)      # (F,2)
 
-            hpp = _scatter64(
-                (kmax, kmax, 3, 3),
-                (torch.cat([oi, oj, oi, oj, fi]),
-                 torch.cat([oi, oj, oj, oi, fi])),
-                torch.cat([h_ii, h_jj, h_ij, h_ij.transpose(1, 2), hpp_o]))
-            bp = _scatter64((kmax, 3), (torch.cat([oi, oj, fi]),),
-                            torch.cat([b_i, b_j, bp_o]))
-            hll = _scatter64((lmax, 2, 2), (fj,), hll_o) + lm_damp
-            bl = _scatter64((lmax, 2), (fj,), bl_o)
-            hll_inv = _inv2(hll)                                  # (L,2,2)
+_OPTIMIZE_BA_FNS: dict = {}   # (device, leaf shapes and dtypes) -> fn
 
-            # Schur complement: Hpl's nonzero (pose, landmark) blocks in U
-            # (L, K, 3, 2); the correction folds over the landmark axis
-            u = _scatter64((lmax, kmax, 3, 2), (fj, fi), hpl_o)
-            s_corr = torch.einsum("lkab,lbc,lmdc->kmad", u, hll_inv, u)
-            bp_corr = torch.einsum("lkab,lbc,lc->ka", u, hll_inv, bl)
 
-            s = (hpp - s_corr).permute(0, 2, 1, 3).reshape(3 * kmax,
-                                                           3 * kmax)
-            s = s + torch.diag(extra)
-            dp, _ = torch.linalg.solve_ex(s, -(bp - bp_corr).reshape(-1))
-            dp = dp.reshape(kmax, 3) * pose_on
-            # back-substitute landmarks: dl = Hll^-1 (-bl - Hlp dp)
-            hlp_dp = torch.einsum("lkba,kb->la", u, dp)
-            dl = torch.einsum("lab,lb->la", hll_inv, -bl - hlp_dp) * lm_on
-
-            new = poses + dp
-            poses = torch.cat([new[:, :2], se2.wrap_angle(new[:, 2:3])], 1)
-            lms = lms + dl
-    return p._replace(poses=poses, landmarks=lms)
+def optimize_ba(p: BAProblem, iters: int = 10, damping: float = 1e-3
+                ) -> BAProblem:
+    """Damped Gauss-Newton with Schur-complement landmark elimination, as a
+    CUDA graph replay on the card (the same iterations as
+    ``optimize_ba_eager``, bit for bit). A problem shape's graphs and
+    buffers are made at its first call and kept for the process; the
+    result's tensors are the caller's own."""
+    key = (p.poses.device, tuple((tuple(t.shape), t.dtype) for t in p))
+    fn = _OPTIMIZE_BA_FNS.get(key)
+    if fn is None:
+        fn = _OPTIMIZE_BA_FNS[key] = _OptimizeBaFn(p)
+    return fn(p, iters, damping)
 
 
 def ba_error(p: BAProblem) -> torch.Tensor:

@@ -15,12 +15,16 @@ submap frontend's: ``make_step_fn``, CUDA graphs over static buffers, the
 counterpart of JAX's jitted ``run_chunk``), whose keyframe flag is already a
 host bool. Each scan's pose and frontend quality and each keyframe's gated
 scan (from the step's own buffers) are copied on the device into the
-chunk's buffers, which come to the host in one copy a chunk. ``eager=True``
-runs the frontend's ``slam_step`` a scan instead (the reference the tests
-and chip_smoke hold the captured run to). The keyframe scans and their
-256^2 EDT rasters (kernel K1, batched) stay on the device, so closure
-matching moves no field across the bus. Bookkeeping — keyframes, edges, the closure gates, the jump gate — is
-host numpy, as in the JAX package, with the same numbers.
+chunk's buffers, which come to the host in one copy a chunk. The keyframe
+scans and their 256^2 EDT rasters (kernel K1, batched) stay on the device,
+so closure matching moves no field across the bus. The backend's batched
+helpers (keyframe rasters, closure matching, fine refinement) and the
+pose-graph optimize run as CUDA graphs too (``_Backend``, the counterpart
+of JAX's jitted helpers). ``eager=True`` runs the frontend's ``slam_step``
+a scan and the backend op by op instead (the reference the tests and
+chip_smoke hold the captured run to). Bookkeeping — keyframes, edges, the
+closure gates, the jump gate — is host numpy, as in the JAX package, with
+the same numbers.
 
 Differences from the JAX package that change no result: JAX pads every
 batch (keyframe rasters, closure candidates, fine refinements) to a fixed
@@ -219,6 +223,131 @@ def _refine_rel_batch(x0, y0, v0, x1, y1, v1, guesses, *, pixel: float,
         size=size, iters=iters, step_t0=step_t0, step_r0=step_r0)
 
 
+class _DeviceKeyframes(NamedTuple):
+    """The device keyframe store: gated scans (K, N) and EDT rasters
+    (K, S, S), indexed by keyframe."""
+    x: torch.Tensor
+    y: torch.Tensor
+    valid: torch.Tensor
+    metric: torch.Tensor
+
+
+class _Rows(NamedTuple):
+    """A batch of the backend: store rows and guesses in, result out. A
+    raster batch has its keyframes in ``old`` and no result."""
+    old: torch.Tensor                    # (B,) int64: old keyframes
+    cur: torch.Tensor | None = None      # (B,) int64: current keyframes
+    guesses: torch.Tensor | None = None  # (B, 3) f32
+    out: torch.Tensor | None = None      # (B, 6) match, (B, 3) refine
+
+
+class _Backend:
+    """The closure backend's batched helpers over the device keyframe
+    store, JAX's jitted ``_raster_edt_batch``, ``_match_keyframes_batch``
+    and ``_refine_rel_batch``, and ``posegraph.optimize``.
+
+    Each helper runs as a CUDA graph (``utils/graphs``) keyed by the
+    helper and its batch width B, so K1 and K2 launch at exactly the shapes
+    of the eager run; ``optimize`` replays its ``OptimizeFn``. The host
+    writes a batch's rows and guesses into the width's static buffers
+    (``graphs.upload``, no sync) and replays; a result is cloned out of its
+    buffer, so a pass's batches come to the host in one copy. The store is
+    read and written through int64 index buffers (``index_select``,
+    ``index_copy_``), never by a host list. ``eager``: the same bodies on
+    the same buffers, op by op, and ``posegraph.optimize``."""
+
+    def __init__(self, store: _DeviceKeyframes, lc: LoopClosureConfig,
+                 max_keyframes: int, device: torch.device, eager: bool):
+        self.store, self.lc, self.device, self.eager = (store, lc, device,
+                                                        eager)
+        self.graphs = graphs.Graphs(device)
+        self._rows: dict = {}   # (helper, B) -> _Rows
+        self.optimizer = None if eager else posegraph.OptimizeFn(
+            max_keyframes, 4 * max_keyframes, device)
+
+    def raster(self, rows: list[int]) -> None:
+        """EDT rasters of the keyframes ``rows`` into the store."""
+        self._run("raster", 0, np.asarray(rows, np.int64))
+
+    def match(self, olds: list[int], curs: list[int], guesses: np.ndarray
+              ) -> torch.Tensor:
+        """``_match_keyframes_batch`` of keyframes ``curs`` against the
+        rasters of ``olds`` from ``guesses``: (B, 6) on the device."""
+        return self._run("match", 6, np.asarray(olds, np.int64),
+                         np.asarray(curs, np.int64),
+                         np.asarray(guesses, np.float32))
+
+    def refine(self, olds: list[int], curs: list[int], guesses: np.ndarray
+               ) -> torch.Tensor:
+        """``_refine_rel_batch`` of keyframe pairs: (B, 3) on the device."""
+        return self._run("refine", 3, np.asarray(olds, np.int64),
+                         np.asarray(curs, np.int64),
+                         np.asarray(guesses, np.float32))
+
+    def _run(self, helper: str, width: int, *host: np.ndarray):
+        """``helper``'s body on one batch, given as host arrays (old rows
+        [, current rows, guesses]); returns its (B, ``width``) result."""
+        b = len(host[0])
+        key = (helper, b)
+        rows = self._rows.get(key)
+        if rows is None:
+            rows = self._rows[key] = _Rows(
+                *(torch.zeros_like(torch.as_tensor(a), device=self.device)
+                  for a in host),
+                out=torch.zeros((b, width), device=self.device))
+        for buf, a in zip(rows, host):
+            graphs.upload(buf, a)
+        body = getattr(self, "_" + helper)
+        if self.eager:
+            body((self.store, rows))
+        else:
+            self.graphs.run(key, body, (self.store, rows))
+        return rows.out.clone()
+
+    def _raster(self, bufs) -> None:
+        s, r = bufs
+        lc = self.lc
+        s.metric.index_copy_(0, r.old, _raster_edt_batch(
+            s.x.index_select(0, r.old), s.y.index_select(0, r.old),
+            s.valid.index_select(0, r.old), lc.raster_size, lc.raster_pixel))
+
+    def _match(self, bufs) -> None:
+        s, r = bufs
+        r.out.copy_(_match_keyframes_batch(
+            s.metric.index_select(0, r.old), s.x.index_select(0, r.cur),
+            s.y.index_select(0, r.cur), s.valid.index_select(0, r.cur),
+            r.guesses, self.lc))
+
+    def _refine(self, bufs) -> None:
+        s, r = bufs
+        lc = self.lc
+
+        def rows(ix):
+            return (s.x.index_select(0, ix), s.y.index_select(0, ix),
+                    s.valid.index_select(0, ix))
+
+        r.out.copy_(_refine_rel_batch(
+            *rows(r.old), *rows(r.cur), r.guesses, pixel=lc.fine_pixel,
+            size=lc.fine_size, iters=lc.fine_iters, step_t0=lc.fine_step_t0,
+            step_r0=lc.fine_step_r0, max_range=lc.fine_range))
+
+    def pose_graph(self, arrays) -> posegraph.PoseGraph:
+        """The pose graph given as host arrays (``PoseGraph``'s fields in
+        order) on the device: the optimizer's static graph, refilled
+        (``eager``: new tensors)."""
+        if self.eager:
+            return posegraph.PoseGraph(*(torch.as_tensor(a, device=self.device)
+                                         for a in arrays))
+        return self.optimizer.load(arrays)
+
+    def optimize(self, arrays, iters: int) -> torch.Tensor:
+        """The optimized poses (K, 3) of that graph, on the device."""
+        g = self.pose_graph(arrays)
+        if self.eager:
+            return posegraph.optimize(g, iters=iters).poses
+        return self.optimizer(g, iters=iters).poses
+
+
 # -- host-side SE(2) helpers (numpy, as in the JAX package) ------------------
 def _np_ref_to_std(p):
     return np.asarray([p[0], p[1], -p[2]], np.float32)
@@ -291,7 +420,8 @@ class GraphSlam:
     ``device`` holds the frontend state, the keyframe scans and rasters and
     every batched match; on CUDA the two kernels run there and nothing on
     the path falls back to a plain version. ``eager``: the frontend runs its
-    eager ``slam_step`` a scan instead of its captured step."""
+    eager ``slam_step`` a scan instead of its captured step, and the
+    backend its helpers op by op."""
 
     frontend = scan_matcher  # provides init_state, slam_step, make_step_fn
 
@@ -319,6 +449,10 @@ class GraphSlam:
         self._kf_metric = torch.empty(
             (max_keyframes, lc.raster_size, lc.raster_size),
             dtype=torch.float32, device=dev)
+        self._backend = _Backend(
+            _DeviceKeyframes(self._kf_dx, self._kf_dy, self._kf_dv,
+                             self._kf_metric),
+            lc, max_keyframes, dev, eager)
         self._kf_count = 0
         self._saturation_warned = False
         self._edge_warned = False
@@ -350,7 +484,13 @@ class GraphSlam:
     @property
     def graph(self) -> posegraph.PoseGraph:
         """The pose graph from the host mirrors, fixed shapes, on the
-        device."""
+        device: the captured optimizer's static graph, refilled at each
+        read and each optimize (``eager``: new tensors)."""
+        return self._backend.pose_graph(self._graph_arrays())
+
+    def _graph_arrays(self) -> tuple[np.ndarray, ...]:
+        """The pose graph's fields, in ``PoseGraph``'s order, as host
+        arrays of fixed shapes."""
         kmax, emax = self.max_keyframes, self.max_keyframes * 4
         k = self._kf_count
         poses = np.zeros((kmax, 3), np.float32)
@@ -369,18 +509,8 @@ class GraphSlam:
         ew = np.ones((emax, 3), np.float32)
         for idx, (i, j, z, w) in enumerate(self._edges[:e]):
             ei[idx], ej[idx], ez[idx], ew[idx] = i, j, z, w
-
-        def dev(a):
-            return torch.as_tensor(a, device=self.device)
-
-        return posegraph.PoseGraph(
-            poses=dev(poses), node_active=dev(np.arange(kmax) < k),
-            n_nodes=dev(np.int32(k)), edge_i=dev(ei), edge_j=dev(ej),
-            edge_z=dev(ez), edge_w=dev(ew),
-            edge_active=dev(np.arange(emax) < e), n_edges=dev(np.int32(e)))
-
-    def _index(self, rows: list[int]) -> torch.Tensor:
-        return torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+        return (poses, np.arange(kmax) < k, np.int32(k), ei, ej, ez, ew,
+                np.arange(emax) < e, np.int32(e))
 
     # -- keyframe bookkeeping (host) ---------------------------------------------
     def _add_keyframe(self, scan_x, scan_y, scan_valid, pose_ref: np.ndarray,
@@ -446,13 +576,9 @@ class GraphSlam:
         """EDT rasters of newly added keyframes, a batch at a time."""
         if not kf_indices:
             return
-        lc = self.lc
         bucket = _closure_batch(self.device)
         for s in range(0, len(kf_indices), bucket):
-            o = self._index(kf_indices[s: s + bucket])
-            self._kf_metric[o] = _raster_edt_batch(
-                self._kf_dx[o], self._kf_dy[o], self._kf_dv[o],
-                lc.raster_size, lc.raster_pixel)
+            self._backend.raster(kf_indices[s: s + bucket])
 
     def _closure_candidates(self, k: int) -> list[int]:
         """Old keyframes worth matching against keyframe ``k``; keyframes
@@ -488,15 +614,9 @@ class GraphSlam:
         olds = [i for _, i in rows]
         guesses = np.stack([_np_between_ref(self.kf_poses[i], self.kf_poses[k])
                             for k, i in rows])
-        packs = []
-        for s in range(0, b, bucket):
-            o = self._index(olds[s: s + bucket])
-            kk = self._index(ks[s: s + bucket])
-            packs.append(_match_keyframes_batch(
-                self._kf_metric[o], self._kf_dx[kk], self._kf_dy[kk],
-                self._kf_dv[kk],
-                torch.as_tensor(guesses[s: s + bucket], device=self.device),
-                lc))
+        packs = [self._backend.match(olds[s: s + bucket], ks[s: s + bucket],
+                                     guesses[s: s + bucket])
+                 for s in range(0, b, bucket)]
         packed = torch.cat(packs).cpu().numpy()              # one copy
         rels, avg_ds, inliers, ambigs = (packed[:, :3], packed[:, 3],
                                          packed[:, 4], packed[:, 5])
@@ -561,16 +681,9 @@ class GraphSlam:
             fines = []
             for s in range(0, len(pairs), bucket):
                 sl = pairs[s: s + bucket]
-                o2 = self._index([i for _, i, _ in sl])
-                k2 = self._index([k for _, _, k in sl])
-                g2 = np.stack([rels[row] for row, _, _ in sl])
-                fines.append(_refine_rel_batch(
-                    self._kf_dx[o2], self._kf_dy[o2], self._kf_dv[o2],
-                    self._kf_dx[k2], self._kf_dy[k2], self._kf_dv[k2],
-                    torch.as_tensor(g2, device=self.device),
-                    pixel=lc.fine_pixel, size=lc.fine_size,
-                    iters=lc.fine_iters, step_t0=lc.fine_step_t0,
-                    step_r0=lc.fine_step_r0, max_range=lc.fine_range))
+                fines.append(self._backend.refine(
+                    [i for _, i, _ in sl], [k for _, _, k in sl],
+                    np.stack([rels[row] for row, _, _ in sl])))
             fine = torch.cat(fines).cpu().numpy()             # one copy
             for j, (row, _, _) in enumerate(pairs):
                 z_rel[row] = fine[j]
@@ -592,8 +705,8 @@ class GraphSlam:
     def _optimize(self) -> float:
         """One damped-GN solve over the graph; NaN-revert. Returns the
         largest keyframe position move (m), -1.0 on revert."""
-        candidate = posegraph.optimize(self.graph, iters=10)
-        opt = candidate.poses[: self._kf_count].cpu().numpy()
+        opt = self._backend.optimize(self._graph_arrays(), iters=10)
+        opt = opt[: self._kf_count].cpu().numpy()
         if not np.isfinite(opt).all():
             return -1.0
         old = np.stack([_np_ref_to_std(p) for p in self.kf_poses])

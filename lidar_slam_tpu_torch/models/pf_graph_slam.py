@@ -8,24 +8,30 @@ re-anchors the whole particle cloud rigidly by the optimized correction
 (pose' = opt_k (+) (old_k (-) pose), relative weights kept), rebuilds the
 shared point map from the keyframe scans at their optimized poses, and
 recomputes the fine raster and its EDT (kernel K1 on CUDA), so a
-mis-registration is undone rather than carried. The JAX package's docstring
-records the accuracy envelope of this design on building-3800.
+mis-registration is undone rather than carried: a CUDA graph over static
+buffers in the backend's pool (JAX's jitted ``_reraster``), unless
+``eager``. The JAX package's docstring records the accuracy envelope of
+this design on building-3800.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from lidar_slam_tpu_torch.config import SlamConfig
 from lidar_slam_tpu_torch.core import gridmap, se2
-from lidar_slam_tpu_torch.core.gridmap import PointMap
+from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap
 from lidar_slam_tpu_torch.device import resolve_device
 from lidar_slam_tpu_torch.models import fastslam
 from lidar_slam_tpu_torch.models.graph_slam import (GraphSlam,
                                                     LoopClosureConfig,
+                                                    _DeviceKeyframes,
                                                     _rebuilt_map_points)
 from lidar_slam_tpu_torch.ops import edt as edt_ops
+from lidar_slam_tpu_torch.utils import graphs
 
 
 class _PFFrontend:
@@ -113,6 +119,15 @@ def _reraster(pmap: PointMap, kf_x, kf_y, kf_valid, kf_pose,
     return fine, edt_ops.edt(fine.occ, int(g.max_dist_px))
 
 
+class _RerasterBufs(NamedTuple):
+    """The captured ``_reraster``'s static buffers."""
+    store: _DeviceKeyframes
+    pmap: PointMap       # the rebuilt map, its keyframe pose the centre
+    row: torch.Tensor    # (1,) int64: the keyframe whose scan is the crop
+    fine: OccGrid        # the result
+    metric: torch.Tensor
+
+
 class PFGraphSlam(GraphSlam):
     """GraphSlam with the grid particle filter as frontend; weak
     (recovery-tier) closures on by default."""
@@ -125,6 +140,37 @@ class PFGraphSlam(GraphSlam):
             lc = LoopClosureConfig(weak_closures=True)
         super().__init__(cfg, lc, max_keyframes, device, eager)
         self.frontend = _PFFrontend(seed, draws)
+        self._reraster_bufs: _RerasterBufs | None = None
+
+    def _rerastered(self, pmap: PointMap, k: int):
+        """``_reraster`` of ``pmap`` around keyframe ``k``'s scan at the
+        map's keyframe pose: (fine grid, its EDT), the caller's own
+        tensors."""
+        if self.eager:
+            return _reraster(pmap, self._kf_dx[k], self._kf_dy[k],
+                             self._kf_dv[k], pmap.keyframe_pose, self.cfg)
+        b = self._reraster_bufs
+        if b is None:
+            g = self.cfg.grid
+            b = self._reraster_bufs = _RerasterBufs(
+                store=self._backend.store, pmap=graphs.clone_tree(pmap),
+                row=torch.zeros(1, dtype=torch.int64, device=self.device),
+                fine=gridmap.empty_grid(g.fine_size, g.fine_pixel,
+                                        self.device),
+                metric=torch.zeros((g.fine_size, g.fine_size),
+                                   device=self.device))
+        graphs.copy_into(b.pmap, pmap)
+        graphs.upload(b.row, np.asarray([k], np.int64))
+        self._backend.graphs.run("reraster", self._reraster_body, b)
+        return graphs.clone_tree((b.fine, b.metric))
+
+    def _reraster_body(self, b: _RerasterBufs) -> None:
+        s = b.store
+        fine, fm = _reraster(b.pmap, s.x.index_select(0, b.row)[0],
+                             s.y.index_select(0, b.row)[0],
+                             s.valid.index_select(0, b.row)[0],
+                             b.pmap.keyframe_pose, self.cfg)
+        graphs.copy_into((b.fine, b.metric), (fine, fm))
 
     def _rebuild_frontend(self, state: fastslam.ParticleState):
         p = state.poses.shape[0]
@@ -142,8 +188,7 @@ class PFGraphSlam(GraphSlam):
         pmap = PointMap(xy=torch.as_tensor(xy, device=dev),
                         size=torch.as_tensor(np.int32(size), device=dev),
                         keyframe_pose=new_last_t)
-        fine, fm = _reraster(pmap, self._kf_dx[k - 1], self._kf_dy[k - 1],
-                             self._kf_dv[k - 1], new_last_t, self.cfg)
+        fine, fm = self._rerastered(pmap, k - 1)
         return state._replace(
             poses=torch.as_tensor(_np_correct_cloud(poses, old_last,
                                                     new_last), device=dev),

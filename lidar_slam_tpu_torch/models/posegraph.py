@@ -16,6 +16,10 @@ run, so the blocks are accumulated in float64 and rounded to float32 once;
 two runs on the card then give the same system. The dense solve is a library
 call, as in the JAX package (a plain product outside any kernel); TF32 plays
 no part in it.
+
+``OptimizeFn`` is the counterpart of JAX's jitted ``optimize``: its loop
+body, one iteration, as a CUDA graph over a static graph of fixed capacity
+(``utils/graphs``), replayed once an iteration.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from lidar_slam_tpu_torch.core import se2
 from lidar_slam_tpu_torch.device import resolve_device, rounded64
+from lidar_slam_tpu_torch.utils import graphs
 
 
 class PoseGraph(NamedTuple):
@@ -137,6 +142,16 @@ def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-4,
     ``robust=True`` scales each edge's weight by min(1, delta/||r||_W)
     (Huber-style iteratively reweighted least squares), so a single bad
     loop closure cannot drag the whole graph."""
+    poses = g.poses
+    for _ in range(iters):
+        poses = _gn_step(g, poses, damping, robust, huber_delta)
+    return g._replace(poses=poses)
+
+
+def _gn_step(g: PoseGraph, poses: torch.Tensor, damping: float,
+             robust: bool, huber_delta: float) -> torch.Tensor:
+    """One damped Gauss-Newton iteration of ``g`` from ``poses``: the new
+    poses."""
     kmax = g.poses.shape[0]
     dev = g.poses.device
     ei, ej = g.edge_i.long(), g.edge_j.long()
@@ -145,41 +160,81 @@ def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-4,
     diag = torch.arange(3 * kmax, device=dev)
     extra = (torch.where(diag < 3, 1e6, 0.0)
              + (1.0 - node)[:, None].expand(kmax, 3).reshape(-1) + damping)
-    poses = g.poses
-    for _ in range(iters):
-        xi, xj = poses[ei], poses[ej]
-        ji, jj = _edge_jacobians(xi, xj)
-        r = _edge_residual(xi, xj, g.edge_z)
-        wmask = g.edge_w * active
-        if robust:
-            chi = _huber_chi(wmask, r)
-            wmask = wmask * torch.clamp(huber_delta / chi, max=1.0)[:, None]
-        wji = wmask[:, :, None] * ji
-        wjj = wmask[:, :, None] * jj
-        h_ii = torch.einsum("eab,eac->ebc", ji, wji)
-        h_jj = torch.einsum("eab,eac->ebc", jj, wjj)
-        h_ij = torch.einsum("eab,eac->ebc", ji, wjj)
-        b_i = torch.einsum("eab,ea->eb", ji, wmask * r)
-        b_j = torch.einsum("eab,ea->eb", jj, wmask * r)
+    xi, xj = poses[ei], poses[ej]
+    ji, jj = _edge_jacobians(xi, xj)
+    r = _edge_residual(xi, xj, g.edge_z)
+    wmask = g.edge_w * active
+    if robust:
+        chi = _huber_chi(wmask, r)
+        wmask = wmask * torch.clamp(huber_delta / chi, max=1.0)[:, None]
+    wji = wmask[:, :, None] * ji
+    wjj = wmask[:, :, None] * jj
+    h_ii = torch.einsum("eab,eac->ebc", ji, wji)
+    h_jj = torch.einsum("eab,eac->ebc", jj, wjj)
+    h_ij = torch.einsum("eab,eac->ebc", ji, wjj)
+    b_i = torch.einsum("eab,ea->eb", ji, wmask * r)
+    b_j = torch.einsum("eab,ea->eb", jj, wmask * r)
 
-        f64 = torch.float64
-        hb = torch.zeros((kmax, kmax, 3, 3), dtype=f64, device=dev)
-        hb.index_put_((ei, ei), h_ii.to(f64), accumulate=True)
-        hb.index_put_((ej, ej), h_jj.to(f64), accumulate=True)
-        hb.index_put_((ei, ej), h_ij.to(f64), accumulate=True)
-        hb.index_put_((ej, ei), h_ij.transpose(1, 2).to(f64),
-                      accumulate=True)
-        b = torch.zeros((kmax, 3), dtype=f64, device=dev)
-        b.index_put_((ei,), b_i.to(f64), accumulate=True)
-        b.index_put_((ej,), b_j.to(f64), accumulate=True)
+    f64 = torch.float64
+    hb = torch.zeros((kmax, kmax, 3, 3), dtype=f64, device=dev)
+    hb.index_put_((ei, ei), h_ii.to(f64), accumulate=True)
+    hb.index_put_((ej, ej), h_jj.to(f64), accumulate=True)
+    hb.index_put_((ei, ej), h_ij.to(f64), accumulate=True)
+    hb.index_put_((ej, ei), h_ij.transpose(1, 2).to(f64), accumulate=True)
+    b = torch.zeros((kmax, 3), dtype=f64, device=dev)
+    b.index_put_((ei,), b_i.to(f64), accumulate=True)
+    b.index_put_((ej,), b_j.to(f64), accumulate=True)
 
-        h = hb.to(torch.float32).permute(0, 2, 1, 3).reshape(3 * kmax,
-                                                             3 * kmax)
-        h = h + torch.diag(extra)
-        delta, _ = torch.linalg.solve_ex(h, -b.to(torch.float32).reshape(-1))
-        new = poses + delta.reshape(kmax, 3) * node[:, None]
-        poses = torch.cat([new[:, :2], se2.wrap_angle(new[:, 2:3])], dim=1)
-    return g._replace(poses=poses)
+    h = hb.to(torch.float32).permute(0, 2, 1, 3).reshape(3 * kmax, 3 * kmax)
+    h = h + torch.diag(extra)
+    delta, _ = torch.linalg.solve_ex(h, -b.to(torch.float32).reshape(-1))
+    new = poses + delta.reshape(kmax, 3) * node[:, None]
+    return torch.cat([new[:, :2], se2.wrap_angle(new[:, 2:3])], dim=1)
+
+
+class OptimizeFn:
+    """``fn(g, iters, ...) -> PoseGraph``: ``optimize`` over one static
+    ``PoseGraph`` of ``max_nodes`` nodes and ``max_edges`` edges,
+    ``fn.graph``, as JAX's ``fori_loop`` runs it: one Gauss-Newton
+    iteration captured as a CUDA graph (``utils/graphs``) per
+    ``(damping, robust, huber_delta)``, replayed ``iters`` times over the
+    static poses ``fn.poses``.
+
+    Fill ``fn.graph`` on the host with ``load`` and pass it, or pass a
+    graph of its shapes, which is copied in. The result is ``fn.graph``
+    with its poses replaced by ``fn.poses``, which holds them until the
+    next call. On the CPU the same iteration runs uncaptured on the same
+    buffers."""
+
+    def __init__(self, max_nodes: int, max_edges: int,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.graph = empty_graph(max_nodes, max_edges, self.device)
+        self.poses = torch.zeros_like(self.graph.poses)
+        self.graphs = graphs.Graphs(self.device)
+
+    def load(self, arrays) -> PoseGraph:
+        """Write host arrays (numpy, ``PoseGraph``'s fields in order) into
+        ``fn.graph`` without a host sync; returns ``fn.graph``."""
+        for buf, a in zip(self.graph, arrays, strict=True):
+            graphs.upload(buf, a)
+        return self.graph
+
+    def __call__(self, g: PoseGraph, iters: int = 10, damping: float = 1e-4,
+                 robust: bool = True, huber_delta: float = 3.0) -> PoseGraph:
+        if g is not self.graph:
+            graphs.copy_into(self.graph, g)
+        self.poses.copy_(self.graph.poses)
+
+        def body(bufs) -> None:
+            static, poses = bufs
+            poses.copy_(_gn_step(static, poses, damping, robust,
+                                 huber_delta))
+
+        for _ in range(iters):
+            self.graphs.run((damping, robust, huber_delta), body,
+                            (self.graph, self.poses))
+        return self.graph._replace(poses=self.poses)
 
 
 def graph_error(g: PoseGraph) -> torch.Tensor:

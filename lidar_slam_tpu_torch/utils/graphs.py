@@ -2,9 +2,10 @@
 with ``donate_argnums`` (``scan_matcher.make_step_fn``,
 ``fastslam.make_pf_step``).
 
-A step's state and inputs live in static buffers that the step object owns.
-Each arm of the step is a *body*: a function of those buffers that reads
-them and ends by copying its results back into them (``copy_into``). On a
+A step's state and inputs live in static buffers that the step object owns
+(host-made rows enter them through ``upload``). Each arm of the step is a
+*body*: a function of those buffers that reads them and ends by copying its
+results back into them (``copy_into``). On a
 CUDA device ``Graphs.run`` captures a body once in a ``torch.cuda.CUDAGraph``
 and replays it after: a replay launches the body's hundreds of ops in one
 call, with the copies back into the buffers inside the graph. Before a
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import time
 from typing import NamedTuple
 
 import torch
@@ -77,6 +79,21 @@ def copy_into(bufs, tree) -> None:
               and storage(x) != storage(buf) else x) for buf, x in pairs]
     for buf, x in pairs:
         buf.copy_(x)
+
+
+def upload(buf: torch.Tensor, rows) -> None:
+    """Write host-made ``rows`` (numpy or a CPU tensor, ``buf``'s shape)
+    into the static buffer ``buf`` without a host sync. On the card the
+    copy comes from a pinned staging copy made for this call: the caching
+    host allocator keeps it until the copy has run, so a later upload into
+    the same buffer cannot overwrite its rows before then."""
+    host = torch.as_tensor(rows, dtype=buf.dtype)
+    if host.shape != buf.shape:
+        raise ValueError(f"rows of shape {tuple(host.shape)} do not fit "
+                         f"their buffer {tuple(buf.shape)}")
+    if buf.is_cuda:
+        host = host.pin_memory()
+    buf.copy_(host, non_blocking=True)
 
 
 class Counts(NamedTuple):
@@ -135,14 +152,20 @@ class Graphs:
     ``run(key, body, bufs)`` replays the graph of ``key``, capturing
     ``body(bufs)`` at its first call; ``body`` and ``bufs`` must be the same
     at every call of a key (the graph holds the buffers' addresses). On the
-    CPU it calls ``body(bufs)``."""
+    CPU it calls ``body(bufs)``. ``capture_seconds``: the host time the
+    captures took (warm-up, capture, instantiation), summed."""
 
     def __init__(self, device: torch.device, counters=COUNTED):
         self.device = device
         self.capturing = device.type == "cuda"
         self.book = LaunchBook(counters)
         self.pool = torch.cuda.graph_pool_handle() if self.capturing else None
+        # one side stream for every warm-up and capture: the caching
+        # allocator reuses a freed block only on the stream it was made on,
+        # so a stream a capture would leave each graph's blocks to it alone
+        self.stream = torch.cuda.Stream(device) if self.capturing else None
         self._graphs: dict = {}   # key -> (CUDAGraph, launch delta)
+        self.capture_seconds = 0.0
 
     def __len__(self) -> int:
         """The number of graphs captured."""
@@ -153,13 +176,15 @@ class Graphs:
             body(bufs)
             return
         if key not in self._graphs:
+            t0 = time.perf_counter()
             self._graphs[key] = self._capture(body, bufs)
+            self.capture_seconds += time.perf_counter() - t0
         graph, delta = self._graphs[key]
         graph.replay()
         self.book.add(delta)
 
     def _capture(self, body, bufs):
-        side = torch.cuda.Stream(self.device)
+        side = self.stream
         side.wait_stream(torch.cuda.current_stream(self.device))
         start = self.book.snapshot()
         with torch.cuda.stream(side), _no_host_sync():
@@ -169,9 +194,15 @@ class Graphs:
         graph = torch.cuda.CUDAGraph()
 
         def capture():
-            with torch.cuda.graph(graph, pool=self.pool, stream=side):
-                with _no_host_sync():
+            # capture_begin/end rather than ``torch.cuda.graph``, whose entry
+            # synchronizes and empties the caching allocator and the pinned
+            # host cache before every capture
+            with torch.cuda.stream(side), _no_host_sync():
+                graph.capture_begin(pool=self.pool)
+                try:
                     body(bufs)
+                finally:
+                    graph.capture_end()
 
         return graph, self.book.record(capture)
 

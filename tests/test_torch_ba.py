@@ -8,6 +8,8 @@ the card runs in ``chip_smoke.py`` (K = 512 pose slots, 500 active; a
 equations in float64 and takes its Jacobians in closed form, so results
 agree to float32 rounding, not bit for bit: poses and landmarks within 1e-5
 (absolute, metres) after 15 iterations, the error within 1e-5 relative.
+``optimize_ba`` is the captured function (one Gauss-Newton iteration a
+CUDA graph on the card; here the same iteration on its static buffers).
 """
 
 import jax

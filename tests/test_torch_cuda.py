@@ -730,9 +730,9 @@ def test_capture_refuses_a_host_sync(cuda):
 @pytest.mark.parametrize("frontend", ["graph", "submap-graph", "pf-graph"])
 def test_captured_graph_frontends_equal_eager_on_the_card(cuda, frontend):
     """160 loop-tour scans in chunks of 32, closures from min_gap 3 (a
-    feedback happens): the captured run equals ``eager=True`` bit for bit,
-    path, keyframes, closures and final state, with the same K1 and K2
-    launches by shape."""
+    feedback happens): the captured run (frontend and backend) equals
+    ``eager=True`` bit for bit, path, keyframes, closures, attempts and
+    final state, with the same K1 and K2 launches by shape."""
     import dataclasses
 
     from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, ParticleConfig
@@ -763,6 +763,7 @@ def test_captured_graph_frontends_equal_eager_on_the_card(cuda, frontend):
     assert counts == ecounts and counts[0] and counts[1]
     assert np.array_equal(path, epath) and np.array_equal(opt, eopt)
     assert g.closures == e.closures and g.path_epoch == e.path_epoch
+    assert g.attempt_log == e.attempt_log
     state, estate = g.final_state, e.final_state
     for f in state._fields:
         a, b = getattr(state, f), getattr(estate, f)
@@ -900,3 +901,127 @@ def test_captured_step_makes_its_constants_without_a_sync(cuda):
                                   torch.zeros((10, 3)), cfg, device=cuda,
                                   counts=det.count[1:].numpy())
     assert torch.isfinite(path).all() and int(det.count[1:].sum()) > 0
+
+
+# -- the captured graph backend and BA (CUDA graphs) against their eager
+# helpers
+
+def test_captured_backend_helpers_equal_eager_on_the_card(cuda):
+    """Keyframe rasters, closure matching and fine refinement at every
+    bucket width B = 1..8, two batches a width through one graph each: the
+    same bits as the eager helpers on the same rows, with the same K1 and
+    K2 launches by shape."""
+    import _backend_cases as cases
+    from lidar_slam_tpu_torch.models import graph_slam
+
+    lc = graph_slam.LoopClosureConfig()
+    x, y, v, gt = cases.keyframes(cuda)
+    backend = graph_slam._Backend(cases.store(x, y, v), lc,
+                                  cases.N_KEYFRAMES, cuda, eager=False)
+    fine = dict(pixel=lc.fine_pixel, size=lc.fine_size, iters=lc.fine_iters,
+                step_t0=lc.fine_step_t0, step_r0=lc.fine_step_r0,
+                max_range=lc.fine_range)
+    for b in cases.WIDTHS:
+        for seed, (olds, curs) in enumerate(cases.batches(b)):
+            g = cases.guesses(gt, olds, curs, seed)
+            _reset_launches()
+            backend.raster(olds)
+            got = (backend.store.metric[olds], backend.match(olds, curs, g),
+                   backend.refine(olds, curs, g))
+            captured = _launches_by_shape()
+            _reset_launches()
+            metric = graph_slam._raster_edt_batch(
+                x[olds], y[olds], v[olds], lc.raster_size, lc.raster_pixel)
+            gt_dev = torch.as_tensor(g, device=cuda)
+            want = (metric, graph_slam._match_keyframes_batch(
+                metric, x[curs], y[curs], v[curs], gt_dev, lc),
+                graph_slam._refine_rel_batch(
+                    x[olds], y[olds], v[olds], x[curs], y[curs], v[curs],
+                    gt_dev, **fine))
+            assert _launches_by_shape() == captured, b
+            for a, w in zip(got, want):
+                assert torch.equal(a, w), b
+    assert len(backend.graphs) == 3 * len(cases.WIDTHS)
+
+
+@pytest.mark.parametrize("robust", [True, False])
+def test_captured_optimize_equals_eager_on_the_card(cuda, robust):
+    """The loop graph with a bad closure: ``OptimizeFn`` (one iteration a
+    replay) equals ``posegraph.optimize`` bit for bit, twice."""
+    from lidar_slam_tpu_torch.models import posegraph
+
+    g = _loop_graph(cuda)
+    fn = posegraph.OptimizeFn(g.poses.shape[0], g.edge_i.shape[0], cuda)
+    want = posegraph.optimize(g, iters=10, robust=robust).poses
+    for _ in range(2):
+        assert torch.equal(fn(g, iters=10, robust=robust).poses, want)
+    assert len(fn.graphs) == 1
+
+
+def test_captured_optimize_ba_equals_eager_on_the_card(cuda):
+    """The museum BA problem and a moved copy, through one graph: the
+    captured ``optimize_ba`` equals ``optimize_ba_eager`` bit for bit."""
+    import _backend_cases as cases
+    from lidar_slam_tpu_torch.models import ba
+
+    for p in cases.ba_problems(cuda):
+        got = ba.optimize_ba(p, iters=5)
+        want = ba.optimize_ba_eager(p, iters=5)
+        assert torch.equal(got.poses, want.poses)
+        assert torch.equal(got.landmarks, want.landmarks)
+
+
+def test_captured_reraster_equals_eager_on_the_card(cuda):
+    """PF-graph's re-raster of a rebuilt map around two keyframes: the
+    captured graph equals ``_reraster``, K1 included."""
+    import _backend_cases as cases
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.core.gridmap import PointMap
+    from lidar_slam_tpu_torch.models import graph_slam, pf_graph_slam
+
+    x, y, v, gt = cases.keyframes(cuda)
+    gs = pf_graph_slam.PFGraphSlam(DEFAULT_CONFIG,
+                                   max_keyframes=cases.N_KEYFRAMES,
+                                   device=cuda)
+    for buf, t in ((gs._kf_dx, x), (gs._kf_dy, y), (gs._kf_dv, v)):
+        buf.copy_(t)
+    xy, size = graph_slam._rebuilt_map_points(
+        x.cpu().numpy(), y.cpu().numpy(), v.cpu().numpy(),
+        gt.astype(np.float32), 8192)
+    for k in (3, 11):
+        pose = torch.as_tensor(gt[k], dtype=torch.float32, device=cuda)
+        pmap = PointMap(xy=torch.as_tensor(xy, device=cuda),
+                        size=torch.as_tensor(np.int32(size), device=cuda),
+                        keyframe_pose=pose)
+        fine, metric = gs._rerastered(pmap, k)
+        wfine, wmetric = pf_graph_slam._reraster(pmap, x[k], y[k], v[k],
+                                                 pose, DEFAULT_CONFIG)
+        assert torch.equal(metric, wmetric)
+        for f in ("occ", "n_rows", "n_cols", "origin"):
+            assert torch.equal(getattr(fine, f), getattr(wfine, f)), f
+
+
+def test_captured_graph_backend_without_feedback_equals_eager_on_the_card(
+        cuda):
+    """GraphSlam on 160 loop-tour scans without feedback: captured equals
+    ``eager=True``, path, keyframe poses, closures and attempts, with the
+    same launches by shape."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import graph_slam
+
+    ranges, _ = simulate.generate_dataset(160, seed=1,
+                                          waypoints=simulate.LOOP_WAYPOINTS)
+    lc = graph_slam.LoopClosureConfig(min_gap=3)
+    runs = []
+    for eager in (False, True):
+        _reset_launches()
+        gs = graph_slam.GraphSlam(DEFAULT_CONFIG, lc, device=cuda,
+                                  eager=eager)
+        path, opt = gs.run(ranges, chunk_size=32, feedback=False)
+        runs.append((gs, path, opt, _launches_by_shape()))
+    (g, path, opt, counts), (e, epath, eopt, ecounts) = runs
+    assert counts == ecounts and counts[1]
+    assert np.array_equal(path, epath) and np.array_equal(opt, eopt)
+    assert g.closures == e.closures and len(g.closures) >= 1
+    assert g.attempt_log == e.attempt_log and g._epoch == 0

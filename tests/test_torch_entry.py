@@ -263,6 +263,7 @@ def _entry_calls():
         "PFGraphSlam": lambda: pf_graph_slam.PFGraphSlam(DEFAULT_CONFIG),
         "GraphSlam": lambda: graph_slam.GraphSlam(DEFAULT_CONFIG),
         "empty_graph": lambda: posegraph.empty_graph(4, 4),
+        "OptimizeFn": lambda: posegraph.OptimizeFn(4, 4),
         "run_streaming_slam": lambda: server.run_streaming_slam(
             "http://127.0.0.1:1", 2, DEFAULT_CONFIG),
         "run_pf_supervised": lambda: watchdog.run_pf_supervised(
@@ -290,7 +291,8 @@ def _entry_calls():
                                    "submap_make_step_fn", "EkfStepFn",
                                    "HybridStepFn",
                                    "run_pf_graph", "PFGraphSlam", "GraphSlam",
-                                   "empty_graph", "run_ekf_slam",
+                                   "empty_graph", "OptimizeFn",
+                                   "run_ekf_slam",
                                    "run_ekf_slam_scan", "run_ekf_hybrid",
                                    "submap_run_scan", "submap_run_host_loop",
                                    "run_host_loop_paged", "SubmapGraphSlam",

@@ -3,6 +3,11 @@
 (batched correlation volume), fine refinement, the cloud re-anchoring and a
 whole reduced-depth ``GraphSlam.run``.
 
+Keyframe rasters, closure matching and fine refinement are compared both
+as the eager functions and through the captured backend (``_Backend``,
+CUDA graphs on the card, the same bodies on static buffers here); the
+whole run uses the captured backend.
+
 Tolerances: rasters, volumes and the synthesizer's arrays are compared
 exactly (every volume addend is on the 2^-10 lattice). Closure-match outputs
 agree to 1e-5: the trilinear lookups sum their corners in another order
@@ -108,6 +113,14 @@ def _j(t):
     return jnp.asarray(t.numpy())
 
 
+def _captured(x, y, v):
+    """GraphSlam's captured backend over the keyframe scans (x, y, v)."""
+    store = tgs._DeviceKeyframes(x, y, v, torch.zeros(
+        (x.shape[0], LC.raster_size, LC.raster_size)))
+    return tgs._Backend(store, LC, x.shape[0], torch.device("cpu"),
+                        eager=False)
+
+
 def test_raster_edt_batch_matches_jax(loop_scans):
     """Four keyframe rasters in one batch, plus a point beyond the raster's
     negative edge (JAX's drop-mode scatter wraps it once) and one beyond
@@ -121,6 +134,9 @@ def test_raster_edt_batch_matches_jax(loop_scans):
                                             LC.raster_size, LC.raster_pixel))
     assert got.shape == (4, 256, 256)
     assert np.array_equal(got.numpy(), want)
+    backend = _captured(x, y, v)
+    backend.raster([0, 1, 2, 3])
+    assert np.array_equal(backend.store.metric.numpy(), want)
     assert torch.equal(tgs._raster_edt(x[2], y[2], v[2], LC.raster_size,
                                        LC.raster_pixel), got[2])
 
@@ -168,6 +184,12 @@ def test_match_keyframes_matches_jax(loop_scans):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
                                    rtol=0)
+    backend = _captured(x, y, v)
+    backend.raster([0])
+    packed = backend.match([0], [4], guess[None])[0].numpy()
+    np.testing.assert_allclose(packed, np.concatenate(
+        [np.asarray(want[0]), np.stack([np.asarray(w) for w in want[1:]])]),
+        atol=1e-5, rtol=0)
     # a true revisit: nearly every beam lands inside the window
     assert float(got[2]) > 0.9
 
@@ -253,6 +275,9 @@ def test_refine_rel_batch_matches_jax(loop_scans):
                                  _j(x[cur]), _j(y[cur]), _j(v[cur]),
                                  jnp.asarray(guesses), **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    captured = _captured(x, y, v).refine(old, cur, guesses)
+    np.testing.assert_allclose(captured.numpy(), np.asarray(want), atol=1e-5,
                                rtol=0)
 
 

@@ -83,22 +83,24 @@ def test_jacobians_match_jacfwd():
 
 @pytest.mark.parametrize("seed,robust", [(0, True), (1, True), (2, False)])
 def test_optimize_and_graph_error_match_jax(seed, robust):
-    """K=24, E=60 random graph: 10 iterations; poses within 1e-4 and the
-    graph error within 1e-4 relative."""
+    """K=24, E=60 random graph: 10 iterations, eager and captured
+    (``OptimizeFn``, GraphSlam's); poses within 1e-4 and the graph error
+    within 1e-4 relative."""
     jg = _random_graph(seed)
     tg = state_io.posegraph_from_numpy(to_numpy_tree(jg), "cpu")
     jo = jpg.optimize(jg, iters=10, robust=robust)
-    to = tpg.optimize(tg, iters=10, robust=robust)
-    np.testing.assert_allclose(to.poses.numpy(), np.asarray(jo.poses),
-                               atol=1e-4, rtol=0)
-    for a, b in ((tg, jg), (to, jo)):
-        want = float(jpg.graph_error(b))
-        assert float(tpg.graph_error(a)) == pytest.approx(want, rel=1e-4)
-    assert float(tpg.graph_error(to)) < float(tpg.graph_error(tg))
-    # inactive slots untouched, node 0 pinned by the gauge prior
-    assert np.array_equal(to.poses[24:].numpy(), tg.poses[24:].numpy())
-    np.testing.assert_allclose(to.poses[0].numpy(), tg.poses[0].numpy(),
-                               atol=1e-4)
+    captured = tpg.OptimizeFn(32, 80, "cpu")(tg, iters=10, robust=robust)
+    for to in (tpg.optimize(tg, iters=10, robust=robust), captured):
+        np.testing.assert_allclose(to.poses.numpy(), np.asarray(jo.poses),
+                                   atol=1e-4, rtol=0)
+        for a, b in ((tg, jg), (to, jo)):
+            want = float(jpg.graph_error(b))
+            assert float(tpg.graph_error(a)) == pytest.approx(want, rel=1e-4)
+        assert float(tpg.graph_error(to)) < float(tpg.graph_error(tg))
+        # inactive slots untouched, node 0 pinned by the gauge prior
+        assert np.array_equal(to.poses[24:].numpy(), tg.poses[24:].numpy())
+        np.testing.assert_allclose(to.poses[0].numpy(), tg.poses[0].numpy(),
+                                   atol=1e-4)
 
 
 def test_add_node_and_edge_drop_at_capacity():
