@@ -14,7 +14,9 @@ the scan-driven landmark EKF and the hybrid grid + landmark filter at 1024
 particles, the submap atlas pipeline and the submap graph backend; the
 parallel layer on an NCCL world of one) and checks the results:
 
-1. card name and power limit (``nvidia-smi``); TF32 switched off;
+1. card name and power limit (``nvidia-smi``); TF32 switched off; torch
+   and CUDA versions and what records the CUDA graph conditional nodes
+   (``utils/graphs.cond``: the port's C++, ``csrc/graph_cond.cu``);
 2. kernel build (one nvcc a source, in parallel; sm_90a, --fmad=false) and
    the C++ oracle build (g++);
 3. K1 clamped EDT == plain, exactly, on random grids and museum rasters;
@@ -22,7 +24,8 @@ parallel layer on an NCCL world of one) and checks the results:
    4b. batched K2 == plain on real loop-tour keyframe rasters (B=8, T=21,
    half=14, 256^2), the closure-matching shape;
 5. fidelity, museum-1000, through the captured driver (``run_scan``: the
-   step's arms as CUDA graphs, ``utils/graphs.py``): trajectory
+   step as one CUDA graph whose branches are conditional nodes,
+   ``utils/graphs.py``; no host sync after scan 1): trajectory
    bit-identical to the C++ oracle;
 6. PF-1024, museum-1000, captured (``run_pf``): ATE < 0.15 m; then 100
    scans on the card and on the CPU with the same numpy-made draws, max
@@ -34,7 +37,11 @@ parallel layer on an NCCL world of one) and checks the results:
    with the same K1/K2 launches by shape; for each of the four drivers
    scans/s over the tour, and over scans 101-150 under the profiler and the
    sync debug mode device ops, device time and host syncs a scan and the
-   busy share; the captured steps' graph count and pool bytes;
+   busy share (the captured steps through ``advance``, no host read); the
+   captured steps' graph count, pool bytes and capture seconds; the host
+   syncs of a whole ``run_scan`` and ``run_pf`` (sync debug mode "warn"),
+   equal on the first 200 scans and on the tour, and the tour's scans/s
+   run again in the process;
 7. K1 and K2 at every shape the main paths launch them with (K1 200^2,
    400^2, 256^2, 512^2, (8,256,256), (8,448,448), and the scan-odometry
    pre-pass's (50,448,448) and (49,448,448); K2 T=7 half=6 on 400^2,
@@ -93,11 +100,14 @@ parallel layer on an NCCL world of one) and checks the results:
     too, and each backend stage's seconds and share of its run print
     eager against captured; graph loop-700 captured once more in the same
     process (its backend stages and capture time); for each of the five
-    drivers, eager and captured,
+    drivers and PF-1024-graph loop-700, eager and captured,
     scans/s over the run and, over scans 101-150 after 100 unprofiled,
     device ops, device time and host syncs a scan and the busy share (the
     graph runs profile that window from inside their chunk loop); the
-    captured steps' graph count and pool bytes;
+    captured steps' graph count and pool bytes; the host syncs of a whole
+    hybrid run, and those of the graph and PF-graph frontends' steps over a
+    whole ``GraphSlam.run`` (sync debug mode "warn"), equal on the first
+    200 scans and on the tour, and the tour's scans/s run again;
 15. streamed fidelity, museum-1000: a ``ScanServer`` on the tour, a
     ``RelayServer`` in front of it, ``run_streaming_slam`` on the card;
     the path bit-identical to ``run_host_loop`` on the card and to the C++
@@ -204,6 +214,8 @@ SUBMAP_ATE_FACTOR, SUBMAP_ATE_FLOOR = 2.5, 0.08  # tests/test_submap.py
 PROFILE_SCANS = 100        # scans of each new path run under the profiler
 STEADY_SCANS = 50          # phases 6c, 14c: scans profiled after
 #                            PROFILE_SCANS
+SYNC_SCANS = 200           # phases 6c, 14c: the short run whose host
+#                            syncs must equal the whole tour's
 FILTER_SCANS = 300         # phase 14c: museum scans of the EKF and hybrid
 #                            comparisons
 STREAM_PACE_S = 0.1       # phase 15: the sensor's 10 Hz
@@ -530,12 +542,16 @@ class WindowedFrontend:
 
 class ByScan:
     """A captured step object driven by scan index: ``step(state, t)``
-    calls ``obj(state, *inputs(t))``; ``graphs`` is the object's."""
+    calls ``obj(state, *inputs(t))`` (the pose read on the host), or with
+    ``advance`` ``obj.advance(state, *inputs(t))`` (nothing read; the pose
+    is None); ``graphs`` is the object's."""
 
-    def __init__(self, obj, inputs):
-        self.obj, self.inputs = obj, inputs
+    def __init__(self, obj, inputs, advance: bool = False):
+        self.obj, self.inputs, self.advance = obj, inputs, advance
 
     def __call__(self, state, t: int):
+        if self.advance:
+            return self.obj.advance(state, *self.inputs(t)), None
         return self.obj(state, *self.inputs(t))
 
     @property
@@ -543,14 +559,66 @@ class ByScan:
         return self.obj.graphs
 
 
-class _CountedStep:
-    """The captured step of a ``WindowedFrontend``, counted a call."""
+class SyncCount:
+    """The sync debug mode "warn" inside ``with``: ``count()`` is the host
+    syncs so far (the mode's warnings)."""
 
-    def __init__(self, frontend: WindowedFrontend):
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        torch.cuda.synchronize()
+        self._warnings = warnings.catch_warnings(record=True)
+        self._caught = self._warnings.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        self._warnings.__exit__(*exc)
+        return False
+
+    def count(self) -> int:
+        return sum("synchroniz" in str(w.message) for w in self._caught)
+
+
+class StepSyncs:
+    """A ``GraphSlam`` frontend whose captured step counts the host syncs
+    its calls make inside a ``SyncCount`` (``syncs``), the chunk loop's
+    own fetches and the backend's left out."""
+
+    def __init__(self, frontend, sync_count: SyncCount):
+        self.frontend, self.sync_count = frontend, sync_count
+        self.syncs, self.step = 0, None
+
+    def counted(self, step, *args):
+        before = self.sync_count.count()
+        out = step(*args)
+        self.syncs += self.sync_count.count() - before
+        return out
+
+    def init_state(self, ranges0, cfg):
+        return self.frontend.init_state(ranges0, cfg)
+
+    def make_step_fn(self, cfg, device):
+        self.step = self.frontend.make_step_fn(cfg, device)
+        return _CountedStep(self)
+
+
+class _CountedStep:
+    """The captured step of a ``WindowedFrontend`` (or ``StepSyncs``),
+    counted a call."""
+
+    def __init__(self, frontend):
         self.frontend = frontend
 
-    def __call__(self, state, ranges):
-        return self.frontend.counted(self.frontend.step, state, ranges)
+    def advance(self, state, ranges):
+        return self.frontend.counted(self.frontend.step.advance, state,
+                                     ranges)
 
     def __getattr__(self, name):   # pose, scan, graphs
         return getattr(self.frontend.step, name)
@@ -1088,6 +1156,12 @@ def main() -> int:
           f"cuda {torch.version.cuda}; matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    from lidar_slam_tpu_torch.utils import graphs
+    binding = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
+    print(f"[1] CUDA graph conditional nodes (utils/graphs.cond) recorded "
+          f"by {graphs.IF_NODE_ROUTE}; torch's own binding "
+          f"(CUDAGraph.begin_capture_to_if_node) "
+          f"{'present' if binding else 'absent'}", flush=True)
 
     phase_done("1")
 
@@ -1368,6 +1442,35 @@ def main() -> int:
     reset_counts()
     phase_done("6c")
 
+    def whole_run_syncs(tag, title, run, n_full, steps_of=None):
+        """``run(n)`` on the first ``SYNC_SCANS`` scans and on ``n_full``,
+        each under the sync debug mode "warn": the host syncs of the whole
+        run (and, with ``steps_of(run's result)``, those the frontend's
+        steps made), which must not grow with the tour; and the tour's
+        scans/s, run again in a process that has run the driver before."""
+        counts = {}
+        for n in (SYNC_SCANS, n_full):
+            torch.cuda.synchronize()
+            with SyncCount() as sc:
+                t0 = time.perf_counter()
+                out = run(n, sc) if steps_of else run(n)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                total = sc.count()
+            counts[n] = (total, steps_of(out) if steps_of else total)
+        (t_short, s_short), (t_full, s_full) = counts[SYNC_SCANS], \
+            counts[n_full]
+        require(s_short == s_full,
+                f"{title}: host syncs grow with the tour: {s_short} at "
+                f"{SYNC_SCANS} scans, {s_full} at {n_full}")
+        what = ("whole run" if not steps_of else
+                f"frontend steps (whole run, chunk fetches and backend "
+                f"included: {t_short} and {t_full})")
+        print(f"[{tag}] {title}: host syncs over the {what}: {s_short} at "
+              f"{SYNC_SCANS} scans, {s_full} at {n_full} (sync debug mode "
+              f"\"warn\"); the {n_full}-scan run again in this process "
+              f"{n_full / dt:.1f} scans/s ({dt:.3f} s)", flush=True)
+
     def report(tag, label, numbers, wall_per_scan, steady_wall):
         """Prints a steady window's ops, device time, busy share and syncs
         beside the unprofiled wall time a scan, over the whole run and over
@@ -1417,7 +1520,10 @@ def main() -> int:
         """Prints a captured driver's graphs and pool beside its scans/s
         against the eager loop's."""
         print(f"[{tag}] {title} captured: {len(step.graphs)} graphs "
-              f"in one pool of {step.graphs.pool_bytes()} bytes; "
+              f"in pools of {step.graphs.pool_bytes()} bytes (the graphs' "
+              f"and their conditional bodies'), captured in "
+              f"{step.graphs.capture_seconds:.3f} s of host time (warm-up, "
+              f"capture, instantiation); "
               f"torch.cuda.memory_reserved {reserved} -> "
               f"{torch.cuda.memory_reserved()} bytes; path == the eager "
               f"loop's (np.array_equal), launches by shape equal; scans/s "
@@ -1441,10 +1547,18 @@ def main() -> int:
                1 / rates["eager"])
         reserved = torch.cuda.memory_reserved()
         step = steady("6c", f"{title} captured", lambda: (  # noqa: B023
-            ByScan(graph_step(), lambda t: (mranges[t],)), mk_state()),
-            1 / rates["graph"])
+            ByScan(graph_step(), lambda t: (mranges[t],), advance=True),
+            mk_state()), 1 / rates["graph"])
         graph_report("6c", title, step, reserved, rates)
         del step
+    reset_counts()
+    for title, run in (
+            ("fidelity museum-1000",
+             lambda n: scan_matcher.run_scan(ranges[:n], cfg, device=dev)),
+            ("PF-1024 museum-1000",
+             lambda n: fastslam.run_pf(ranges[:n], pcfg, seed=0,
+                                       device=dev))):
+        whole_run_syncs("6c", title, run, len(ranges))
     reset_counts()
     phase_done("6c, profile")
 
@@ -2042,17 +2156,22 @@ def main() -> int:
     # STEADY_SCANS under the profiler; the graph runs count their scans
     # from inside the chunk loop (WindowedFrontend)
     n_steady = PROFILE_SCANS + STEADY_SCANS
-    for title, cls in (("graph loop-700", graph_slam.GraphSlam),
-                       ("submap-graph loop-700", SubmapGraphSlam)):
+    for title, make in (
+            ("graph loop-700", lambda eager: graph_slam.GraphSlam(
+                cfg, device=dev, eager=eager)),
+            ("PF-1024-graph loop-700",
+             lambda eager: pf_graph_slam.PFGraphSlam(
+                 pcfg, seed=0, device=dev, eager=eager)),
+            ("submap-graph loop-700", lambda eager: SubmapGraphSlam(
+                cfg, device=dev, eager=eager))):
         rates = drivers14[title]
         for eager in (True, False):
             reserved = torch.cuda.memory_reserved()
             result = {}
             for profile in (False, True):
-                gs = cls(cfg, device=dev, eager=eager)
+                gs = make(eager)
                 gs.frontend = WindowedFrontend(
-                    type(gs).frontend, PROFILE_SCANS + 1, STEADY_SCANS,
-                    profile)
+                    gs.frontend, PROFILE_SCANS + 1, STEADY_SCANS, profile)
                 gs.run(lranges[:n_steady + 1])   # scans 1..n_steady
                 require(gs.frontend.result is not None,
                         f"{title}: the measured window did not close")
@@ -2095,7 +2214,7 @@ def main() -> int:
                  s, *hybrid_in(t)[:4], ecfg, cfg, sangles,
                  n_det=hybrid_in(t)[4]),
              lambda: ByScan(ekf_hybrid.HybridStepFn(ecfg, cfg, dev),
-                            hybrid_in))):
+                            hybrid_in, advance=True))):
         rates = drivers14[title]
         steady("14c", f"{title} eager",
                lambda: (eager_step, mk_state()),  # noqa: B023
@@ -2106,6 +2225,29 @@ def main() -> int:
                       1 / rates["graph"])
         graph_report("14c", title, step, reserved, rates)
         del step
+    reset_counts()
+
+    def graph_steps(make, **kw):
+        """``run(n, sync_count)`` of a graph run over the first n loop
+        scans (``GraphSlam.run``'s ``kw``) whose frontend counts its
+        steps' syncs."""
+        def run(n, sc):
+            gs = make()
+            gs.frontend = StepSyncs(gs.frontend, sc)
+            gs.run(lranges[:n], **kw)
+            return gs.frontend.syncs
+        return run
+
+    for title, run, n_full, steps_of in (
+            ("graph loop-700", graph_steps(
+                lambda: graph_slam.GraphSlam(cfg, device=dev)),
+             len(lranges), int),
+            ("PF-1024-graph loop-700", graph_steps(
+                lambda: pf_graph_slam.PFGraphSlam(pcfg, seed=0, device=dev),
+                chunk_size=128), len(lranges), int),
+            (f_hybrid, lambda n: run_hybrid(ranges[:n], dev), FILTER_SCANS,
+             None)):
+        whole_run_syncs("14c", title, run, n_full, steps_of)
     reset_counts()
     phase_done("14c, profile")
 

@@ -130,7 +130,7 @@ def _run_pf(args, ranges, cfg, device):
         for t in range(start, len(scans)):
             state, pose = step(state, scans[t])
             poses.append(pose)
-        return np.stack(poses), graphs.clone_tree(state), start
+        return np.stack(poses), graphs.clone_tree(step.finish(state)), start
     path, state = fastslam.run_pf(ranges, cfg, seed=args.seed, device=device)
     return path.cpu().numpy(), state, 0
 

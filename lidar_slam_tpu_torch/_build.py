@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``) and the
+conditional-node capture that ``utils/graphs.cond`` calls.
 
 Each source compiles with its own ``nvcc``, all started together, and the
 objects link into one shared library with a plain C interface, loaded with
@@ -42,6 +43,9 @@ _SIGNATURES = {
     # beams per block, tile codes, scores f32 (B,T,W,W), stream
     "slam_corr_volume": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
                          _I, _I, _P, _P),
+    # graph_cond.cu: capture stream, child stream, pred bool*; child stream
+    "slam_if_begin": (_P, _P, _P),
+    "slam_if_end": (_P,),
 }
 
 

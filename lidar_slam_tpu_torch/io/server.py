@@ -228,4 +228,4 @@ def run_streaming_slam(url: str, n_scans: int, cfg,
         poses.append(pose)
         if latencies is not None:
             latencies.append((arrived, taken, time.perf_counter()))
-    return np.stack(poses), graphs.clone_tree(state)
+    return np.stack(poses), graphs.clone_tree(step.finish(state))

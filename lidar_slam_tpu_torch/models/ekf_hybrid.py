@@ -17,12 +17,14 @@ EDT rebuilt (kernel K1 at (1, 400, 400)). Detections and scan odometry
 come from batched pre-passes over the whole log (``ops/landmarks``;
 ``ops/scan_odometry.pairwise_odometry``, K1 at (50, 448, 448)).
 
-JAX's ``lax.cond`` on the keyframe test becomes one host branch a scan
-(the step's one device->host sync); ``step`` and ``mini_updated`` are host
-values. ``hybrid_step`` is ``hybrid_head`` (up to the test), that sync, and
-``hybrid_refresh`` when the test passed; ``HybridStepFn`` (JAX's jitted
-``_run_hybrid_jit``, driven by ``run_ekf_hybrid``) replays those arms as
-CUDA graphs over static buffers (``utils/graphs``).
+In the eager ``hybrid_step`` JAX's ``lax.cond`` on the keyframe test
+becomes one host branch a scan (the step's one device->host sync); ``step``
+and ``mini_updated`` are host values. ``hybrid_step`` is ``hybrid_head``
+(up to the test), that sync, and ``hybrid_refresh`` when the test passed.
+``HybridStepFn`` (JAX's jitted ``_run_hybrid_jit``, driven by
+``run_ekf_hybrid``) captures both as one CUDA graph a detection count over
+static buffers (``utils/graphs``), the refresh in a conditional node on the
+device test, so the run reads nothing on the host after scan 1.
 """
 
 from __future__ import annotations
@@ -192,14 +194,16 @@ class HybridStepFn:
     """``step(state, ranges, obs, valid, odo, n_det, draws=None) -> (state,
     pose)``: ``hybrid_step`` as captured CUDA graphs (``utils/graphs``),
     JAX's jitted step with its state donated (``scan_matcher.StepFn`` has
-    the conventions): a head graph for each detection count ``n_det`` and
-    one refresh graph, in one memory pool. A step draws with ``draw`` from
-    the filter's generator (or copies ``draws``) into static buffers,
-    replays the head, reads the estimate and the test in one 16-byte
-    device->host copy (the step's one host sync) and replays the refresh if
-    the test passed. Scan 1 (``state.step == 1``, the seed arm) runs
-    eagerly. The pose comes back on the host; ``self.pose`` is the same
-    pose on the device, valid until the next call."""
+    the conventions): one graph for each detection count ``n_det`` (a host
+    int of the pre-pass), the head and an IF node on the device test
+    holding the refresh, in one memory pool. A step draws with ``draw``
+    from the filter's generator (or uploads ``draws``) into static buffers
+    and replays the graph of its count; ``advance(...)`` reads nothing on
+    the host (the state's ``mini_updated`` is the device test, read back by
+    ``finish`` with the arms' launch counts), ``step(...)`` also reads the
+    estimate and the test in one 16-byte device->host copy. Scan 1
+    (``state.step == 1``, the seed arm) runs eagerly. ``self.pose`` is the
+    step's estimate on the device, valid until the next call."""
 
     def __init__(self, ekf_cfg: EkfSlamConfig, cfg: SlamConfig,
                  device: str | torch.device = "cuda"):
@@ -215,31 +219,55 @@ class HybridStepFn:
                  obs: torch.Tensor, valid: torch.Tensor, odo: torch.Tensor,
                  n_det=None, draws=None) -> tuple[HybridState, np.ndarray]:
         if state.step == 1:
-            state, pose = hybrid_step(state, ranges, obs, valid, odo,
-                                      self.ekf_cfg, self.cfg, self.angles,
-                                      draws, n_det)
-            self.pose = pose
-            return state, pose.cpu().numpy()
+            state = self.advance(state, ranges, obs, valid, odo, n_det, draws)
+            return state, self.pose.cpu().numpy()
+        self._replay(state, ranges, obs, valid, odo, n_det, draws)
+        host = self.bufs.out.to("cpu", copy=True)   # a copy on the CPU too
+        self.state = self.state._replace(mini_updated=bool(host[3]))
+        return self.state, host[:3].numpy()
+
+    def advance(self, state: HybridState, ranges: torch.Tensor,
+                obs: torch.Tensor, valid: torch.Tensor, odo: torch.Tensor,
+                n_det=None, draws=None) -> HybridState:
+        """One step with no host read after scan 1 (it runs under the sync
+        debug mode "error" on the card): the returned state's
+        ``mini_updated`` is the step's device test."""
+        if state.step == 1:
+            state, self.pose = hybrid_step(state, ranges, obs, valid, odo,
+                                           self.ekf_cfg, self.cfg,
+                                           self.angles, draws, n_det)
+            return state
+        with graphs.no_host_sync(self.device):
+            self._replay(state, ranges, obs, valid, odo, n_det, draws)
+        return self.state
+
+    def finish(self, state: HybridState) -> HybridState:
+        """``state`` with its ``mini_updated`` read back to a host bool,
+        and the step's conditional launches counted: the run's one host
+        read (``graphs.finish``)."""
+        return graphs.finish(self, state)
+
+    def _replay(self, state: HybridState, ranges, obs, valid, odo, n_det,
+                draws) -> None:
         if state is not self.state:
             self._load(state, obs)
         b = self.bufs
         for buf, x in ((b.ranges, ranges), (b.obs, obs), (b.valid, valid),
                        (b.odo, odo)):
             buf.copy_(x, non_blocking=True)
-        noise, u0 = draw(state.ekf, self.ekf_cfg.n_particles) \
-            if draws is None else draws
-        b.noise.copy_(torch.as_tensor(noise))
-        b.u0.copy_(torch.as_tensor(u0))
-        self.graphs.run(("head", n_det), self._head_body(n_det), b)
-        host = b.out.to("cpu", copy=True)   # a copy on the CPU too
-        moved = bool(host[3])
-        if moved:
-            self.graphs.run("refresh", self._refresh_body, b)
+        if draws is None:
+            noise, u0 = draw(state.ekf, self.ekf_cfg.n_particles)
+            b.noise.copy_(noise)
+            b.u0.copy_(u0)
+        else:
+            graphs.upload(b.noise, np.asarray(draws[0], np.float32))
+            graphs.upload(b.u0, np.asarray(draws[1], np.float32))
+        self.graphs.run(n_det, self._body(n_det), b)
         st = b.head.state
         self.state = st._replace(ekf=st.ekf._replace(rng=state.ekf.rng),
-                                 step=state.step + 1, mini_updated=moved)
+                                 step=state.step + 1,
+                                 mini_updated=b.head.test)
         self.pose = b.head.est_pose
-        return self.state, host[:3].numpy()
 
     def _load(self, state: HybridState, obs: torch.Tensor) -> None:
         if self.bufs is None:
@@ -263,18 +291,16 @@ class HybridStepFn:
         else:
             graphs.copy_into(self.bufs.head.state, state)
 
-    def _head_body(self, n_det):
+    def _body(self, n_det):
         def body(b: _Static) -> None:
             head = hybrid_head(b.head.state, b.ranges, b.obs, b.valid, b.odo,
                                self.ekf_cfg, self.cfg, self.angles,
                                draws=(b.noise, b.u0), n_det=n_det)
             graphs.copy_into(b.head, head)
+            graphs.cond(b.head.test, lambda: graphs.copy_into(
+                b.head.state, hybrid_refresh(b.head, False, self.cfg)))
             b.out.copy_(pose_and_test(b.head.est_pose, b.head.test))
         return body
-
-    def _refresh_body(self, b: _Static) -> None:
-        graphs.copy_into(b.head.state, hybrid_refresh(b.head, False,
-                                                      self.cfg))
 
 
 def run_ekf_hybrid(ranges_all: np.ndarray, ekf_cfg: EkfSlamConfig,
@@ -285,7 +311,8 @@ def run_ekf_hybrid(ranges_all: np.ndarray, ekf_cfg: EkfSlamConfig,
     """Whole-log hybrid run through ``HybridStepFn``: raw (T, N) ranges ->
     (path (T, 3) on ``device``, final state). Corner detections and scan
     odometry come from batched pre-passes; the detection counts reach the
-    host in one copy. ``draws``: per-step (noise, u0) for steps 1..T-1."""
+    host in one copy, and then nothing until the final state's one read.
+    ``draws``: per-step (noise, u0) for steps 1..T-1."""
     from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
     from lidar_slam_tpu_torch.ops import landmarks as lm_ops
     from lidar_slam_tpu_torch.ops.scan_odometry import pairwise_odometry
@@ -304,8 +331,8 @@ def run_ekf_hybrid(ranges_all: np.ndarray, ekf_cfg: EkfSlamConfig,
     step = HybridStepFn(ekf_cfg, cfg, dev)
     path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32, device=dev)
     for t in range(1, ranges.shape[0]):
-        state, _ = step(state, ranges[t], det.rb[t], det.valid[t],
-                        odo_all[t - 1], int(counts[t]),
-                        None if draws is None else draws[t - 1])
+        state = step.advance(state, ranges[t], det.rb[t], det.valid[t],
+                             odo_all[t - 1], int(counts[t]),
+                             None if draws is None else draws[t - 1])
         path[t] = step.pose
-    return path, graphs.clone_tree(state)
+    return path, graphs.clone_tree(step.finish(state))

@@ -8,11 +8,13 @@ the interpolated volume (autograd through the lookup), weights every
 particle by trilinear lookups, resamples systematically under an ESS gate
 without a host branch, refines the weighted-mean estimate with three argmin
 passes over 27 candidates, and on keyframe steps appends novel points and
-rebuilds the fine raster and its EDT (kernel K1 on CUDA). The keyframe test
-is the step's one device->host sync: ``pf_step`` is ``pf_head`` up to it and
-``pf_refresh`` after it, and ``make_pf_step`` (JAX's jitted step, driven by
-``run_pf``) replays the two as CUDA graphs over static buffers
-(``utils/graphs``).
+rebuilds the fine raster and its EDT (kernel K1 on CUDA). In the eager
+``pf_step`` the keyframe test is the step's one device->host sync:
+``pf_step`` is ``pf_head`` up to it and ``pf_refresh`` after it.
+``make_pf_step`` (JAX's jitted step) captures both as one CUDA graph over
+static buffers (``utils/graphs``), the refresh in a conditional node on the
+device test (JAX's ``lax.cond``), so ``run_pf`` runs every scan after the
+first with no host sync.
 
 Reductions over the particles (the mean, softmax, CDF and weighted sums)
 and the volume's cos/sin are evaluated in float64 and rounded to f32: their
@@ -291,21 +293,23 @@ class _PfStatic(NamedTuple):
 
 class PfStepFn:
     """``step(state, ranges, draws=None) -> (state, pose)``: ``pf_step`` as
-    captured CUDA graphs (``utils/graphs``), JAX's jitted step with its
-    state donated: the head is one graph and the refresh another (captured
-    at first use). A step draws its noise and offset with ``draw`` from the
-    state's generator (or copies ``draws``) into static buffers, replays the
-    head, reads the estimate and the test in one 16-byte device->host copy
-    (the step's one host sync) and replays the refresh if the test passed.
-    The draws are the eager step's stream: the same generator calls in the
-    same order. Scan 1 (``state.step == 1``) runs eagerly.
+    one captured CUDA graph (``utils/graphs``), JAX's jitted step with its
+    state donated: the head, then an IF node on the device test holding
+    ``pf_refresh``. A step draws its noise and offset with ``draw`` from
+    the state's generator (or uploads ``draws``) into static buffers, the
+    eager step's stream: the same generator calls in the same order.
+    ``advance(state, ranges, draws=None)`` replays the graph and reads
+    nothing on the host (the state's ``mini_updated`` is the device test;
+    ``finish`` reads it back with the arm's launch count); ``step(...)``
+    also reads the estimate and the test in one 16-byte device->host copy.
+    Scan 1 (``state.step == 1``) runs eagerly.
 
     The returned state's tensors are the step's static buffers, valid until
     the next call, which takes the state back; a state the step did not
     return is copied in first (``scan_matcher.StepFn`` has the details).
-    The pose comes back on the host; ``self.pose`` is the same pose on the
-    device and ``self.scan`` the step's gated scan (None after the eager
-    scan 1), valid until the next call."""
+    ``self.pose`` is the step's estimate on the device and ``self.scan``
+    its gated scan (None after the eager scan 1), valid until the next
+    call."""
 
     def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -320,27 +324,55 @@ class PfStepFn:
     def __call__(self, state: ParticleState, ranges: torch.Tensor,
                  draws=None) -> tuple[ParticleState, np.ndarray]:
         if state.step == 1:
-            ranges = ranges.to(self.device, non_blocking=True)
-            state, pose = pf_step(state, ranges, self.cfg, self.angles, draws)
-            self.pose, self.scan = pose, None
-            return state, pose.cpu().numpy()
+            state = self._first(state, ranges, draws)
+            return state, self.pose.cpu().numpy()
+        self._replay(state, ranges, draws)
+        host = self.bufs.out.to("cpu", copy=True)   # a copy on the CPU too
+        self.state = self.state._replace(mini_updated=bool(host[3]))
+        return self.state, host[:3].numpy()
+
+    def advance(self, state: ParticleState, ranges: torch.Tensor,
+                draws=None) -> ParticleState:
+        """One step with no host read after scan 1 (it runs under the sync
+        debug mode "error" on the card): the returned state's
+        ``mini_updated`` is the step's device test."""
+        if state.step == 1:
+            return self._first(state, ranges, draws)
+        with graphs.no_host_sync(self.device):
+            self._replay(state, ranges, draws)
+        return self.state
+
+    def finish(self, state: ParticleState) -> ParticleState:
+        """``state`` with its ``mini_updated`` read back to a host bool,
+        and the step's conditional launches counted: the run's one host
+        read (``graphs.finish``)."""
+        return graphs.finish(self, state)
+
+    def _first(self, state: ParticleState, ranges: torch.Tensor, draws):
+        ranges = ranges.to(self.device, non_blocking=True)
+        state, self.pose = pf_step(state, ranges, self.cfg, self.angles,
+                                   draws)
+        self.scan = None
+        return state
+
+    def _replay(self, state: ParticleState, ranges: torch.Tensor,
+                draws) -> None:
         if state is not self.state:
             self._load(state)
         b = self.bufs
         b.ranges.copy_(ranges, non_blocking=True)
-        noise, u0 = draw(state) if draws is None else draws
-        b.noise.copy_(torch.as_tensor(noise))
-        b.u0.copy_(torch.as_tensor(u0))
-        self.graphs.run("head", self._head_body, b)
-        host = b.out.to("cpu", copy=True)   # a copy on the CPU too
-        moved = bool(host[3])
-        if moved:
-            self.graphs.run("refresh", self._refresh_body, b)
+        if draws is None:
+            noise, u0 = draw(state)
+            b.noise.copy_(noise)
+            b.u0.copy_(u0)
+        else:
+            graphs.upload(b.noise, np.asarray(draws[0], np.float32))
+            graphs.upload(b.u0, np.asarray(draws[1], np.float32))
+        self.graphs.run("step", self._body, b)
         self.state = b.head.state._replace(step=state.step + 1,
-                                           mini_updated=moved,
+                                           mini_updated=b.head.test,
                                            rng=state.rng)
         self.pose, self.scan = b.head.est_pose, b.head.scan
-        return self.state, host[:3].numpy()
 
     def _load(self, state: ParticleState) -> None:
         if self.bufs is None:
@@ -360,14 +392,13 @@ class PfStepFn:
         else:
             graphs.copy_into(self.bufs.head.state, state)
 
-    def _head_body(self, b: _PfStatic) -> None:
+    def _body(self, b: _PfStatic) -> None:
         head = pf_head(b.head.state, b.ranges, self.cfg, self.angles,
                        draws=(b.noise, b.u0))
         graphs.copy_into(b.head, head)
+        graphs.cond(b.head.test, lambda: graphs.copy_into(
+            b.head.state, pf_refresh(b.head, False, self.cfg)))
         b.out.copy_(pose_and_test(b.head.est_pose, b.head.test))
-
-    def _refresh_body(self, b: _PfStatic) -> None:
-        graphs.copy_into(b.head.state, pf_refresh(b.head, False, self.cfg))
 
 
 def make_pf_step(cfg: SlamConfig, device: str | torch.device = "cuda"
@@ -379,9 +410,10 @@ def make_pf_step(cfg: SlamConfig, device: str | torch.device = "cuda"
 def run_pf(ranges_all: np.ndarray, cfg: SlamConfig, seed: int = 0,
            device: str | torch.device = "cuda", draws=None
            ) -> tuple[torch.Tensor, ParticleState]:
-    """Whole-dataset particle-filter run through ``make_pf_step``.
-    ``draws``, if given, is a sequence of per-step ``(noise, u0)`` pairs for
-    steps 1..T-1. Returns (path (T, 3) on ``device``, final state)."""
+    """Whole-dataset particle-filter run through ``make_pf_step``, scans
+    2.. with no host sync and one read at the end. ``draws``, if given, is
+    a sequence of per-step ``(noise, u0)`` pairs for steps 1..T-1. Returns
+    (path (T, 3) on ``device``, final state)."""
     ranges = torch.as_tensor(np.asarray(ranges_all, np.float32),
                              device=resolve_device(device))
     step = make_pf_step(cfg, ranges.device)
@@ -389,7 +421,7 @@ def run_pf(ranges_all: np.ndarray, cfg: SlamConfig, seed: int = 0,
     path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32,
                        device=ranges.device)
     for t in range(1, ranges.shape[0]):
-        state, _ = step(state, ranges[t],
-                        None if draws is None else draws[t - 1])
+        state = step.advance(state, ranges[t],
+                             None if draws is None else draws[t - 1])
         path[t] = step.pose
-    return path, graphs.clone_tree(state)
+    return path, graphs.clone_tree(step.finish(state))

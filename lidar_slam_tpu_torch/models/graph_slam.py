@@ -9,15 +9,19 @@ candidates); accepted closures are refined on a fine raster, trigger a
 damped Gauss-Newton solve, and the frontend is rebuilt from the optimized
 keyframe poses.
 
-The run goes chunk by chunk. Inside a chunk the frontend is the per-scan
-loop of ``scan_matcher``'s captured step (or the particle filter's, or the
-submap frontend's: ``make_step_fn``, CUDA graphs over static buffers, the
-counterpart of JAX's jitted ``run_chunk``), whose keyframe flag is already a
-host bool. Each scan's pose and frontend quality and each keyframe's gated
-scan (from the step's own buffers) are copied on the device into the
-chunk's buffers, which come to the host in one copy a chunk. The keyframe
-scans and their 256^2 EDT rasters (kernel K1, batched) stay on the device,
-so closure matching moves no field across the bus. The backend's batched
+The run goes chunk by chunk (JAX's jitted ``run_chunk`` and
+``gather_rows``). Inside a chunk the frontend is the per-scan loop of
+``scan_matcher``'s captured step (or the particle filter's, or the submap
+frontend's: ``make_step_fn``, CUDA graphs over static buffers). Each scan's
+pose, keyframe flag and frontend quality and its gated scan (from the
+step's own buffers) are copied on the device into the chunk's buffers; the
+fidelity and PF steps read nothing on the host (their keyframe flag is a
+device bool), the submap step keeps its one sync a scan (its spawn
+decisions are host ints). Once a chunk the poses, flags and qualities come
+to the host in one copy, and the keyframe rows' scans are gathered on the
+device and come in one more. The keyframe scans and their 256^2 EDT
+rasters (kernel K1, batched) stay on the device, so closure matching moves
+no field across the bus. The backend's batched
 helpers (keyframe rasters, closure matching, fine refinement) and the
 pose-graph optimize run as CUDA graphs too (``_Backend``, the counterpart
 of JAX's jitted helpers). ``eager=True`` runs the frontend's ``slam_step``
@@ -399,19 +403,20 @@ def _rebuilt_map_points(kf_x, kf_y, kf_valid, poses, cap: int):
 
 class _EagerStep:
     """A frontend's eager ``slam_step`` with a step object's surface:
-    ``step(state, ranges) -> (state, pose)``, ``pose`` on the device, and
-    no ``scan`` (the loop gates the keyframe scans itself)."""
+    ``advance(state, ranges) -> state``, ``pose`` on the device, no
+    ``scan`` (the loop gates the scans itself) and no ``graphs``."""
 
     scan = None
+    graphs = None
 
     def __init__(self, frontend, cfg: SlamConfig, angles: torch.Tensor):
         self.frontend, self.cfg, self.angles = frontend, cfg, angles
         self.pose: torch.Tensor | None = None
 
-    def __call__(self, state, ranges: torch.Tensor):
+    def advance(self, state, ranges: torch.Tensor):
         state, self.pose = self.frontend.slam_step(state, ranges, self.cfg,
                                                    self.angles)
-        return state, self.pose
+        return state
 
 
 class GraphSlam:
@@ -773,41 +778,56 @@ class GraphSlam:
         path = [np.zeros(3, np.float32)]
         step = (_EagerStep(self.frontend, cfg, self.angles) if self.eager
                 else self.frontend.make_step_fn(cfg, dev))
-        # the chunk's rows: pose and frontend quality (the PF's share of
-        # particles escaping the scoring window; 0 for the others), and the
-        # keyframes' gated scans (x, y, valid)
-        rows = torch.zeros((chunk_size, 4), dtype=torch.float32, device=dev)
-        kf_buf = torch.zeros((chunk_size, 3, self.angles.shape[0]),
-                             dtype=torch.float32, device=dev)
+        runners = [] if step.graphs is None else [step.graphs]
+        # the chunk's rows: pose, keyframe flag and frontend quality (the
+        # PF's share of particles escaping the scoring window; 0 for the
+        # others), and every scan's gated scan (x, y, valid)
+        rows = torch.zeros((chunk_size, 5), dtype=torch.float32, device=dev)
+        scans = torch.zeros((chunk_size, 3, self.angles.shape[0]),
+                            dtype=torch.float32, device=dev)
 
         t = 1
         n_scans = ranges.shape[0]
+        last_flag = True
         while t < n_scans:
             n_real = min(chunk_size, n_scans - t)
-            kf_rows = []
             with self.timer.stage("frontend_chunk"):
                 for i in range(n_real):
                     r = ranges[t + i]
-                    state, _ = step(state, r)
+                    state = step.advance(state, r)
                     rows[i, :3] = step.pose
+                    flag = state.mini_updated
+                    if isinstance(flag, torch.Tensor):
+                        # the device bool of a step that read nothing on
+                        # the host
+                        rows[i, 3] = flag
+                    else:
+                        # a host bool: fill_, as an assignment would copy
+                        # it from pageable memory and synchronize
+                        rows[i, 3].fill_(flag)
                     q = getattr(state, "clamp_frac", None)
                     if q is not None:
-                        rows[i, 3] = q
-                    if state.mini_updated:   # a host bool: a keyframe
-                        sc = step.scan
-                        if sc is None:
-                            sc = sensor.read_scan(r, self.angles, cfg.lidar)
-                        kf_buf[len(kf_rows)] = torch.stack(
-                            [sc.x, sc.y, sc.valid.to(torch.float32)])
-                        kf_rows.append(i)
+                        rows[i, 4] = q
+                    sc = step.scan
+                    if sc is None:
+                        sc = sensor.read_scan(r, self.angles, cfg.lidar)
+                    scans[i, 0] = sc.x
+                    scans[i, 1] = sc.y
+                    scans[i, 2] = sc.valid
             with self.timer.stage("kf_fetch"):
-                kf_dev = kf_buf[:len(kf_rows)]
-                host = torch.cat([rows[:n_real].reshape(-1),
-                                  kf_dev.reshape(-1)]).cpu().numpy()
-            packed_h = host[: 4 * n_real].reshape(n_real, 4)
-            kf_h = host[4 * n_real:].reshape(kf_dev.shape)
-            poses_c, quals_c = packed_h[:, :3], packed_h[:, 3]
-            blk = {r: kf_h[j] for j, r in enumerate(kf_rows)}
+                # one copy of the rows (and the step's arm counts), then
+                # the keyframe rows' scans gathered on the device, one more
+                (packed_h,) = graphs.fetch(rows[:n_real], runners=runners)
+                kf_rows = np.flatnonzero(packed_h[:, 3] > 0.5).tolist()
+                kf_dev, blk = scans[:0], {}
+                if kf_rows:
+                    idx = torch.as_tensor(kf_rows, dtype=torch.int64)
+                    if dev.type == "cuda":
+                        idx = idx.pin_memory().to(dev, non_blocking=True)
+                    kf_dev = scans.index_select(0, idx)
+                    blk = dict(zip(kf_rows, kf_dev.cpu().numpy()))
+            last_flag = bool(packed_h[-1, 3] > 0.5)
+            poses_c, quals_c = packed_h[:, :3], packed_h[:, 4]
             # pass 1: register this chunk's keyframes (closure candidates
             # only look backward, so batching the adds is neutral)
             new_kf = []
@@ -847,6 +867,9 @@ class GraphSlam:
             with self.timer.stage("optimize"):
                 self._optimize()
 
+        if isinstance(state.mini_updated, torch.Tensor):
+            # the step's device flag: the last scan's, read with its chunk
+            state = state._replace(mini_updated=last_flag)
         self.final_state = graphs.clone_tree(state)
         self._last_path = np.stack(path)
         return self._last_path, np.stack(list(self.kf_poses))

@@ -65,15 +65,15 @@ class _PFFrontend:
 
 
 class _PFStep:
-    """``fastslam.PfStepFn`` fed the frontend's draws: ``step(state,
-    ranges) -> (state, pose)``, with its ``pose``, ``scan`` and
-    ``graphs``."""
+    """``fastslam.PfStepFn`` fed the frontend's draws: ``advance(state,
+    ranges) -> state`` (no host read after scan 1), with its ``pose``,
+    ``scan`` and ``graphs``."""
 
     def __init__(self, frontend: _PFFrontend, step: fastslam.PfStepFn):
         self.frontend, self.step = frontend, step
 
-    def __call__(self, state, ranges: torch.Tensor):
-        return self.step(state, ranges, self.frontend.next_draws())
+    def advance(self, state, ranges: torch.Tensor):
+        return self.step.advance(state, ranges, self.frontend.next_draws())
 
     @property
     def pose(self) -> torch.Tensor:

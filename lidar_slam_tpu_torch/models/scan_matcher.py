@@ -5,13 +5,17 @@ Per scan: gate/convert, keyframe-gated local-map raster + EDT (kernel K1 on
 CUDA), constant-velocity prediction, two-stage correlative match (coarse or
 fine grid, then fine), and the mini-update rule appending novel points.
 
-JAX's ``lax.cond`` branches become host branches: ``mini_updated`` is a host
-bool carried in the state, and ``moved`` costs one device->host sync per
-scan. ``step`` is a host int. Everything else stays on the state's device.
-``slam_step`` is ``slam_head`` (up to the keyframe test), the sync, and
-``slam_moved`` when the test passed; ``make_step_fn`` (JAX's jitted step,
-driven by ``run_scan`` and ``run_host_loop``) replays those arms as CUDA
-graphs over static buffers (``utils/graphs``).
+JAX's ``lax.cond`` branches become host branches in the eager step:
+``mini_updated`` is a host bool carried in the state, and ``moved`` costs
+one device->host sync per scan. ``step`` is a host int. Everything else
+stays on the state's device. ``slam_step`` is ``slam_head`` (up to the
+keyframe test), the sync, and ``slam_moved`` when the test passed.
+``make_step_fn`` (JAX's jitted step) captures the whole step as one CUDA
+graph over static buffers (``utils/graphs``) whose branches are
+conditional nodes on device bools, as ``lax.cond`` is in JAX: ``run_scan``
+(JAX's ``lax.scan`` driver) runs every scan after the first with no host
+sync and reads the device once at the end; ``run_host_loop`` and the
+streaming server read each pose and test in one 16-byte copy a scan.
 
 Reference quirks kept (required for trajectory parity):
 - the scan's world-frame transform is cached across steps and is stale at
@@ -87,46 +91,48 @@ class StepHead(NamedTuple):
     test: torch.Tensor        # () bool, the mini-update rule's test
 
 
-def slam_head(state: SlamState, ranges: torch.Tensor, cfg: SlamConfig,
-              angles: torch.Tensor) -> StepHead:
-    """A step up to its keyframe test: the keyframe arm if ``state.
-    mini_updated``, the two-stage match and the test. No host sync."""
-    g, m, mc = cfg.grid, cfg.map, cfg.matcher
-    scan = sensor.read_scan(ranges, angles, cfg.lidar)
+def _keyframe_maps(state: SlamState, scan: sensor.Scan, cfg: SlamConfig):
+    """The keyframe arm (main.c:865-872): the local map around the scan at
+    the pre-match pose, rastered at both resolutions, and their fields (K1
+    on CUDA). Returns the state's six map leaves, refreshed."""
+    g = cfg.grid
+    scan_wx, scan_wy = se2.transform_ref(scan.x, scan.y, state.pose)
+    local = gridmap.extract_local_map(state.pmap, scan_wx, scan_wy,
+                                      scan.valid, g.border_size)
+    coarse, fine = gridmap.rasterize_dual(local, g)
+    coarse_metric = edt_ops.edt(coarse.occ, int(g.max_dist_px))
+    fine_metric = edt_ops.edt(fine.occ, int(g.max_dist_px))
+    return coarse, fine, coarse_metric, fine_metric, scan_wx, scan_wy
 
-    # --- keyframe-gated map refresh (main.c:865-872)
-    if state.mini_updated:
-        scan_wx, scan_wy = se2.transform_ref(scan.x, scan.y, state.pose)
-        local = gridmap.extract_local_map(state.pmap, scan_wx, scan_wy,
-                                          scan.valid, g.border_size)
-        coarse, fine = gridmap.rasterize_dual(local, g)
-        coarse_metric = edt_ops.edt(coarse.occ, int(g.max_dist_px))
-        fine_metric = edt_ops.edt(fine.occ, int(g.max_dist_px))
-    else:
-        coarse, fine = state.coarse, state.fine
-        coarse_metric, fine_metric = state.coarse_metric, state.fine_metric
-        scan_wx, scan_wy = state.scan_wx, state.scan_wy
 
-    # --- constant-velocity prediction (main.c:875-898)
-    guess = (state.pose + (state.pose - state.prev_pose) if state.step > 1
-             else state.pose)
+def _maps(state: SlamState):
+    """The state's six map leaves, as ``_keyframe_maps`` returns them."""
+    return (state.coarse, state.fine, state.coarse_metric,
+            state.fine_metric, state.scan_wx, state.scan_wy)
 
-    # --- two-stage correlative matching (main.c:901-918)
-    wt, wr = int(mc.window_t), int(mc.window_r)
-    pen = float(mc.window_penalty_px)
-    if state.mini_updated:
-        m1 = matching.fast_match(coarse_metric, coarse, scan.x, scan.y,
-                                 scan.valid, guess, mc.coarse_t, mc.coarse_r,
-                                 wt, wr, pen)
-    else:
-        m1 = matching.fast_match(fine_metric, fine, scan.x, scan.y,
-                                 scan.valid, guess, mc.coarse_t, mc.coarse_r,
-                                 wt, wr, pen)
+
+def _first_match(metric: torch.Tensor, grid: OccGrid, scan: sensor.Scan,
+                 guess: torch.Tensor, cfg: SlamConfig) -> matching.MatchResult:
+    """The first matcher stage (main.c:901-910), on the coarse grid on a
+    keyframe step and on the fine grid otherwise."""
+    mc = cfg.matcher
+    return matching.fast_match(metric, grid, scan.x, scan.y, scan.valid,
+                               guess, mc.coarse_t, mc.coarse_r,
+                               int(mc.window_t), int(mc.window_r),
+                               float(mc.window_penalty_px))
+
+
+def _head_end(state: SlamState, scan: sensor.Scan, maps,
+              m1_pose: torch.Tensor, cfg: SlamConfig) -> StepHead:
+    """The second matcher stage on the fine grid from the first stage's
+    pose (main.c:911-918) and the mini-update rule's test (main.c:928-931).
+    """
+    m, mc = cfg.map, cfg.matcher
+    coarse, fine, coarse_metric, fine_metric, scan_wx, scan_wy = maps
     m2 = matching.fast_match(fine_metric, fine, scan.x, scan.y, scan.valid,
-                             m1.pose, mc.fine_t, mc.fine_r, wt, wr, pen)
+                             m1_pose, mc.fine_t, mc.fine_r, int(mc.window_t),
+                             int(mc.window_r), float(mc.window_penalty_px))
     new_pose = m2.pose
-
-    # --- the mini-update rule's test (main.c:928-931)
     dp = torch.abs(new_pose - state.pmap.keyframe_pose)
     test = ((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
             | (dp[2] > m.mini_update_dr))
@@ -137,6 +143,23 @@ def slam_head(state: SlamState, ranges: torch.Tensor, cfg: SlamConfig,
         scan_wx=scan_wx, scan_wy=scan_wy)
     return StepHead(state=kept, scan=scan, best_count=m2.best_count,
                     last_hits=m2.last_hits, test=test)
+
+
+def slam_head(state: SlamState, ranges: torch.Tensor, cfg: SlamConfig,
+              angles: torch.Tensor) -> StepHead:
+    """A step up to its keyframe test: the keyframe arm if ``state.
+    mini_updated``, the two-stage match and the test. No host sync."""
+    scan = sensor.read_scan(ranges, angles, cfg.lidar)
+    maps = (_keyframe_maps(state, scan, cfg) if state.mini_updated
+            else _maps(state))
+    # constant-velocity prediction (main.c:875-898)
+    guess = (state.pose + (state.pose - state.prev_pose) if state.step > 1
+             else state.pose)
+    coarse, fine, coarse_metric, fine_metric = maps[:4]
+    m1 = (_first_match(coarse_metric, coarse, scan, guess, cfg)
+          if state.mini_updated
+          else _first_match(fine_metric, fine, scan, guess, cfg))
+    return _head_end(state, scan, maps, m1.pose, cfg)
 
 
 def slam_moved(head: StepHead, refreshed: bool, cfg: SlamConfig
@@ -191,28 +214,38 @@ def _as_ranges(ranges_all, device) -> torch.Tensor:
 class _Static(NamedTuple):
     """The captured step's static buffers."""
     ranges: torch.Tensor   # (N,) the scan's ranges
+    mini: torch.Tensor     # () bool, the state's mini_updated (JAX's carry)
+    m1: torch.Tensor       # (3,) the first matcher stage's pose
     head: StepHead         # head.state is the step's state
     out: torch.Tensor      # (4,) pose_and_test
 
 
 class StepFn:
-    """``step(state, ranges) -> (state, pose)``: ``slam_step`` as captured
-    CUDA graphs (``utils/graphs``), JAX's jitted step with its state donated.
+    """``step(state, ranges) -> (state, pose)``: ``slam_step`` as one
+    captured CUDA graph (``utils/graphs``), JAX's jitted step with its
+    state donated.
 
-    The arms are graphs: the head with the keyframe arm, the head without
-    it, and ``slam_moved`` after each (captured at first use). A step
-    replays a head, reads its pose and test in one 16-byte device->host
-    copy (the step's one host sync) and replays a ``slam_moved`` if the test
-    passed. Scan 1 (``state.step == 1``, whose guess differs) runs eagerly.
+    The graph is the whole step, JAX's ``slam_step`` arm by arm: an IF node
+    on the device bool ``mini_updated`` holds the keyframe arm (extract,
+    raster, K1 on both grids); IF(``mini_updated``) and IF(``~mini_updated``)
+    hold the first match on the coarse or the fine field; the second match
+    and the test follow; IF(``test & mini_updated``) and IF(``test &
+    ~mini_updated``) hold ``slam_moved`` with and without the refresh; and
+    ``mini_updated := test`` on the device. ``advance(state, ranges)``
+    replays it and reads nothing on the host: the state it returns carries
+    the device bool as its ``mini_updated``, and ``finish`` reads it back
+    (with the arms' launch counts) in one copy. ``step(state, ranges)``
+    replays it and reads the pose and the test in one 16-byte device->host
+    copy, for a caller that needs each pose on the host. Scan 1
+    (``state.step == 1``, whose guess differs) runs eagerly.
 
     The returned state's tensors are the step's static buffers: they hold
     that state until the next call, which takes it back (JAX's
     ``donate_argnums``); ``graphs.clone_tree`` keeps a copy. A state the
-    step did not return is copied into the buffers first. The pose comes
-    back on the host (numpy); ``self.pose`` is the same pose on the state's
-    device and ``self.scan`` the step's gated scan (None after the eager
-    scan 1), valid until the next call. On the CPU the same bodies run
-    uncaptured on the same buffers."""
+    step did not return is copied into the buffers first. ``self.pose`` is
+    the step's pose on the state's device and ``self.scan`` its gated scan
+    (None after the eager scan 1), valid until the next call. On the CPU
+    the same body runs uncaptured on the same buffers."""
 
     def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -227,60 +260,95 @@ class StepFn:
     def __call__(self, state: SlamState, ranges: torch.Tensor
                  ) -> tuple[SlamState, np.ndarray]:
         if state.step == 1:
-            ranges = ranges.to(self.device, non_blocking=True)
-            state, pose = slam_step(state, ranges, self.cfg, self.angles,
-                                    pose_to_host=True)
-            self.pose, self.scan = state.pose, None
-            return state, pose
+            return self._first(state, ranges)
+        self._replay(state, ranges)
+        host = self.bufs.out.to("cpu", copy=True)   # a copy on the CPU too
+        self.state = self.state._replace(mini_updated=bool(host[3]))
+        return self.state, host[:3].numpy()
+
+    def advance(self, state: SlamState, ranges: torch.Tensor) -> SlamState:
+        """One step with no host read after scan 1 (it runs under the sync
+        debug mode "error" on the card): the returned state's
+        ``mini_updated`` is the step's device bool."""
+        if state.step == 1:
+            return self._first(state, ranges)[0]
+        with graphs.no_host_sync(self.device):
+            self._replay(state, ranges)
+        return self.state
+
+    def finish(self, state: SlamState) -> SlamState:
+        """``state`` with its ``mini_updated`` read back to a host bool,
+        and the step's conditional launches counted: the run's one host
+        read (``graphs.finish``)."""
+        return graphs.finish(self, state)
+
+    def _first(self, state: SlamState, ranges: torch.Tensor):
+        ranges = ranges.to(self.device, non_blocking=True)
+        state, pose = slam_step(state, ranges, self.cfg, self.angles,
+                                pose_to_host=True)
+        self.pose, self.scan = state.pose, None
+        return state, pose
+
+    def _replay(self, state: SlamState, ranges: torch.Tensor) -> None:
         if state is not self.state:
             self._load(state)
         b = self.bufs
         b.ranges.copy_(ranges, non_blocking=True)
-        refreshed = state.mini_updated
-        self.graphs.run(("head", refreshed), self._head_body(refreshed), b)
-        host = b.out.to("cpu", copy=True)   # a copy on the CPU too
-        moved = bool(host[3])
-        if moved:
-            self.graphs.run(("moved", refreshed),
-                            self._moved_body(refreshed), b)
+        self.graphs.run("step", self._body, b)
         self.state = b.head.state._replace(step=state.step + 1,
-                                           mini_updated=moved)
+                                           mini_updated=b.mini)
         self.pose, self.scan = b.head.state.pose, b.head.scan
-        return self.state, host[:3].numpy()
 
     def _load(self, state: SlamState) -> None:
         if self.bufs is None:
             n = self.cfg.lidar.n_beams
             f32 = dict(dtype=torch.float32, device=self.device)
+            flag = dict(dtype=torch.bool, device=self.device)
             self.bufs = _Static(
                 ranges=torch.zeros(n, **f32),
+                mini=torch.zeros((), **flag),
+                m1=torch.zeros(3, **f32),
                 head=StepHead(
                     state=graphs.clone_tree(state),
                     scan=sensor.empty_scan(n, self.device),
                     best_count=torch.zeros((), dtype=torch.int32,
                                            device=self.device),
                     last_hits=torch.zeros(n, **f32),
-                    test=torch.zeros((), dtype=torch.bool,
-                                     device=self.device)),
+                    test=torch.zeros((), **flag)),
                 out=torch.zeros(4, **f32))
         else:
             graphs.copy_into(self.bufs.head.state, state)
+        flag = state.mini_updated   # a host bool, or another step's device one
+        if isinstance(flag, torch.Tensor):
+            self.bufs.mini.copy_(flag)
+        else:
+            self.bufs.mini.fill_(flag)
 
-    # The bodies take the buffers and keep the state's host fields of the
-    # step they were captured for (step > 1 and the arm's mini_updated).
-    def _head_body(self, refreshed: bool):
-        def body(b: _Static) -> None:
-            st = b.head.state._replace(step=2, mini_updated=refreshed)
-            head = slam_head(st, b.ranges, self.cfg, self.angles)
-            graphs.copy_into(b.head, head)
-            b.out.copy_(pose_and_test(b.head.state.pose, b.head.test))
-        return body
-
-    def _moved_body(self, refreshed: bool):
-        def body(b: _Static) -> None:
-            graphs.copy_into(b.head.state,
-                             slam_moved(b.head, refreshed, self.cfg))
-        return body
+    def _body(self, b: _Static) -> None:
+        """The step on the buffers; the state's host fields are those of a
+        step after the first (its guess uses the velocity)."""
+        cfg = self.cfg
+        st = b.head.state._replace(step=2)
+        scan = sensor.read_scan(b.ranges, self.angles, cfg.lidar)
+        maps = _maps(st)
+        graphs.cond(b.mini, lambda: graphs.copy_into(
+            maps, _keyframe_maps(st, scan, cfg)))
+        guess = st.pose + (st.pose - st.prev_pose)
+        coarse, fine, coarse_metric, fine_metric = maps[:4]
+        graphs.cond(
+            b.mini,
+            lambda: b.m1.copy_(_first_match(coarse_metric, coarse, scan,
+                                            guess, cfg).pose),
+            lambda: b.m1.copy_(_first_match(fine_metric, fine, scan, guess,
+                                            cfg).pose))
+        graphs.copy_into(b.head, _head_end(st, scan, maps, b.m1, cfg))
+        for refreshed in (True, False):
+            mini = b.mini if refreshed else torch.logical_not(b.mini)
+            graphs.cond(b.head.test & mini,
+                        lambda r=refreshed: graphs.copy_into(
+                            b.head.state, slam_moved(b.head, r, cfg)))
+        b.mini.copy_(b.head.test)
+        b.out.copy_(pose_and_test(b.head.state.pose, b.head.test))
 
 
 def make_step_fn(cfg: SlamConfig, device: str | torch.device = "cuda"
@@ -293,8 +361,8 @@ def run_host_loop(ranges_all: np.ndarray, cfg: SlamConfig,
                   device: str | torch.device = "cuda"
                   ) -> tuple[np.ndarray, SlamState]:
     """Streaming driver: one scan at a time through ``make_step_fn``, each
-    pose copied to the host as it is produced. Returns (path (T, 3) numpy,
-    final state)."""
+    pose copied to the host as it is produced (JAX's ``run_host_loop``).
+    Returns (path (T, 3) numpy, final state)."""
     ranges = _as_ranges(ranges_all, device)
     step = make_step_fn(cfg, ranges.device)
     state = init_state(ranges[0], cfg)
@@ -302,14 +370,17 @@ def run_host_loop(ranges_all: np.ndarray, cfg: SlamConfig,
     for t in range(1, ranges.shape[0]):
         state, pose = step(state, ranges[t])
         poses.append(pose)
-    return np.stack(poses), graphs.clone_tree(state)
+    return np.stack(poses), graphs.clone_tree(step.finish(state))
 
 
 def run_scan(ranges_all: np.ndarray, cfg: SlamConfig,
              device: str | torch.device = "cuda"
              ) -> tuple[torch.Tensor, SlamState]:
-    """Whole-dataset driver through ``make_step_fn``: each pose is written
-    into a (T, 3) tensor on the device. Returns (that path, final state)."""
+    """Whole-dataset driver through ``make_step_fn`` (JAX's ``lax.scan``
+    over the tour): each pose is written into a (T, 3) tensor on the
+    device, scans 2.. with no host sync (``StepFn.advance``), and the final
+    state's host fields come back in one read at the end. Returns (that
+    path, final state)."""
     ranges = _as_ranges(ranges_all, device)
     step = make_step_fn(cfg, ranges.device)
     state = init_state(ranges[0], cfg)
@@ -317,6 +388,6 @@ def run_scan(ranges_all: np.ndarray, cfg: SlamConfig,
                        device=ranges.device)
     path[0] = state.pose
     for t in range(1, ranges.shape[0]):
-        state, _ = step(state, ranges[t])
+        state = step.advance(state, ranges[t])
         path[t] = step.pose
-    return path, graphs.clone_tree(state)
+    return path, graphs.clone_tree(step.finish(state))

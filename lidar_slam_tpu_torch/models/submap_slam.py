@@ -253,6 +253,13 @@ class SubmapStepFn:
         self.pose, self.scan = st.pose, b.head.scan
         return self.state, host[:3].numpy()
 
+    def advance(self, state: SubmapSlamState, ranges: torch.Tensor
+                ) -> SubmapSlamState:
+        """The step without the pose on the host (``GraphSlam``'s chunk
+        loop); it still reads its tests, the spawn decisions being host
+        ints."""
+        return self(state, ranges)[0]
+
     def _load(self, state: SubmapSlamState) -> None:
         if self.bufs is None:
             n = self.cfg.lidar.n_beams

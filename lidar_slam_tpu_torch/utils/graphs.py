@@ -1,48 +1,71 @@
 """Captured steps over static buffers: the port's counterpart of ``jax.jit``
 with ``donate_argnums`` (``scan_matcher.make_step_fn``,
-``fastslam.make_pf_step``).
+``fastslam.make_pf_step``), and of ``lax.cond`` inside them (``cond``).
 
 A step's state and inputs live in static buffers that the step object owns
-(host-made rows enter them through ``upload``). Each arm of the step is a
-*body*: a function of those buffers that reads them and ends by copying its
-results back into them (``copy_into``). On a
-CUDA device ``Graphs.run`` captures a body once in a ``torch.cuda.CUDAGraph``
-and replays it after: a replay launches the body's hundreds of ops in one
-call, with the copies back into the buffers inside the graph. Before a
-capture the body runs once on a *clone* of the buffers, on the capture's side
-stream, so the run does not advance: that warm-up fills ``device.constant``'s
-cache and loads the kernels (``_build.load_kernels``), and the warm-up and the
-capture both run under ``torch.cuda.set_sync_debug_mode("error")``, so a
-body that would read the device on the host raises. Every graph of one
-``Graphs`` shares one memory pool: the bodies keep nothing of their own
-between replays (what outlives a replay is copied into the static buffers,
-which live outside the pool), and one stream replays them one at a time.
+(host-made rows enter them through ``upload``). Each step is a *body*: a
+function of those buffers that reads them and ends by copying its results
+back into them (``copy_into``). On a CUDA device ``Graphs.run`` captures a
+body once in a ``torch.cuda.CUDAGraph`` and replays it after: a replay
+launches the body's hundreds of ops in one call, with the copies back into
+the buffers inside the graph. Before a capture the body runs once on a
+*clone* of the buffers, on the capture's side stream, so the run does not
+advance: that warm-up fills ``device.constant``'s cache and loads the
+kernels (``_build.load_kernels``), and the warm-up and the capture both run
+under ``torch.cuda.set_sync_debug_mode("error")``, so a body that would read
+the device on the host raises. Every graph of one ``Graphs`` shares one
+memory pool: the bodies keep nothing of their own between replays (what
+outlives a replay is copied into the static buffers, which live outside the
+pool), and one stream replays them one at a time. A conditional body's
+allocations go to a second pool of the same object (its stream is another
+capture than the graph's).
+
+A body branches on a device bool with ``cond(pred, true_body, false_body)``,
+JAX's ``lax.cond``: captured, each arm is a CUDA graph conditional (IF)
+node, the second on ``~pred``, so the card picks the arm and the host never
+reads ``pred``. The warm-up runs *both* arms (on the clone), so whatever an
+arm makes at its first use (a constant's host->device copy, a kernel's
+build) happens before the capture: a conditional body may hold only
+kernels, memsets, device copies and further conditional nodes. Each arm
+ends by copying its results into static buffers, since the nodes after the
+branch read fixed addresses.
 
 On the CPU nothing is captured: ``run`` calls the same body on the same
-static buffers, so the CPU tests exercise the buffer handling, aliasing
-included, as the card runs it. A capture or replay that fails on the card
-raises; nothing falls back to the eager step.
+static buffers and ``cond`` takes the arm ``bool(pred)`` picks, so the CPU
+tests exercise the buffer handling, aliasing included, as the card runs it.
+A capture or replay that fails on the card raises, and so does a missing
+conditional-node binding; nothing falls back to the eager step or to a host
+read of the branch.
 
 The kernel wrappers count launches in Python (``cuda_edt.launches``,
 ``cuda_match.launches`` and their ``launches_by_shape``), so a replay would
-count nothing. ``LaunchBook`` takes the counts a capture makes out again,
-keeps them as the graph's delta and adds the delta on each replay; the
-warm-up's launches, on the clone, are not counted.
+count nothing. ``LaunchBook`` takes the counts a capture makes out again:
+what runs on every replay is the graph's delta, added on each replay; what
+runs in a conditional arm is that arm's delta, and the arm adds one to its
+own device counter inside the graph each time it runs. ``fetch``, a run's
+one host read, brings the arm counters back with the run's results and adds
+each arm's delta times the runs since the last fetch. The warm-up's
+launches, on the clone, are not counted.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from lidar_slam_tpu_torch import _build
 from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match
 from lidar_slam_tpu_torch.utils.tree import map_with_path
 
 COUNTED = (cuda_edt, cuda_match)   # modules with launches, launches_by_shape
+# what records ``cond``'s IF nodes on the card (torch 2.11 has no binding)
+IF_NODE_ROUTE = "the port's C++ (csrc/graph_cond.cu)"
 
 
 def clone_tree(tree):
@@ -102,9 +125,10 @@ class Counts(NamedTuple):
 
 
 class LaunchBook:
-    """Launch counts of captured bodies, added again on each replay.
-    ``counters``: modules (or objects) with an int ``launches`` and a
-    ``collections.Counter`` ``launches_by_shape``."""
+    """Launch counts of captured bodies, added again on each replay (or on
+    each run of a conditional arm). ``counters``: modules (or objects) with
+    an int ``launches`` and a ``collections.Counter``
+    ``launches_by_shape``."""
 
     def __init__(self, counters=COUNTED):
         self.counters = tuple(counters)
@@ -128,16 +152,32 @@ class LaunchBook:
         return [Counts(a.launches - b.launches, a.by_shape - b.by_shape)
                 for a, b in zip(after, before)]
 
-    def add(self, delta: list[Counts]) -> None:
-        """Count the launches of one replay."""
+    def add(self, delta: list[Counts], times: int = 1) -> None:
+        """Count the launches of ``times`` replays (or arm runs)."""
+        if times <= 0:
+            return
         for c, d in zip(self.counters, delta):
-            c.launches += d.launches
-            c.launches_by_shape.update(d.by_shape)
+            c.launches += d.launches * times
+            for shape, n in d.by_shape.items():
+                c.launches_by_shape[shape] += n * times
+
+
+class Arm:
+    """One conditional arm of a captured graph: its launch delta, its
+    device counter (() int64, one added inside the graph each time the arm
+    runs) and the runs already added to the book."""
+
+    def __init__(self, delta: list[Counts], count: torch.Tensor):
+        self.delta, self.count, self.settled = delta, count, 0
 
 
 @contextlib.contextmanager
-def _no_host_sync():
-    """Any op that waits for the device raises (on a CUDA device)."""
+def no_host_sync(device: torch.device):
+    """On a CUDA device, any op that waits for the device raises (the sync
+    debug mode "error"); on the CPU, nothing."""
+    if device.type != "cuda":
+        yield
+        return
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -146,14 +186,113 @@ def _no_host_sync():
         torch.cuda.set_sync_debug_mode(mode)
 
 
+class _Capture(NamedTuple):
+    """What ``cond`` sees inside a ``Graphs``: the warm-up (``counts``
+    None; ``arms`` gets a None an arm) or a capture, whose arms go to
+    ``arms``, arm k counting its runs in ``counts[k]``."""
+    runner: "Graphs"
+    counts: torch.Tensor | None
+    arms: list
+
+
+_CAPTURE: contextvars.ContextVar = contextvars.ContextVar("graphs_capture",
+                                                         default=None)
+
+
+def cond(pred: torch.Tensor, true_body, false_body=None) -> None:
+    """``jax.lax.cond`` inside a body: ``true_body()`` if the () bool tensor
+    ``pred`` holds, else ``false_body()`` (if given). The arms return
+    nothing; each ends by copying its results into static buffers.
+
+    While a ``Graphs`` captures, each arm becomes an IF node (the second on
+    ``~pred``) that adds one to the arm's device counter when it runs; in
+    the warm-up before it, both arms run, on the clone; on the CPU the arm
+    ``bool(pred)`` picks runs. On the card anywhere else it raises: the
+    branch would have to read ``pred`` on the host."""
+    ctx = _CAPTURE.get()
+    if ctx is None:
+        if pred.device.type != "cpu":
+            raise RuntimeError("graphs.cond on the card runs only inside a "
+                               "body that a Graphs captures")
+        if bool(pred):
+            true_body()
+        elif false_body is not None:
+            false_body()
+        return
+    if ctx.counts is None:   # the warm-up: every arm, on the clone
+        for body in (true_body, false_body):
+            if body is not None:
+                body()
+                ctx.arms.append(None)
+        return
+    arms = [(pred, true_body)]
+    if false_body is not None:
+        arms.append((torch.logical_not(pred), false_body))
+    for p, body in arms:
+        ctx.arms.append(ctx.runner._if_node(p, body,
+                                            ctx.counts[len(ctx.arms)]))
+
+
+def fetch(*tensors: torch.Tensor, runners=()) -> list[np.ndarray]:
+    """A run's one host read: ``tensors`` and the arm counters of every
+    ``Graphs`` in ``runners`` come to the host together, behind one wait
+    for the device; each arm's launches since the last fetch are then
+    added to the kernels' counts. Returns the tensors as numpy arrays."""
+    counts = [arm.count for r in runners for arm in r.arms]
+    leaves = list(tensors)
+    if counts:
+        leaves.append(torch.stack(counts))
+    hosts = []
+    streams = set()
+    for t in leaves:
+        if t.is_cuda:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            streams.add(torch.cuda.current_stream(t.device))
+        else:
+            h = t.detach().clone()
+        hosts.append(h)
+    for s in streams:
+        s.synchronize()
+    if counts:
+        ran = iter(hosts.pop().tolist())
+        for r in runners:
+            for arm in r.arms:
+                n = next(ran)
+                r.book.add(arm.delta, n - arm.settled)
+                arm.settled = n
+    return [h.numpy() for h in hosts]
+
+
+def finish(step, state):
+    """A step object's (``step.graphs``, ``step.state``) ``state`` with its
+    ``mini_updated`` read back to a host bool (a device bool after a step
+    that read nothing on the host) and the step's conditional launches
+    counted, in one ``fetch``. The step keeps the result as its own state
+    if ``state`` was."""
+    mine = state is step.state
+    flag = state.mini_updated
+    if isinstance(flag, torch.Tensor):
+        (host,) = fetch(flag, runners=[step.graphs])
+        state = state._replace(mini_updated=bool(host))
+    else:
+        fetch(runners=[step.graphs])
+    if mine:
+        step.state = state
+    return state
+
+
 class Graphs:
-    """The captured bodies of one step object, by key, in one memory pool.
+    """The captured bodies of one step object, by key, in one memory pool
+    (and a second for their conditional bodies).
 
     ``run(key, body, bufs)`` replays the graph of ``key``, capturing
     ``body(bufs)`` at its first call; ``body`` and ``bufs`` must be the same
     at every call of a key (the graph holds the buffers' addresses). On the
     CPU it calls ``body(bufs)``. ``capture_seconds``: the host time the
-    captures took (warm-up, capture, instantiation), summed."""
+    captures took (warm-up, capture, instantiation), summed. ``arms``: the
+    conditional arms of every graph (``cond``), whose launches ``fetch``
+    counts."""
 
     def __init__(self, device: torch.device, counters=COUNTED):
         self.device = device
@@ -164,7 +303,12 @@ class Graphs:
         # allocator reuses a freed block only on the stream it was made on,
         # so a stream a capture would leave each graph's blocks to it alone
         self.stream = torch.cuda.Stream(device) if self.capturing else None
+        # conditional bodies (``cond``): captured on a stream of their own,
+        # into a pool of their own (what a body makes lives there)
+        self.child = torch.cuda.Stream(device) if self.capturing else None
+        self.cond_pool = torch.cuda.MemPool() if self.capturing else None
         self._graphs: dict = {}   # key -> (CUDAGraph, launch delta)
+        self.arms: list[Arm] = []
         self.capture_seconds = 0.0
 
     def __len__(self) -> int:
@@ -183,33 +327,88 @@ class Graphs:
         graph.replay()
         self.book.add(delta)
 
+    def warm_up(self, body, bufs) -> int:
+        """``body`` on a clone of ``bufs`` with every arm of its ``cond``s
+        taken; the launches it makes are not counted. Returns the number
+        of arms."""
+        start = self.book.snapshot()
+        arms: list = []
+        token = _CAPTURE.set(_Capture(self, None, arms))
+        try:
+            body(clone_tree(bufs))
+        finally:
+            _CAPTURE.reset(token)
+            self.book.restore(start)
+        return len(arms)
+
     def _capture(self, body, bufs):
         side = self.stream
         side.wait_stream(torch.cuda.current_stream(self.device))
-        start = self.book.snapshot()
-        with torch.cuda.stream(side), _no_host_sync():
-            body(clone_tree(bufs))     # the warm-up, on a clone: not counted
+        with torch.cuda.stream(side), no_host_sync(self.device):
+            n_arms = self.warm_up(body, bufs)
         torch.cuda.current_stream(self.device).wait_stream(side)
-        self.book.restore(start)
         graph = torch.cuda.CUDAGraph()
+        arms: list[Arm] = []
+        # the arms' counters live outside the pool: a block the capture
+        # takes from the pool may be a temporary of an earlier node of the
+        # same graph, rewritten on every replay
+        counts = torch.zeros(n_arms, dtype=torch.int64, device=self.device)
 
         def capture():
             # capture_begin/end rather than ``torch.cuda.graph``, whose entry
             # synchronizes and empties the caching allocator and the pinned
             # host cache before every capture
-            with torch.cuda.stream(side), _no_host_sync():
+            with torch.cuda.stream(side), no_host_sync(self.device):
                 graph.capture_begin(pool=self.pool)
+                token = _CAPTURE.set(_Capture(self, counts, arms))
                 try:
                     body(bufs)
                 finally:
+                    _CAPTURE.reset(token)
                     graph.capture_end()
 
-        return graph, self.book.record(capture)
+        delta = self.book.record(capture)
+        self.arms.extend(arms)
+        return graph, delta
+
+    def _if_node(self, pred: torch.Tensor, body, count: torch.Tensor
+                 ) -> Arm:
+        """Capture ``body()`` into an IF node on the () bool ``pred`` of the
+        graph being captured on the current stream, with its own launch
+        delta and device counter. The body is captured on ``self.child``,
+        its allocations routed to ``self.cond_pool``."""
+        lib = _build.load_kernels()
+        pred = pred.contiguous()
+        before = self.book.snapshot()
+        parent = torch.cuda.current_stream(self.device)
+        _build.check(lib.slam_if_begin(parent.cuda_stream,
+                                       self.child.cuda_stream,
+                                       pred.data_ptr()), "slam_if_begin")
+        index, pool = self.child.device.index, self.cond_pool.id
+        try:
+            with torch.cuda.stream(self.child):
+                # the body's stream is another capture than the graph's,
+                # so the graph's pool does not take its allocations
+                torch._C._cuda_beginAllocateCurrentStreamToPool(index, pool)
+                try:
+                    body()
+                    count.add_(1)
+                finally:
+                    torch._C._cuda_endAllocateToPool(index, pool)
+                    torch._C._cuda_releasePool(index, pool)
+        finally:
+            _build.check(lib.slam_if_end(self.child.cuda_stream),
+                         "slam_if_end")
+        after = self.book.snapshot()
+        self.book.restore(before)
+        return Arm([Counts(a.launches - b.launches, a.by_shape - b.by_shape)
+                    for a, b in zip(after, before)], count)
 
     def pool_bytes(self) -> int:
-        """Bytes the caching allocator holds in this object's pool."""
+        """Bytes the caching allocator holds in this object's two pools:
+        the graphs' and their conditional bodies'."""
         if not self.capturing:
             return 0
-        pool = tuple(self.pool)
+        pools = {tuple(self.pool), tuple(self.cond_pool.id)}
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg["segment_pool_id"]) == pool)
+                   if tuple(seg["segment_pool_id"]) in pools)

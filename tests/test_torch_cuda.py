@@ -1025,3 +1025,156 @@ def test_captured_graph_backend_without_feedback_equals_eager_on_the_card(
     assert np.array_equal(path, epath) and np.array_equal(opt, eopt)
     assert g.closures == e.closures and len(g.closures) >= 1
     assert g.attempt_log == e.attempt_log and g._epoch == 0
+
+
+# -- the drivers that branch on the card (CUDA graph conditional nodes,
+# ``utils/graphs.cond``) with no host sync after scan 1
+
+def _no_sync_case(driver, cuda):
+    """(make_step, init_state, inputs(t), eager_step(state, t) -> (state,
+    pose)) of a no-sync driver on 60 museum scans (PF and hybrid at 256
+    particles, numpy draws)."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, ParticleConfig
+    from lidar_slam_tpu_torch.models import (ekf_hybrid, ekf_slam, fastslam,
+                                             scan_matcher)
+    from lidar_slam_tpu_torch.ops import landmarks
+    from lidar_slam_tpu_torch.ops.scan_odometry import pairwise_odometry
+
+    ranges, _, draws = _ekf_inputs(60, 256)
+    r = torch.as_tensor(ranges, device=cuda)
+    cfg = DEFAULT_CONFIG
+    angles = scan_matcher.angles_tensor(cfg, cuda)
+    if driver == "fidelity":
+        return (lambda: scan_matcher.make_step_fn(cfg, cuda),
+                lambda: scan_matcher.init_state(r[0], cfg),
+                lambda t: (r[t],),
+                lambda s, t: scan_matcher.slam_step(s, r[t], cfg, angles))
+    if driver == "pf":
+        pcfg = dataclasses.replace(cfg, particles=ParticleConfig(
+            n_particles=256))
+        return (lambda: fastslam.make_pf_step(pcfg, cuda),
+                lambda: fastslam.init_particles(r[0], pcfg, 0),
+                lambda t: (r[t], draws[t - 1]),
+                lambda s, t: fastslam.pf_step(s, r[t], pcfg, angles,
+                                              draws[t - 1]))
+    ecfg = ekf_slam.long_tour_config(256)
+    det = landmarks.extract_corners(r, angles, max_range=12.0)
+    odo = pairwise_odometry(r, angles, cfg.lidar)
+    counts = det.count.cpu().numpy()
+
+    def inputs(t):
+        return (r[t], det.rb[t], det.valid[t], odo[t - 1], int(counts[t]),
+                draws[t - 1])
+
+    return (lambda: ekf_hybrid.HybridStepFn(ecfg, cfg, cuda),
+            lambda: ekf_hybrid.init_hybrid(r[0], ecfg, cfg, 0),
+            inputs,
+            lambda s, t: ekf_hybrid.hybrid_step(
+                s, *inputs(t)[:4], ecfg, cfg, angles, inputs(t)[5],
+                n_det=inputs(t)[4]))
+
+
+@pytest.mark.parametrize("driver", ["fidelity", "pf", "hybrid"])
+def test_no_sync_driver_equals_eager_under_the_sync_error_mode(cuda,
+                                                               driver):
+    """Scans 2..T-1 through ``advance`` (and the path's row writes) under
+    the sync debug mode "error" raise nothing; the path, the final state's
+    host ``mini_updated`` and the K1/K2 launches by shape (read back by
+    ``finish``) equal the eager loop's."""
+    make_step, init, inputs, eager_step = _no_sync_case(driver, cuda)
+    _reset_launches()
+    state = init()
+    want = [torch.zeros(3, device=cuda)]
+    for t in range(1, 60):
+        state, pose = eager_step(state, t)
+        want.append(torch.as_tensor(pose, device=cuda))
+    eager = _launches_by_shape()
+    _reset_launches()
+    step = make_step()
+    got = step.advance(init(), *inputs(1))
+    path = [torch.zeros(3, device=cuda), step.pose.clone()]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(2, 60):
+            got = step.advance(got, *inputs(t))
+            path.append(step.pose.clone())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = step.finish(got)
+    assert torch.equal(torch.stack(path), torch.stack(want))
+    assert type(got.mini_updated) is bool
+    assert got.mini_updated == state.mini_updated
+    assert _launches_by_shape() == eager and eager[0]
+    if driver != "hybrid":   # the hybrid: one graph a detection count
+        assert len(step.graphs) == 1
+
+
+@pytest.mark.parametrize("frontend", ["graph", "pf-graph"])
+def test_no_sync_graph_frontend_steps_on_the_card(cuda, frontend):
+    """160 loop-tour scans in chunks of 32: every frontend step after scan 1
+    runs under the sync debug mode "error", and the run equals
+    ``eager=True`` (path, closures, attempt log) with the same K1/K2
+    launches by shape."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, ParticleConfig
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import graph_slam, pf_graph_slam
+
+    class Strict:
+        """A frontend whose captured step raises on any host sync."""
+
+        def __init__(self, frontend):
+            self.frontend = frontend
+
+        def init_state(self, ranges0, cfg):
+            return self.frontend.init_state(ranges0, cfg)
+
+        def make_step_fn(self, cfg, device):
+            step = self.frontend.make_step_fn(cfg, device)
+            outer = self
+
+            class Step:
+                def __getattr__(self, name):
+                    return getattr(step, name)
+
+                def advance(self, state, ranges):
+                    if state.step == 1:
+                        return step.advance(state, ranges)
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        return step.advance(state, ranges)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+
+            outer.step = step
+            return Step()
+
+    ranges, _ = simulate.generate_dataset(160, seed=1,
+                                          waypoints=simulate.LOOP_WAYPOINTS)
+    lc = graph_slam.LoopClosureConfig(min_gap=3,
+                                      weak_closures=frontend == "pf-graph")
+    cfg = DEFAULT_CONFIG
+    if frontend == "pf-graph":
+        cfg = dataclasses.replace(cfg, particles=ParticleConfig(
+            n_particles=256))
+    runs = []
+    for eager in (False, True):
+        _reset_launches()
+        if frontend == "pf-graph":
+            gs = pf_graph_slam.PFGraphSlam(cfg, lc, device=cuda, eager=eager)
+        else:
+            gs = graph_slam.GraphSlam(cfg, lc, device=cuda, eager=eager)
+        if not eager:
+            gs.frontend = Strict(gs.frontend)
+        path, _ = gs.run(ranges, chunk_size=32)
+        runs.append((gs, path, _launches_by_shape()))
+    (g, path, counts), (e, epath, ecounts) = runs
+    assert counts == ecounts and counts[0] and counts[1]
+    assert np.array_equal(path, epath)
+    assert g.closures == e.closures and g.attempt_log == e.attempt_log
+    assert len(g.frontend.step.graphs) == 1
+    assert type(g.final_state.mini_updated) is bool
+    assert g.final_state.mini_updated == e.final_state.mini_updated
