@@ -63,8 +63,13 @@ parallel layer on an NCCL world of one) and checks the results:
    pool bytes;
 9. graph SLAM, building-3800 with BUILDING_WIDE_CONFIG: >= 5 closures,
    ATE < 0.2 m, pinned without frontend feedback; then the same tour with
-   feedback, measured and printed but not pinned (its outcome is chaotic
-   on this tour, in the JAX package too);
+   feedback, printed but not pinned: its chunk records (keyframe count
+   and a full store, closures, the optimize's largest keyframe move, a
+   feedback, graph error per edge) and the cause (the first scan at which
+   the path leaves the tour by more than 50 m, the first optimize that
+   moves a keyframe by more, the scan at which the keyframe store fills
+   and the feedbacks and closures after it). The run loses the map on the
+   card; the JAX package does the same from the card's state on the CPU;
    9b. fidelity, building-3800, captured: with BUILDING_CONFIG
    bit-identical to the C++ oracle and to the eager loop (the same K1
    launches by shape); with BUILDING_WIDE_CONFIG ATE < 0.5 m;
@@ -84,10 +89,15 @@ parallel layer on an NCCL world of one) and checks the results:
     (1024)``: ATE printed; 100 scans card against CPU, <= 1e-3; museum-500
     at 512 particles: ATE < 0.12 m and below the landmark-only filter's +
     0.02 m;
-13. submap SLAM (``--mode submap``), museum-1000, ``DEFAULT_CONFIG``: 100
+13. submap SLAM (``--mode submap``), museum-1000, ``DEFAULT_CONFIG``,
+    through the captured step (one CUDA graph, the spawn a conditional
+    node, the slot ints on the card; no host read after scan 1): 100
     scans card == CPU; ATE < max(2.5 x phase 5's fidelity ATE, 0.08 m);
-    then the paged host loop with ``tests/test_submap.py``'s paging config on
-    the same tour: resident submaps <= the pool, pages out > 0, finite;
+    then the paged host loop through the captured step with
+    ``tests/test_submap.py``'s paging config on the same tour: resident
+    submaps <= the pool, pages out > 0, finite, and == the same loop with
+    the eager ``slam_step`` (path, pages, slot ints, K1 launches by shape),
+    scans/s of both;
 14. submap graph SLAM (``--mode submap-graph``), loop-700: >= 1 closure,
     ATE < 0.1 m, graph error per edge < 1, >= 2 submaps all tied to a
     keyframe, map within the tour's extent + 30 m;
@@ -105,9 +115,10 @@ parallel layer on an NCCL world of one) and checks the results:
     device ops, device time and host syncs a scan and the busy share (the
     graph runs profile that window from inside their chunk loop); the
     captured steps' graph count and pool bytes; the host syncs of a whole
-    hybrid run, and those of the graph and PF-graph frontends' steps over a
-    whole ``GraphSlam.run`` (sync debug mode "warn"), equal on the first
-    200 scans and on the tour, and the tour's scans/s run again;
+    hybrid run and submap ``run_scan``, and those of the graph, PF-graph
+    and submap-graph frontends' steps over a whole ``GraphSlam.run`` (sync
+    debug mode "warn"), equal on the first 200 scans and on the tour, and
+    the tour's scans/s run again;
 15. streamed fidelity, museum-1000: a ``ScanServer`` on the tour, a
     ``RelayServer`` in front of it, ``run_streaming_slam`` on the card;
     the path bit-identical to ``run_host_loop`` on the card and to the C++
@@ -205,6 +216,7 @@ CPU_CUDA_MAX_DIFF = 1e-3   # max |pose difference|, injected draws
 GRAPH_LOOP_ATE_MAX = 0.1   # m, the pins of tests/test_graph_slam.py
 GRAPH_BUILDING_ATE_MAX = 0.2     # m, bench.py stage_building_graph's target
 GRAPH_BUILDING_MIN_CLOSURES = 5  # tests/test_graph_slam.py, corridor test
+LOST_M = 50.0   # m: phase 9's feedback run has lost the map past this error
 BUILDING_WIDE_ATE_MAX = 0.5      # m, tests/test_pipeline_parity.py
 PF_GRAPH_SMOOTH_MARGIN = 0.03    # m, tests/test_pf_graph_slam.py
 EKF_MUSEUM400_ATE_MAX = 0.15     # m, tests/test_ekf_slam.py museum test
@@ -377,6 +389,29 @@ def eager_submap(ranges, cfg, dev):
         state, pose = submap_slam.slam_step(state, r[t], cfg, angles)
         poses.append(pose)
     return torch.stack(poses).cpu().numpy(), state
+
+
+def eager_paged(ranges, cfg, paged, manage_every, dev):
+    """``utils/paging.run_host_loop_paged`` with the eager ``slam_step`` a
+    scan in place of the captured step (the paged loop before the captured
+    step): (path (T, 3) numpy, final state)."""
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch.models import scan_matcher, submap_slam
+
+    r = torch.as_tensor(np.asarray(ranges, np.float32), device=dev)
+    angles = scan_matcher.angles_tensor(cfg, dev)
+    state = submap_slam.init_state(r[0], cfg)
+    poses = [np.zeros(3, np.float32)]
+    for t in range(1, len(r)):
+        state, pose = submap_slam.slam_step(state, r[t], cfg, angles)
+        poses.append(pose.cpu().numpy())
+        if t % manage_every == 0:
+            new_atlas = paged.manage(state.atlas, poses[-1])
+            if new_atlas is not state.atlas:
+                state = state._replace(atlas=new_atlas)
+    return np.stack(poses), state
 
 
 def eager_ekf(ranges, ecfg, cfg, dev):
@@ -622,6 +657,46 @@ class _CountedStep:
 
     def __getattr__(self, name):   # pose, scan, graphs
         return getattr(self.frontend.step, name)
+
+
+def feedback_report(gs, gt) -> None:
+    """Phase 9's feedback run, chunk by chunk (``GraphSlam.chunk_log``):
+    the keyframe store's count and saturation, closures, the optimize's
+    largest keyframe move and the graph error per edge, whether a feedback
+    ran; then the cause: the first scan at which the path leaves the tour
+    by more than ``LOST_M``, the first optimize that moved a keyframe by
+    more than that, the scan at which the store filled, and the feedbacks
+    and closures after it."""
+    import numpy as np
+
+    for r in gs.chunk_log:
+        full = r.keyframes >= gs.max_keyframes
+        print(f"[9]   chunk@{r.first_scan}: keyframes {r.keyframes}"
+              f"{' (store full)' if full else ''}, made {r.made}, closures "
+              f"{r.closures} (weak {r.weak}), delta "
+              f"{'-' if r.delta is None else f'{r.delta:.6f} m'}, feedback "
+              f"{int(r.feedback)}, graph error per edge "
+              f"{'-' if r.error_per_edge is None else f'{r.error_per_edge:.6f}'}",
+              flush=True)
+    path = gs._last_path
+    err = np.hypot(*(path[:, :2] - gt[:, :2]).T)
+    lost = int(np.argmax(err > LOST_M)) if (err > LOST_M).any() else None
+    jump = next((r for r in gs.chunk_log
+                 if r.delta is not None and r.delta > LOST_M), None)
+    sat = gs.saturated_at
+    # the chunk the store filled in (its feedback comes after the fill) and
+    # every later one
+    after = [r for r in gs.chunk_log if r.keyframes >= gs.max_keyframes]
+    print(f"[9] the feedback run's cause: the path first leaves the tour by "
+          f"more than {LOST_M:.0f} m at scan {lost}; the first optimize to "
+          f"move a keyframe by more than that: "
+          + ("none" if jump is None else
+             f"chunk@{jump.first_scan} ({jump.closures} closures, delta "
+             f"{jump.delta:.6f} m, feedback {int(jump.feedback)})")
+          + f"; the keyframe store ({gs.max_keyframes}) filled at scan "
+          f"{sat}, and after it {sum(r.feedback for r in after)} feedbacks "
+          f"and {sum(r.closures + r.weak for r in after)} closures; largest "
+          f"error {err.max():.4f} m", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -1770,17 +1845,24 @@ def main() -> int:
         n_scans=simulate.BUILDING_N_SCANS, seed=0, world="building")
     print(f"[9] building-{len(branges)} tour ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # Pinned without frontend feedback: with it, this tour's outcome is
+    # Pinned without frontend feedback. With it, this tour's outcome is
     # chaotic in both packages (a 1e-5 change of the input or another chunk
-    # size turns 0.06 m into 0.8-6 m, measured on the CPU), so the feedback
-    # run below is measured and printed, not pinned.
+    # size turns 0.06 m into 0.8-8 m, measured on the CPU), and on the card
+    # the run loses the map: the card's optimize rounds otherwise than the
+    # CPU's (7.2e-7 at the second feedback), and on the branch that starts
+    # the frontend leaves the building, whose closures then move keyframes
+    # by 132 m; the JAX package, fed the card's state and graph on the CPU,
+    # does the same (tests/_feedback_probe.py --replay). So the feedback
+    # run is printed with its chunk records and the cause, not pinned.
     graph_phase("9", f"graph building-{len(branges)} (BUILDING_WIDE_CONFIG, "
                 f"no feedback)", run_graph(BUILDING_WIDE_CONFIG, False),
                 (branges, bgt), GRAPH_BUILDING_MIN_CLOSURES,
                 GRAPH_BUILDING_ATE_MAX)
-    graph_phase("9", f"graph building-{len(branges)} (BUILDING_WIDE_CONFIG, "
-                f"feedback; not pinned)", run_graph(BUILDING_WIDE_CONFIG),
-                (branges, bgt))
+    _, _, _, fb_gs = graph_phase(
+        "9", f"graph building-{len(branges)} (BUILDING_WIDE_CONFIG, "
+        f"feedback; not pinned)", run_graph(BUILDING_WIDE_CONFIG),
+        (branges, bgt))
+    feedback_report(fb_gs, bgt)
 
     # ---- 9b. fidelity on building-3800 (bench.py's stage_building): the
     # parity window bit-identical to the oracle, the wide window's ATE
@@ -1999,6 +2081,33 @@ def main() -> int:
           f"{gfinal.atlas.n_submaps} resident, {len(paged.archive)} archived "
           f"({paged.pages_out} out / {paged.pages_in} in); launches K1 "
           f"{used['K1']}", flush=True)
+    # the same loop with the eager slam_step a scan: the paged run's
+    # reference (its counts are not the main path's)
+    reset_counts()
+    epaged = paging.PagedAtlas(near_dist=1.0, keep_free=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epath, efinal = eager_paged(ranges, pg_cfg, epaged, 4, dev)
+    torch.cuda.synchronize()
+    edt = time.perf_counter() - t0
+    eager_counts = {"K1": dict(cuda_edt.launches_by_shape),
+                    "K2": dict(cuda_match.launches_by_shape)}
+    reset_counts()
+    require(np.array_equal(epath, gpath),
+            f"{title}: the eager paged loop differs from the captured one: "
+            f"max {np.abs(epath - gpath).max()}")
+    require(eager_counts == path_counts[title],
+            f"{title}: launches by shape, eager {eager_counts} against "
+            f"captured {path_counts[title]}")
+    require((epaged.pages_out, epaged.pages_in,
+             efinal.atlas.n_submaps, efinal.atlas.active)
+            == (paged.pages_out, paged.pages_in, gfinal.atlas.n_submaps,
+                gfinal.atlas.active),
+            f"{title}: the eager paged loop paged otherwise")
+    print(f"[13] {title}: the eager paged loop's path == the captured "
+          f"step's (np.array_equal), launches by shape, pages and slot ints "
+          f"equal; scans/s captured {len(gpath) / dt:.1f} against eager "
+          f"{len(epath) / edt:.1f}", flush=True)
     phase_done("13")
 
     def run_submap_graph(granges):
@@ -2201,7 +2310,7 @@ def main() -> int:
              lambda: submap_slam.init_state(mranges[0], cfg),
              lambda s, t: submap_slam.slam_step(s, mranges[t], cfg, sangles),
              lambda: ByScan(submap_slam.make_step_fn(cfg, dev),
-                            lambda t: (mranges[t],))),
+                            lambda t: (mranges[t],), advance=True)),
             (f_ekf,
              lambda: ekf_slam.init_ekf_slam(ecfg, 0, dev),
              lambda s, t: ekf_slam.ekf_slam_step_ml(
@@ -2245,6 +2354,11 @@ def main() -> int:
             ("PF-1024-graph loop-700", graph_steps(
                 lambda: pf_graph_slam.PFGraphSlam(pcfg, seed=0, device=dev),
                 chunk_size=128), len(lranges), int),
+            ("submap-graph loop-700", graph_steps(
+                lambda: SubmapGraphSlam(cfg, device=dev)), len(lranges), int),
+            ("submap museum-1000",
+             lambda n: submap_slam.run_scan(ranges[:n], cfg, device=dev),
+             len(ranges), None),
             (f_hybrid, lambda n: run_hybrid(ranges[:n], dev), FILTER_SCANS,
              None)):
         whole_run_syncs("14c", title, run, n_full, steps_of)

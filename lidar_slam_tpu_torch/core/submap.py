@@ -11,14 +11,14 @@ host memory (``utils/paging``).
 
 Point storage keeps the JAX package's fixed shapes: (M, Ns, 2) points,
 (M,) sizes, (M, 3) anchors on the device. The slot counts ``n_submaps``
-and ``active`` are host ints here: they change only where the host already
-branches (a new submap, paging), so no step reads them back from the card,
-and JAX's ``.at[slot].set(mode="drop")`` on a full pool is a host test
+and ``active`` are host ints in the eager step, where JAX's
+``.at[slot].set(mode="drop")`` on a full pool is a host test
 (``spawned``). The device functions index with the same two ints as a (2,)
-device tensor, ``slots`` (``device_slots``; a captured step passes a static
-buffer that the host rewrites when the ints change), through 1-element
+int64 device tensor, ``slots`` (``device_slots``), through 1-element
 slices and ``index_select`` / ``index_copy``: a graph captured with one
-slot would replay that slot forever.
+slot would replay that slot forever. In a captured step the step's slot
+buffer is the authority (JAX's device ints): ``spawn`` reads and writes it
+on the card, and the host ints come back when the run reads its state.
 
 Frame convention: anchors are reference-convention poses (rotation by
 -theta, ``se2.transform_ref``).
@@ -34,6 +34,7 @@ from lidar_slam_tpu_torch.core import se2
 from lidar_slam_tpu_torch.core.gridmap import LocalMap
 from lidar_slam_tpu_torch.core.sensor import compact, scatter_rows
 from lidar_slam_tpu_torch.device import constant, rounded64
+from lidar_slam_tpu_torch.utils import graphs
 
 _BIG = 1e30
 
@@ -44,6 +45,8 @@ class SubmapAtlas(NamedTuple):
     anchors: torch.Tensor  # (M, 3) f32 — world pose of each anchor
     n_submaps: int         # allocated slots
     active: int            # slot receiving new points
+    # (a captured step that read nothing on the host returns the two as ()
+    # int64 views of its slot buffer; ``graphs.settle`` reads them back)
 
 
 def empty_atlas(n_submaps: int, capacity: int, device) -> SubmapAtlas:
@@ -101,6 +104,37 @@ def start_submap(atlas: SubmapAtlas, anchor: torch.Tensor) -> SubmapAtlas:
     if not write:
         return atlas
     return open_slot(atlas, anchor, device_slots(atlas)[1:2])
+
+
+def spawn(atlas: SubmapAtlas, anchor: torch.Tensor, slots: torch.Tensor,
+          when: torch.Tensor) -> None:
+    """JAX's ``start_submap`` under the () bool ``when``, in place, on a
+    captured step's static atlas and its slot buffer ``slots`` ((2,) int64:
+    ``n_submaps`` and ``active``): with n < M slots, slot n opens at
+    ``anchor`` and the ints become (n + 1, n) (``open_next_slot``); on a
+    full pool nothing is written and the active slot is M - 1
+    (``keep_last_slot``, JAX's ``mode="drop"``). Each is a ``graphs.cond``
+    arm, so neither ``when`` nor n is read on the host."""
+    m = atlas.pts.shape[0]
+    room = slots[0] < m
+    graphs.cond(when & room, lambda: open_next_slot(atlas, anchor, slots))
+    graphs.cond(when & ~room, lambda: keep_last_slot(slots, m))
+
+
+def open_next_slot(atlas: SubmapAtlas, anchor: torch.Tensor,
+                   slots: torch.Tensor) -> None:
+    """``spawn``'s arm with room in the pool: slot n emptied and anchored
+    at ``anchor``, the ints (n + 1, n); in place."""
+    n = slots[0:1]
+    atlas.pts.index_fill_(0, n, 0.0)
+    atlas.sizes.index_fill_(0, n, 0)
+    atlas.anchors.index_copy_(0, n, anchor[None])
+    slots.copy_(torch.cat([n + 1, n]))
+
+
+def keep_last_slot(slots: torch.Tensor, m: int) -> None:
+    """``spawn``'s arm on a full pool: the last slot stays active."""
+    slots[1:2].fill_(m - 1)
 
 
 def insert_world_points(atlas: SubmapAtlas, wx: torch.Tensor, wy: torch.Tensor,

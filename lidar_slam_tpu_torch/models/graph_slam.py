@@ -14,12 +14,13 @@ The run goes chunk by chunk (JAX's jitted ``run_chunk`` and
 ``scan_matcher``'s captured step (or the particle filter's, or the submap
 frontend's: ``make_step_fn``, CUDA graphs over static buffers). Each scan's
 pose, keyframe flag and frontend quality and its gated scan (from the
-step's own buffers) are copied on the device into the chunk's buffers; the
-fidelity and PF steps read nothing on the host (their keyframe flag is a
-device bool), the submap step keeps its one sync a scan (its spawn
-decisions are host ints). Once a chunk the poses, flags and qualities come
-to the host in one copy, and the keyframe rows' scans are gathered on the
-device and come in one more. The keyframe scans and their 256^2 EDT
+step's own buffers) are copied on the device into the chunk's buffers; no
+captured step reads anything on the host (their keyframe flags, and the
+submap step's slot ints, are device values). Once a chunk the poses, flags
+and qualities come to the host in one copy, with the state's device host
+fields (``graphs.settle``), and the keyframe rows' scans are gathered on
+the device and come in one more. Each chunk leaves a ``ChunkRecord`` in
+``chunk_log``. The keyframe scans and their 256^2 EDT
 rasters (kernel K1, batched) stay on the device, so closure matching moves
 no field across the bus. The backend's batched
 helpers (keyframe rasters, closure matching, fine refinement) and the
@@ -100,6 +101,20 @@ def _closure_batch(device) -> int:
     2 on the CPU (a CPU batch runs the plain volume, whose temporaries grow
     with the width). The width changes no result."""
     return 8 if torch.device(device).type == "cuda" else 2
+
+
+class ChunkRecord(NamedTuple):
+    """What one chunk of ``GraphSlam.run`` did (``GraphSlam.chunk_log``)."""
+    first_scan: int                # the chunk's first scan
+    keyframes: int                 # the store's count after the chunk
+    made: int                      # keyframes the frontend made in it
+    closures: int                  # strong closures accepted in it
+    weak: int                      # weak closures accepted in it
+    delta: float | None            # the optimize's largest keyframe move
+    #                                (m; -1.0 on a revert), None without one
+    feedback: bool                 # the frontend was rebuilt after it
+    error_per_edge: float | None   # graph error per active edge after the
+    #                                optimize, None without one
 
 
 class KeyframeStore(NamedTuple):
@@ -460,6 +475,9 @@ class GraphSlam:
             lc, max_keyframes, dev, eager)
         self._kf_count = 0
         self._saturation_warned = False
+        self.saturated_at: int | None = None   # first scan whose keyframe
+        #                                        the full store dropped
+        self.chunk_log: list[ChunkRecord] = []
         self._edge_warned = False
         # edge list (host): (i, j, z_std (3,), w (3,))
         self._edges: list[tuple[int, int, np.ndarray, np.ndarray]] = []
@@ -522,6 +540,8 @@ class GraphSlam:
                       scan_t: int = 0, quality: float = 0.0):
         k = self._kf_count
         if k >= self.max_keyframes:
+            if self.saturated_at is None:
+                self.saturated_at = scan_t
             if not self._saturation_warned:
                 warnings.warn(
                     f"GraphSlam keyframe store saturated at "
@@ -720,6 +740,11 @@ class GraphSlam:
         self.kf_poses = [_np_ref_to_std(p) for p in opt]  # std->ref (involution)
         return delta
 
+    def _error_per_edge(self) -> float:
+        """The pose graph's error per active edge (``graph_error``)."""
+        g = self.graph
+        return float(posegraph.graph_error(g)) / max(int(g.n_edges), 1)
+
     # -- frontend feedback ----------------------------------------------------
     def _post_chunk(self, state) -> None:
         """Hook for frontend-specific per-chunk bookkeeping (no-op here)."""
@@ -778,7 +803,6 @@ class GraphSlam:
         path = [np.zeros(3, np.float32)]
         step = (_EagerStep(self.frontend, cfg, self.angles) if self.eager
                 else self.frontend.make_step_fn(cfg, dev))
-        runners = [] if step.graphs is None else [step.graphs]
         # the chunk's rows: pose, keyframe flag and frontend quality (the
         # PF's share of particles escaping the scoring window; 0 for the
         # others), and every scan's gated scan (x, y, valid)
@@ -788,7 +812,6 @@ class GraphSlam:
 
         t = 1
         n_scans = ranges.shape[0]
-        last_flag = True
         while t < n_scans:
             n_real = min(chunk_size, n_scans - t)
             with self.timer.stage("frontend_chunk"):
@@ -815,9 +838,11 @@ class GraphSlam:
                     scans[i, 1] = sc.y
                     scans[i, 2] = sc.valid
             with self.timer.stage("kf_fetch"):
-                # one copy of the rows (and the step's arm counts), then
-                # the keyframe rows' scans gathered on the device, one more
-                (packed_h,) = graphs.fetch(rows[:n_real], runners=runners)
+                # one copy of the rows, the state's host fields and the
+                # step's arm counts, then the keyframe rows' scans gathered
+                # on the device, one more
+                state, (packed_h,) = graphs.settle(step, state,
+                                                   rows[:n_real])
                 kf_rows = np.flatnonzero(packed_h[:, 3] > 0.5).tolist()
                 kf_dev, blk = scans[:0], {}
                 if kf_rows:
@@ -826,7 +851,6 @@ class GraphSlam:
                         idx = idx.pin_memory().to(dev, non_blocking=True)
                     kf_dev = scans.index_select(0, idx)
                     blk = dict(zip(kf_rows, kf_dev.cpu().numpy()))
-            last_flag = bool(packed_h[-1, 3] > 0.5)
             poses_c, quals_c = packed_h[:, :3], packed_h[:, 4]
             # pass 1: register this chunk's keyframes (closure candidates
             # only look backward, so batching the adds is neutral)
@@ -850,16 +874,26 @@ class GraphSlam:
             self._post_chunk(state)
             # pass 2: the chunk's closure candidates, then at most one
             # optimize for the chunk
+            n_closures = (len(self.closures), len(self.weak_closures))
             with self.timer.stage("closure_match"):
                 any_closed = self._try_loop_closures_batch(new_kf)
+            delta = error = None
+            fed_back = False
             if any_closed and optimize_every_closure:
                 with self.timer.stage("optimize"):
                     delta = self._optimize()
+                error = self._error_per_edge()
                 if delta > 0.01 and feedback:
                     # feedback only when the solve moved a keyframe > 1 cm
                     with self.timer.stage("feedback"):
                         state = self._rebuild_frontend(state)
                     self._epoch += 1
+                    fed_back = True
+            self.chunk_log.append(ChunkRecord(
+                t, self._kf_count, len(new_kf),
+                len(self.closures) - n_closures[0],
+                len(self.weak_closures) - n_closures[1], delta, fed_back,
+                error))
             t += n_real
 
         # final solve: closures and soft jump edges accepted near the end
@@ -867,9 +901,6 @@ class GraphSlam:
             with self.timer.stage("optimize"):
                 self._optimize()
 
-        if isinstance(state.mini_updated, torch.Tensor):
-            # the step's device flag: the last scan's, read with its chunk
-            state = state._replace(mini_updated=last_flag)
         self.final_state = graphs.clone_tree(state)
         self._last_path = np.stack(path)
         return self._last_path, np.stack(list(self.kf_poses))

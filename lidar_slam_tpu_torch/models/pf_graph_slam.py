@@ -67,7 +67,7 @@ class _PFFrontend:
 class _PFStep:
     """``fastslam.PfStepFn`` fed the frontend's draws: ``advance(state,
     ranges) -> state`` (no host read after scan 1), with its ``pose``,
-    ``scan`` and ``graphs``."""
+    ``scan``, ``graphs`` and ``state``."""
 
     def __init__(self, frontend: _PFFrontend, step: fastslam.PfStepFn):
         self.frontend, self.step = frontend, step
@@ -86,6 +86,14 @@ class _PFStep:
     @property
     def graphs(self):
         return self.step.graphs
+
+    @property
+    def state(self):
+        return self.step.state
+
+    @state.setter
+    def state(self, state) -> None:
+        self.step.state = state
 
 
 def _np_correct_cloud(poses: np.ndarray, old_last: np.ndarray,

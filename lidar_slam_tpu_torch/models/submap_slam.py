@@ -11,16 +11,18 @@ active anchor's neighbourhood or the active submap is nearly full. A
 loop-closure correction re-anchors submaps rigidly
 (``models/submap_graph_slam``).
 
-JAX's four ``lax.cond``s become host branches. ``mini_updated`` and
-``step`` are host values; the keyframe test and the two spawn tests (far
-from the anchor, submap full) reach the host in one copy, the step's one
-device->host sync. ``slam_step`` is ``submap_head`` (up to the tests), that
-sync, and ``submap_tail`` when the keyframe test passed; ``make_step_fn``
-(JAX's jitted step, driven by ``run_scan`` and ``run_host_loop``) replays
-those arms as CUDA graphs over static buffers (``utils/graphs``), with the
-atlas's slot ints in a device buffer (``core/submap``). The stale-transform
-quirk of the fidelity pipeline is kept: after a refresh the map update
-reuses the scan transformed with the pre-match pose.
+In the eager ``slam_step`` JAX's four ``lax.cond``s are host branches:
+``mini_updated`` and ``step`` are host values, and the keyframe test and
+the two spawn tests (far from the anchor, submap full) reach the host in
+one copy, the step's one device->host sync; the spawn is ``submap.spawned``
+on the atlas's host ints. ``make_step_fn`` (JAX's jitted step, driven by
+``run_scan``, ``run_host_loop``, the paged loop and the submap-graph
+frontend) captures the whole step as one CUDA graph whose branches are
+conditional nodes on device bools and whose slot ints live in a device
+buffer, as JAX's are: ``run_scan`` reads nothing on the host after scan 1.
+The stale-transform quirk of the fidelity pipeline is kept: after a
+refresh the map update reuses the scan transformed with the pre-match
+pose.
 """
 
 from __future__ import annotations
@@ -89,45 +91,48 @@ class SubmapHead(NamedTuple):
     #                           anchor), full (the active submap)
 
 
-def submap_head(state: SubmapSlamState, ranges: torch.Tensor, cfg: SlamConfig,
-                angles: torch.Tensor, slots: torch.Tensor | None = None
-                ) -> SubmapHead:
-    """A step up to its tests: the keyframe arm if ``state.mini_updated``,
-    the two-stage match, the keyframe test and the spawn tests. No host
-    sync. ``slots``: the atlas's slot ints on the device (default
-    ``submap.device_slots``)."""
-    g, m, mc, sm = cfg.grid, cfg.map, cfg.matcher, cfg.submaps
-    atlas = state.atlas
-    slots = submap.device_slots(atlas) if slots is None else slots
-    scan = sensor.read_scan(ranges, angles, cfg.lidar)
+def _keyframe_maps(state: SubmapSlamState, scan: sensor.Scan,
+                   cfg: SlamConfig, slots: torch.Tensor):
+    """The keyframe arm: the local map gathered from the atlas around the
+    scan at the pre-match pose, rastered at both resolutions, and their
+    fields (K1 on CUDA). Returns the state's six map leaves, refreshed."""
+    g = cfg.grid
+    scan_wx, scan_wy = se2.transform_ref(scan.x, scan.y, state.pose)
+    local = submap.extract_local_from_atlas(
+        state.atlas, state.pose, scan_wx, scan_wy, scan.valid,
+        g.border_size, cfg.submaps.k_nearest, slots)
+    coarse, fine = gridmap.rasterize_dual(local, g)
+    coarse_metric = edt_ops.edt(coarse.occ, int(g.max_dist_px))
+    fine_metric = edt_ops.edt(fine.occ, int(g.max_dist_px))
+    return coarse, fine, coarse_metric, fine_metric, scan_wx, scan_wy
 
-    # --- keyframe-gated refresh of the local map from the atlas
-    if state.mini_updated:
-        scan_wx, scan_wy = se2.transform_ref(scan.x, scan.y, state.pose)
-        local = submap.extract_local_from_atlas(
-            atlas, state.pose, scan_wx, scan_wy, scan.valid, g.border_size,
-            sm.k_nearest, slots)
-        coarse, fine = gridmap.rasterize_dual(local, g)
-        coarse_metric = edt_ops.edt(coarse.occ, int(g.max_dist_px))
-        fine_metric = edt_ops.edt(fine.occ, int(g.max_dist_px))
-    else:
-        coarse, fine = state.coarse, state.fine
-        coarse_metric, fine_metric = state.coarse_metric, state.fine_metric
-        scan_wx, scan_wy = state.scan_wx, state.scan_wy
 
-    guess = (state.pose + (state.pose - state.prev_pose) if state.step > 1
-             else state.pose)
-    if state.mini_updated:
-        m1 = matching.fast_match(coarse_metric, coarse, scan.x, scan.y,
-                                 scan.valid, guess, mc.coarse_t, mc.coarse_r)
-    else:
-        m1 = matching.fast_match(fine_metric, fine, scan.x, scan.y,
-                                 scan.valid, guess, mc.coarse_t, mc.coarse_r)
+def _maps(state: SubmapSlamState):
+    """The state's six map leaves, as ``_keyframe_maps`` returns them."""
+    return (state.coarse, state.fine, state.coarse_metric,
+            state.fine_metric, state.scan_wx, state.scan_wy)
+
+
+def _first_match(metric: torch.Tensor, grid: OccGrid, scan: sensor.Scan,
+                 guess: torch.Tensor, cfg: SlamConfig) -> matching.MatchResult:
+    """The first matcher stage, on the coarse grid on a keyframe step and
+    on the fine grid otherwise."""
+    mc = cfg.matcher
+    return matching.fast_match(metric, grid, scan.x, scan.y, scan.valid,
+                               guess, mc.coarse_t, mc.coarse_r)
+
+
+def _head_end(state: SubmapSlamState, scan: sensor.Scan, maps,
+              m1_pose: torch.Tensor, cfg: SlamConfig, slots: torch.Tensor
+              ) -> SubmapHead:
+    """The second matcher stage from the first stage's pose, the keyframe
+    test and the spawn tests."""
+    m, mc, sm = cfg.map, cfg.matcher, cfg.submaps
+    coarse, fine, coarse_metric, fine_metric, scan_wx, scan_wy = maps
     m2 = matching.fast_match(fine_metric, fine, scan.x, scan.y, scan.valid,
-                             m1.pose, mc.fine_t, mc.fine_r)
+                             m1_pose, mc.fine_t, mc.fine_r)
     new_pose = m2.pose
-
-    # --- the keyframe test and the spawn tests
+    atlas = state.atlas
     active = slots[1:2]
     dp = torch.abs(new_pose - state.keyframe_pose)
     moved = ((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
@@ -147,26 +152,41 @@ def submap_head(state: SubmapSlamState, ranges: torch.Tensor, cfg: SlamConfig,
                       tests=torch.stack([moved, far, full]))
 
 
-def submap_tail(head: SubmapHead, refreshed: bool, write: bool,
-                cfg: SlamConfig, slots: torch.Tensor | None = None
-                ) -> SubmapSlamState:
-    """The step's end when the keyframe test passed: the novel points go
-    into the active submap, opened first at that slot when ``write``
-    (``submap.spawned`` decides both on the host). ``refreshed``: the step
-    ran the keyframe arm. ``slots``: the slot ints after the spawn (default
-    ``submap.device_slots`` of ``head.state.atlas``)."""
+def submap_head(state: SubmapSlamState, ranges: torch.Tensor, cfg: SlamConfig,
+                angles: torch.Tensor, slots: torch.Tensor | None = None
+                ) -> SubmapHead:
+    """A step up to its tests: the keyframe arm if ``state.mini_updated``,
+    the two-stage match, the keyframe test and the spawn tests. No host
+    sync. ``slots``: the atlas's slot ints on the device (default
+    ``submap.device_slots``)."""
+    slots = submap.device_slots(state.atlas) if slots is None else slots
+    scan = sensor.read_scan(ranges, angles, cfg.lidar)
+    maps = (_keyframe_maps(state, scan, cfg, slots) if state.mini_updated
+            else _maps(state))
+    guess = (state.pose + (state.pose - state.prev_pose) if state.step > 1
+             else state.pose)
+    coarse, fine, coarse_metric, fine_metric = maps[:4]
+    m1 = (_first_match(coarse_metric, coarse, scan, guess, cfg)
+          if state.mini_updated
+          else _first_match(fine_metric, fine, scan, guess, cfg))
+    return _head_end(state, scan, maps, m1.pose, cfg, slots)
+
+
+def _insert(head: SubmapHead, refreshed: bool, cfg: SlamConfig,
+            slots: torch.Tensor) -> SubmapSlamState:
+    """The novel points into the active submap (slot ``slots[1]``), the
+    keyframe pose moved to the pose. ``refreshed``: the step ran the
+    keyframe arm, whose cached pre-match transform of the scan is reused
+    (the stale-transform quirk); without it the scan is transformed with
+    the new pose."""
     st, scan, m = head.state, head.scan, cfg.map
-    slots = submap.device_slots(st.atlas) if slots is None else slots
     scan_wx, scan_wy = st.scan_wx, st.scan_wy
     if not refreshed:
         scan_wx, scan_wy = se2.transform_ref(scan.x, scan.y, st.pose)
     j = torch.arange(scan_wx.shape[0], device=scan_wx.device)
     select = (j < head.best_count) & (head.last_hits > m.new_point_threshold)
-    active = slots[1:2]
-    atlas = st.atlas
-    if write:
-        atlas = submap.open_slot(atlas, st.pose, active)
-    atlas = submap.insert_world_points(atlas, scan_wx, scan_wy, select, active)
+    atlas = submap.insert_world_points(st.atlas, scan_wx, scan_wy, select,
+                                       slots[1:2])
     return st._replace(mini_updated=True, keyframe_pose=st.pose, atlas=atlas,
                        scan_wx=scan_wx, scan_wy=scan_wy)
 
@@ -174,43 +194,65 @@ def submap_tail(head: SubmapHead, refreshed: bool, write: bool,
 def slam_step(state: SubmapSlamState, ranges: torch.Tensor, cfg: SlamConfig,
               angles: torch.Tensor) -> tuple[SubmapSlamState, torch.Tensor]:
     """One scan; returns (new_state, pose): ``submap_head``, the tests on
-    the host (the step's one sync), ``submap_tail`` if the keyframe test
-    passed."""
+    the host (the step's one sync), and when the keyframe test passed the
+    spawn (``submap.spawned`` on the host ints, then ``open_slot``) and
+    the insert."""
     head = submap_head(state, ranges, cfg, angles)
     moved, far, full = head.tests.tolist()
     if not moved:
         return head.state, head.state.pose
-    atlas, write = (submap.spawned(state.atlas) if far or full
-                    else (state.atlas, False))
+    atlas = state.atlas
+    if far or full:
+        atlas, write = submap.spawned(atlas)
+        if write:
+            atlas = submap.open_slot(atlas, head.state.pose,
+                                     submap.device_slots(atlas)[1:2])
     head = head._replace(state=head.state._replace(atlas=atlas))
-    new_state = submap_tail(head, state.mini_updated, write, cfg)
+    new_state = _insert(head, state.mini_updated, cfg,
+                        submap.device_slots(atlas))
     return new_state, new_state.pose
 
 
 class _Static(NamedTuple):
     """The captured step's static buffers."""
     ranges: torch.Tensor   # (N,) the scan's ranges
+    mini: torch.Tensor     # () bool, the state's mini_updated (JAX's carry)
     slots: torch.Tensor    # (2,) int64: the atlas's n_submaps and active
+    m1: torch.Tensor       # (3,) the first matcher stage's pose
     head: SubmapHead       # head.state is the step's state
-    out: torch.Tensor      # (6,) f32: the pose and the three tests
+    out: torch.Tensor      # (6,) f32: the pose, mini_updated, n_submaps,
+    #                        active
 
 
 class SubmapStepFn:
-    """``step(state, ranges) -> (state, pose)``: ``slam_step`` as captured
-    CUDA graphs (``utils/graphs``), JAX's jitted step with its state
-    donated (``scan_matcher.StepFn`` has the conventions).
+    """``step(state, ranges) -> (state, pose)``: ``slam_step`` as one
+    captured CUDA graph (``utils/graphs``), JAX's jitted step with its
+    state donated (``scan_matcher.StepFn`` has the conventions).
 
-    The head is one graph with the keyframe arm and one without; the tail
-    one graph for each arm with and without a new submap (captured at first
-    use). A step replays a head, reads its pose and tests in one 24-byte
-    device->host copy (the step's one host sync) and replays a tail if the
-    keyframe test passed. The atlas's ``n_submaps`` and ``active`` stay host
-    ints on the state; the bodies read them from a (2,) device buffer, which
-    the host rewrites when a spawn or a loaded state changes them, so no
-    graph holds a slot. Scan 1 (``state.step == 1``) runs eagerly.
-    ``self.pose`` and ``self.scan`` are the step's pose and gated scan on
-    the device (``scan`` None after an eager step), valid until the next
-    call."""
+    The graph is JAX's ``slam_step`` arm by arm, each arm an IF node on a
+    device bool: IF(``mini_updated``) the keyframe arm (the atlas's local
+    map, rasters, K1 on both grids); IF(``mini_updated``) and
+    IF(``~mini_updated``) the first match on the coarse or the fine field;
+    the second match and the tests (moved, far, full); ``submap.spawn``
+    under ``moved & (far | full)``, its two arms (a new slot, or the full
+    pool's) writing the slot buffer, which holds the atlas's
+    ``n_submaps`` and ``active`` on the card as JAX's device ints; IF(
+    ``moved & mini_updated``) and IF(``moved & ~mini_updated``) the insert
+    with and without the refresh; and ``mini_updated := moved``.
+
+    ``advance(state, ranges)`` replays it and reads nothing on the host:
+    the state it returns carries the step's device bool as its
+    ``mini_updated`` and () int64 views of the slot buffer as its atlas's
+    ``n_submaps`` and ``active``; ``finish`` reads the three back (with the
+    arms' launch counts) in one copy. ``step(state, ranges)`` replays it
+    and reads the pose and the three in one 24-byte copy, for a caller that
+    needs each pose on the host. Scan 1 (``state.step == 1``) runs
+    eagerly. A state the step did not return (another step's, one the
+    paging or a feedback rewrote) is copied into the buffers first, its
+    slot ints included. ``self.pose`` and ``self.scan`` are the step's pose
+    and gated scan on the device (``scan`` None after an eager step), valid
+    until the next call. On the CPU the same body runs uncaptured on the
+    same buffers."""
 
     def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -225,48 +267,70 @@ class SubmapStepFn:
     def __call__(self, state: SubmapSlamState, ranges: torch.Tensor
                  ) -> tuple[SubmapSlamState, np.ndarray]:
         if state.step == 1:
-            ranges = ranges.to(self.device, non_blocking=True)
-            state, pose = slam_step(state, ranges, self.cfg, self.angles)
-            self.pose, self.scan = pose, None
-            return state, pose.cpu().numpy()
-        if state is not self.state:
-            self._load(state)
-        b = self.bufs
-        b.ranges.copy_(ranges, non_blocking=True)
-        refreshed = state.mini_updated
-        self.graphs.run(("head", refreshed), self._head_body(refreshed), b)
-        host = b.out.to("cpu", copy=True)   # a copy on the CPU too
-        moved, far, full = (bool(v) for v in host[3:])
-        atlas = state.atlas   # its host ints are the buffer's
-        if moved:
-            write = False
-            if far or full:
-                atlas, write = submap.spawned(atlas)
-                b.slots.copy_(submap.device_slots(atlas))
-            self.graphs.run(("tail", refreshed, write),
-                            self._tail_body(refreshed, write), b)
-        st = b.head.state
+            state = self._first(state, ranges)
+            return state, self.pose.cpu().numpy()
+        self._replay(state, ranges)
+        host = self.bufs.out.to("cpu", copy=True)   # a copy on the CPU too
+        st = self.state
         self.state = st._replace(
-            step=state.step + 1, mini_updated=moved,
-            atlas=st.atlas._replace(n_submaps=atlas.n_submaps,
-                                    active=atlas.active))
-        self.pose, self.scan = st.pose, b.head.scan
+            mini_updated=bool(host[3]),
+            atlas=st.atlas._replace(n_submaps=int(host[4]),
+                                    active=int(host[5])))
         return self.state, host[:3].numpy()
 
     def advance(self, state: SubmapSlamState, ranges: torch.Tensor
                 ) -> SubmapSlamState:
-        """The step without the pose on the host (``GraphSlam``'s chunk
-        loop); it still reads its tests, the spawn decisions being host
-        ints."""
-        return self(state, ranges)[0]
+        """One step with no host read after scan 1 (it runs under the sync
+        debug mode "error" on the card): the returned state's host fields
+        are the step's device values."""
+        if state.step == 1:
+            return self._first(state, ranges)
+        with graphs.no_host_sync(self.device):
+            self._replay(state, ranges)
+        return self.state
+
+    def finish(self, state: SubmapSlamState) -> SubmapSlamState:
+        """``state`` with its ``mini_updated``, ``n_submaps`` and
+        ``active`` read back to host values, and the step's conditional
+        launches counted: the run's one host read (``graphs.finish``)."""
+        return graphs.finish(self, state)
+
+    def _first(self, state: SubmapSlamState, ranges: torch.Tensor
+               ) -> SubmapSlamState:
+        """Scan 1, eagerly (its one host read: the tests)."""
+        ranges = ranges.to(self.device, non_blocking=True)
+        state, self.pose = slam_step(state, ranges, self.cfg, self.angles)
+        self.scan = None
+        return state
+
+    def _replay(self, state: SubmapSlamState, ranges: torch.Tensor) -> None:
+        if state is not self.state:
+            self._load(state)
+        b = self.bufs
+        b.ranges.copy_(ranges, non_blocking=True)
+        self.graphs.run("step", self._body, b)
+        st = b.head.state
+        self.state = st._replace(
+            step=state.step + 1, mini_updated=b.mini,
+            atlas=st.atlas._replace(n_submaps=b.slots[0],
+                                    active=b.slots[1]))
+        self.pose, self.scan = st.pose, b.head.scan
 
     def _load(self, state: SubmapSlamState) -> None:
+        # the slot ints live in ``slots``, the flag in ``mini``: each a host
+        # value, or another step's device one
+        ints = (state.atlas.n_submaps, state.atlas.active)
+        flag = state.mini_updated
+        state = state._replace(mini_updated=False, atlas=state.atlas._replace(
+            n_submaps=0, active=0))
         if self.bufs is None:
             n = self.cfg.lidar.n_beams
             f32 = dict(dtype=torch.float32, device=self.device)
             self.bufs = _Static(
                 ranges=torch.zeros(n, **f32),
-                slots=submap.device_slots(state.atlas).clone(),
+                mini=torch.zeros((), dtype=torch.bool, device=self.device),
+                slots=torch.zeros(2, dtype=torch.int64, device=self.device),
+                m1=torch.zeros(3, **f32),
                 head=SubmapHead(
                     state=graphs.clone_tree(state),
                     scan=sensor.empty_scan(n, self.device),
@@ -278,24 +342,45 @@ class SubmapStepFn:
                 out=torch.zeros(6, **f32))
         else:
             graphs.copy_into(self.bufs.head.state, state)
-            self.bufs.slots.copy_(submap.device_slots(state.atlas))
+        if isinstance(ints[0], torch.Tensor):
+            self.bufs.slots.copy_(torch.stack(ints))
+        else:
+            graphs.upload(self.bufs.slots, np.asarray(ints, np.int64))
+        if isinstance(flag, torch.Tensor):
+            self.bufs.mini.copy_(flag)
+        else:
+            self.bufs.mini.fill_(flag)
 
-    # The bodies take the buffers and keep the state's host fields of the
-    # arm they were captured for; the slot ints come from ``slots``.
-    def _head_body(self, refreshed: bool):
-        def body(b: _Static) -> None:
-            st = b.head.state._replace(step=2, mini_updated=refreshed)
-            head = submap_head(st, b.ranges, self.cfg, self.angles, b.slots)
-            graphs.copy_into(b.head, head)
-            b.out.copy_(torch.cat([b.head.state.pose,
-                                   b.head.tests.to(torch.float32)]))
-        return body
-
-    def _tail_body(self, refreshed: bool, write: bool):
-        def body(b: _Static) -> None:
-            graphs.copy_into(b.head.state, submap_tail(
-                b.head, refreshed, write, self.cfg, b.slots))
-        return body
+    def _body(self, b: _Static) -> None:
+        """The step on the buffers; the state's host fields are those of a
+        step after the first (its guess uses the velocity)."""
+        cfg = self.cfg
+        st = b.head.state._replace(step=2)
+        scan = sensor.read_scan(b.ranges, self.angles, cfg.lidar)
+        maps = _maps(st)
+        graphs.cond(b.mini, lambda: graphs.copy_into(
+            maps, _keyframe_maps(st, scan, cfg, b.slots)))
+        guess = st.pose + (st.pose - st.prev_pose)
+        coarse, fine, coarse_metric, fine_metric = maps[:4]
+        graphs.cond(
+            b.mini,
+            lambda: b.m1.copy_(_first_match(coarse_metric, coarse, scan,
+                                            guess, cfg).pose),
+            lambda: b.m1.copy_(_first_match(fine_metric, fine, scan, guess,
+                                            cfg).pose))
+        graphs.copy_into(b.head, _head_end(st, scan, maps, b.m1, cfg,
+                                           b.slots))
+        moved, far, full = b.head.tests
+        new = b.head.state
+        submap.spawn(new.atlas, new.pose, b.slots, moved & (far | full))
+        for refreshed in (True, False):
+            mini = b.mini if refreshed else torch.logical_not(b.mini)
+            graphs.cond(moved & mini,
+                        lambda r=refreshed: graphs.copy_into(
+                            new, _insert(b.head, r, cfg, b.slots)))
+        b.mini.copy_(moved)
+        b.out.copy_(torch.cat([new.pose, moved.to(torch.float32)[None],
+                               b.slots.to(torch.float32)]))
 
 
 def make_step_fn(cfg: SlamConfig, device: str | torch.device = "cuda"
@@ -313,7 +398,8 @@ def run_host_loop(ranges_all: np.ndarray, cfg: SlamConfig,
                   device: str | torch.device = "cuda"
                   ) -> tuple[np.ndarray, SubmapSlamState]:
     """Streaming run through ``make_step_fn``: each pose copied to the host
-    as it is produced. Returns (path (T, 3) numpy, final state)."""
+    as it is produced, one read a scan (JAX's ``run_host_loop``). Returns
+    (path (T, 3) numpy, final state)."""
     ranges = _as_ranges(ranges_all, device)
     step = make_step_fn(cfg, ranges.device)
     state = init_state(ranges[0], cfg)
@@ -321,14 +407,17 @@ def run_host_loop(ranges_all: np.ndarray, cfg: SlamConfig,
     for t in range(1, ranges.shape[0]):
         state, pose = step(state, ranges[t])
         poses.append(pose)
-    return np.stack(poses), graphs.clone_tree(state)
+    return np.stack(poses), graphs.clone_tree(step.finish(state))
 
 
 def run_scan(ranges_all: np.ndarray, cfg: SlamConfig,
              device: str | torch.device = "cuda"
              ) -> tuple[torch.Tensor, SubmapSlamState]:
-    """Whole-log run through ``make_step_fn``: each pose is written into a
-    (T, 3) tensor on the device. Returns (that path, final state)."""
+    """Whole-log run through ``make_step_fn`` (JAX's ``lax.scan`` over the
+    tour): each pose is written into a (T, 3) tensor on the device, scans
+    2.. with no host sync (``SubmapStepFn.advance``), and the final state's
+    host fields come back in one read at the end. Returns (that path, final
+    state)."""
     ranges = _as_ranges(ranges_all, device)
     step = make_step_fn(cfg, ranges.device)
     state = init_state(ranges[0], cfg)
@@ -336,6 +425,6 @@ def run_scan(ranges_all: np.ndarray, cfg: SlamConfig,
                        device=ranges.device)
     path[0] = state.pose
     for t in range(1, ranges.shape[0]):
-        state, _ = step(state, ranges[t])
+        state = step.advance(state, ranges[t])
         path[t] = step.pose
-    return path, graphs.clone_tree(state)
+    return path, graphs.clone_tree(step.finish(state))

@@ -264,22 +264,49 @@ def fetch(*tensors: torch.Tensor, runners=()) -> list[np.ndarray]:
     return [h.numpy() for h in hosts]
 
 
-def finish(step, state):
-    """A step object's (``step.graphs``, ``step.state``) ``state`` with its
-    ``mini_updated`` read back to a host bool (a device bool after a step
-    that read nothing on the host) and the step's conditional launches
-    counted, in one ``fetch``. The step keeps the result as its own state
-    if ``state`` was."""
-    mine = state is step.state
-    flag = state.mini_updated
-    if isinstance(flag, torch.Tensor):
-        (host,) = fetch(flag, runners=[step.graphs])
-        state = state._replace(mini_updated=bool(host))
-    else:
-        fetch(runners=[step.graphs])
-    if mine:
-        step.state = state
+# The fields of a state that are host values in the eager steps and that a
+# captured step which read nothing on the host returns as device tensors:
+# its keyframe flag and, for the submap step, the atlas's slot ints.
+HOST_FIELDS = (("mini_updated",), ("atlas", "n_submaps"), ("atlas", "active"))
+
+
+def _field(state, path):
+    for name in path:
+        state = getattr(state, name, None)
     return state
+
+
+def _with_field(state, path, value):
+    if len(path) == 1:
+        return state._replace(**{path[0]: value})
+    return state._replace(**{path[0]: _with_field(
+        getattr(state, path[0]), path[1:], value)})
+
+
+def settle(step, state, *tensors):
+    """A run's one host read for a step object (``step.graphs``, None for
+    an eager step, and ``step.state``): ``tensors``, the ``HOST_FIELDS`` of
+    ``state`` that are device tensors and the step's arm counters come to
+    the host in one ``fetch``. Returns (``state`` with those fields as host
+    values, the tensors as numpy arrays). The step keeps the result as its
+    own state if ``state`` was, so its next call loads nothing."""
+    paths = [p for p in HOST_FIELDS
+             if isinstance(_field(state, p), torch.Tensor)]
+    runners = [] if step.graphs is None else [step.graphs]
+    hosts = fetch(*tensors, *(_field(state, p) for p in paths),
+                  runners=runners)
+    new = state
+    for p, h in zip(paths, hosts[len(tensors):]):
+        new = _with_field(new, p, h.item())
+    if state is getattr(step, "state", None):
+        step.state = new
+    return new, hosts[:len(tensors)]
+
+
+def finish(step, state):
+    """``state`` with its device host fields read back (``settle``) and the
+    step's conditional launches counted, in one ``fetch``."""
+    return settle(step, state)[0]
 
 
 class Graphs:

@@ -6,7 +6,8 @@ number. ``PagedAtlas.manage`` archives cold submaps (anchors far from the
 robot) to host memory and reloads them when the trajectory comes back, so
 the card holds M * Ns points whatever the tour. It runs between steps at
 keyframe rate on host numpy: the atlas comes to the host in one copy and,
-when anything changed, goes back in one copy.
+when anything changed, goes back in one copy, which the captured step
+loads at its next call.
 
 Archived submaps keep their points in the anchor frame, so a pose-graph
 correction while one is paged out rewrites only its (3,) anchor.
@@ -155,22 +156,24 @@ class PagedAtlas:
 def run_host_loop_paged(ranges_all: np.ndarray, cfg, paged: PagedAtlas,
                         manage_every: int = 16,
                         device: str | torch.device = "cuda"):
-    """Host loop with paging every ``manage_every`` scans: unbounded
-    maps on a fixed device pool. Paging rewrites the atlas between steps,
-    so the loop runs the eager ``slam_step``. Returns (path (T, 3) numpy,
-    final state)."""
+    """Host loop with paging every ``manage_every`` scans: unbounded maps on
+    a fixed device pool (JAX's ``run_host_loop_paged``). The loop drives
+    the captured step (``submap_slam.make_step_fn``) and reads one pose a
+    scan, with the state's host fields in the same copy; a paged atlas (its
+    slot ints included) enters the step through its next call, which loads
+    a state it did not return. Returns (path (T, 3) numpy, final state)."""
     from lidar_slam_tpu_torch.models import submap_slam
-    from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor
+    from lidar_slam_tpu_torch.utils import graphs
 
     ranges = submap_slam._as_ranges(ranges_all, device)
-    angles = angles_tensor(cfg, ranges.device)
+    step = submap_slam.make_step_fn(cfg, ranges.device)
     state = submap_slam.init_state(ranges[0], cfg)
     poses = [np.zeros(3, np.float32)]
     for t in range(1, ranges.shape[0]):
-        state, pose = submap_slam.slam_step(state, ranges[t], cfg, angles)
-        poses.append(pose.cpu().numpy())
+        state, pose = step(state, ranges[t])
+        poses.append(pose)
         if t % manage_every == 0:
-            new_atlas = paged.manage(state.atlas, poses[-1])
+            new_atlas = paged.manage(state.atlas, pose)
             if new_atlas is not state.atlas:
                 state = state._replace(atlas=new_atlas)
-    return np.stack(poses), state
+    return np.stack(poses), graphs.clone_tree(step.finish(state))

@@ -6,6 +6,8 @@ hook in the port."""
 import os
 import time
 
+import torch
+
 from lidar_slam_tpu_torch.models import fastslam
 from lidar_slam_tpu_torch.utils import watchdog
 
@@ -45,9 +47,21 @@ def _stale_beat_then_hang(run_dir: str) -> None:
     time.sleep(3600)
 
 
+# torch threads of a worker that computes: two, as in the test processes
+# (``_torch_util``). With torch's default of one a core, the spawned PF
+# child's 11 steps took 4.5-14.2 s beside five busy test workers running
+# JAX (a step up to 3.7 s), against 0.2-5.2 s on two threads (a step up to
+# 1.4 s; 8 cores, ``tests/_watchdog_threads.py``); in a loaded tier-1 run
+# the resumed attempt of ``test_resume_after_a_wedge_matches_run_pf`` fell
+# silent for the 15 s stall timeout and was killed a second time.
+WORKER_THREADS = 2
+
+
 def _wedging_pf_worker(run_dir, ranges, cfg, seed, ckpt_every, device,
                        wedge_at):
-    """``pf_worker`` whose first attempt wedges before scan ``wedge_at``."""
+    """``pf_worker`` whose first attempt wedges before scan ``wedge_at``,
+    on ``WORKER_THREADS`` torch threads."""
+    torch.set_num_threads(WORKER_THREADS)
     marker = os.path.join(run_dir, "attempted")
     if not os.path.exists(marker):
         open(marker, "w").close()

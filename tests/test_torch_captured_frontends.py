@@ -135,29 +135,72 @@ def _eager_submap(ranges, cfg):
 
 def test_submap_run_equals_eager_through_spawns_and_a_full_pool(
         small_dataset, monkeypatch):
-    """Every slot of the pool is opened, then the pool-full branch is taken
-    (``spawned`` on a full pool), and the captured drivers equal the eager
-    loop: path, atlas (points, sizes, anchors, slot ints) and state."""
+    """Every slot of the pool is opened, then the pool-full branch is taken,
+    by the eager loop (``spawned`` on the host ints) and by the captured
+    step's device spawn (``open_next_slot`` / ``keep_last_slot``, arms of
+    one graph): the same spawns in the same order. The captured drivers
+    equal the eager loop: path, atlas (points, sizes, anchors, slot ints)
+    and state, whose host fields ``finish`` reads back as host values."""
     ranges, _ = small_dataset
-    full_pool = []
+    full_pool = []   # a spawn each: True where the pool was full
     spawned = submap.spawned
+    opened, kept = submap.open_next_slot, submap.keep_last_slot
 
     def counting(atlas):
         full_pool.append(atlas.n_submaps >= atlas.pts.shape[0])
         return spawned(atlas)
 
+    def open_counting(*args):
+        full_pool.append(False)
+        opened(*args)
+
+    def keep_counting(*args):
+        full_pool.append(True)
+        kept(*args)
+
     monkeypatch.setattr(submap, "spawned", counting)
+    monkeypatch.setattr(submap, "open_next_slot", open_counting)
+    monkeypatch.setattr(submap, "keep_last_slot", keep_counting)
     want, want_state = _eager_submap(ranges, POOL_CFG)
-    n_eager = len(full_pool)
+    spawns = list(full_pool)
+    assert sum(spawns) > 0 and len(spawns) > 4
+    full_pool.clear()
     path, state = tss.run_scan(ranges, POOL_CFG, device="cpu")
-    assert full_pool[n_eager:] == full_pool[:n_eager]
-    assert sum(full_pool[n_eager:]) > 0 and n_eager > 4
+    assert full_pool == spawns
     assert torch.equal(path, want)
     assert_tree_equal(state, want_state)
     assert state.atlas.n_submaps == 4 and state.atlas.active == 3
+    assert all(type(v) is t for v, t in (
+        (state.atlas.n_submaps, int), (state.atlas.active, int),
+        (state.mini_updated, bool)))
+    full_pool.clear()
     host, hstate = tss.run_host_loop(ranges, POOL_CFG, device="cpu")
+    assert full_pool == spawns
     assert np.array_equal(host, want.numpy())
     assert_tree_equal(hstate, want_state)
+
+
+def test_submap_advance_returns_the_slot_buffer_and_finish_reads_it(
+        small_dataset):
+    """``advance`` returns the step's device flag and () views of its slot
+    buffer as the state's host fields; a step fed that state (another
+    step's) loads them, and ``finish`` reads them back: the eager loop's
+    values at every scan."""
+    ranges, _ = small_dataset
+    r = torch.as_tensor(ranges)
+    angles = angles_tensor(POOL_CFG, "cpu")
+    a, b = (tss.make_step_fn(POOL_CFG, "cpu") for _ in range(2))
+    state = want = tss.init_state(r[0], POOL_CFG)
+    for t in range(1, len(r)):
+        want, _ = tss.slam_step(want, r[t], POOL_CFG, angles)
+        state = (a if t % 3 else b).advance(state, r[t])
+        if t > 1:
+            assert isinstance(state.atlas.n_submaps, torch.Tensor)
+            assert isinstance(state.mini_updated, torch.Tensor)
+        got = (a if t % 3 else b).finish(state)
+        assert (got.atlas.n_submaps, got.atlas.active, got.mini_updated) \
+            == (want.atlas.n_submaps, want.atlas.active, want.mini_updated), t
+    assert_tree_equal(graphs.clone_tree(got), want)
 
 
 def test_submap_step_takes_a_state_it_did_not_return(small_dataset):

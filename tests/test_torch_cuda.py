@@ -803,6 +803,38 @@ def test_captured_submap_equals_eager_on_the_card(cuda):
         assert torch.equal(getattr(got.atlas, f), getattr(state.atlas, f)), f
 
 
+def test_captured_paged_loop_equals_eager_on_the_card(cuda):
+    """The paged host loop (pool of 4, paging every 4 scans) through the
+    captured step equals the same loop with the eager ``slam_step``: path,
+    pages, archive and final atlas, with the same K1 launches by shape."""
+    import dataclasses
+
+    from _eager_loops import eager_paged
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, SubmapConfig
+    from lidar_slam_tpu_torch.utils import paging
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, submaps=SubmapConfig(
+        n_submaps=4, submap_capacity=512, k_nearest=2, spawn_dist=0.4,
+        spawn_fill_frac=0.8))
+    ranges, _ = _museum(120)
+    runs = []
+    for run in (eager_paged, paging.run_host_loop_paged):
+        _reset_launches()
+        paged = paging.PagedAtlas(near_dist=1.0, keep_free=2)
+        path, final = run(ranges, cfg, paged, manage_every=4, device=cuda)
+        runs.append((path, final, paged, _launches_by_shape()))
+    (epath, efinal, epaged, ecounts), (path, final, paged, counts) = runs
+    assert counts == ecounts and counts[0]
+    assert np.array_equal(path, epath)
+    assert (paged.pages_out, paged.pages_in) == (epaged.pages_out,
+                                                 epaged.pages_in) != (0, 0)
+    assert (final.atlas.n_submaps, final.atlas.active) == (
+        efinal.atlas.n_submaps, efinal.atlas.active)
+    for f in ("pts", "sizes", "anchors"):
+        assert torch.equal(getattr(final.atlas, f),
+                           getattr(efinal.atlas, f)), f
+
+
 @pytest.mark.parametrize("draws_from", ["generator", "numpy"])
 def test_captured_ekf_equals_eager_on_the_card(cuda, draws_from):
     """EKF-1024 ML association over 60 museum scans and the known-
@@ -1046,6 +1078,17 @@ def _no_sync_case(driver, cuda):
     r = torch.as_tensor(ranges, device=cuda)
     cfg = DEFAULT_CONFIG
     angles = scan_matcher.angles_tensor(cfg, cuda)
+    if driver == "submap":   # a pool of 4 small submaps: it fills
+        from lidar_slam_tpu_torch.config import SubmapConfig
+        from lidar_slam_tpu_torch.models import submap_slam
+
+        scfg = dataclasses.replace(cfg, submaps=SubmapConfig(
+            n_submaps=4, submap_capacity=512, k_nearest=2, spawn_dist=0.4,
+            spawn_fill_frac=0.8))
+        return (lambda: submap_slam.make_step_fn(scfg, cuda),
+                lambda: submap_slam.init_state(r[0], scfg),
+                lambda t: (r[t],),
+                lambda s, t: submap_slam.slam_step(s, r[t], scfg, angles))
     if driver == "fidelity":
         return (lambda: scan_matcher.make_step_fn(cfg, cuda),
                 lambda: scan_matcher.init_state(r[0], cfg),
@@ -1076,13 +1119,14 @@ def _no_sync_case(driver, cuda):
                 n_det=inputs(t)[4]))
 
 
-@pytest.mark.parametrize("driver", ["fidelity", "pf", "hybrid"])
+@pytest.mark.parametrize("driver", ["fidelity", "pf", "hybrid", "submap"])
 def test_no_sync_driver_equals_eager_under_the_sync_error_mode(cuda,
                                                                driver):
     """Scans 2..T-1 through ``advance`` (and the path's row writes) under
     the sync debug mode "error" raise nothing; the path, the final state's
-    host ``mini_updated`` and the K1/K2 launches by shape (read back by
-    ``finish``) equal the eager loop's."""
+    host ``mini_updated`` (and the submap atlas's slot ints, its pool full)
+    and the K1/K2 launches by shape (read back by ``finish``) equal the
+    eager loop's."""
     make_step, init, inputs, eager_step = _no_sync_case(driver, cuda)
     _reset_launches()
     state = init()
@@ -1106,12 +1150,19 @@ def test_no_sync_driver_equals_eager_under_the_sync_error_mode(cuda,
     assert torch.equal(torch.stack(path), torch.stack(want))
     assert type(got.mini_updated) is bool
     assert got.mini_updated == state.mini_updated
+    if driver == "submap":
+        ints = (got.atlas.n_submaps, got.atlas.active)
+        assert all(type(v) is int for v in ints)
+        assert ints == (state.atlas.n_submaps, state.atlas.active) == (4, 3)
+        for f in ("pts", "sizes", "anchors"):
+            assert torch.equal(getattr(got.atlas, f),
+                               getattr(state.atlas, f)), f
     assert _launches_by_shape() == eager and eager[0]
     if driver != "hybrid":   # the hybrid: one graph a detection count
         assert len(step.graphs) == 1
 
 
-@pytest.mark.parametrize("frontend", ["graph", "pf-graph"])
+@pytest.mark.parametrize("frontend", ["graph", "pf-graph", "submap-graph"])
 def test_no_sync_graph_frontend_steps_on_the_card(cuda, frontend):
     """160 loop-tour scans in chunks of 32: every frontend step after scan 1
     runs under the sync debug mode "error", and the run equals
@@ -1122,6 +1173,7 @@ def test_no_sync_graph_frontend_steps_on_the_card(cuda, frontend):
     from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, ParticleConfig
     from lidar_slam_tpu_torch.io import simulate
     from lidar_slam_tpu_torch.models import graph_slam, pf_graph_slam
+    from lidar_slam_tpu_torch.models.submap_graph_slam import SubmapGraphSlam
 
     class Strict:
         """A frontend whose captured step raises on any host sync."""
@@ -1165,6 +1217,8 @@ def test_no_sync_graph_frontend_steps_on_the_card(cuda, frontend):
         _reset_launches()
         if frontend == "pf-graph":
             gs = pf_graph_slam.PFGraphSlam(cfg, lc, device=cuda, eager=eager)
+        elif frontend == "submap-graph":
+            gs = SubmapGraphSlam(cfg, lc, device=cuda, eager=eager)
         else:
             gs = graph_slam.GraphSlam(cfg, lc, device=cuda, eager=eager)
         if not eager:
@@ -1178,3 +1232,8 @@ def test_no_sync_graph_frontend_steps_on_the_card(cuda, frontend):
     assert len(g.frontend.step.graphs) == 1
     assert type(g.final_state.mini_updated) is bool
     assert g.final_state.mini_updated == e.final_state.mini_updated
+    if frontend == "submap-graph":
+        a, b = g.final_state.atlas, e.final_state.atlas
+        assert type(a.n_submaps) is int and a.n_submaps >= 2
+        assert (a.n_submaps, a.active) == (b.n_submaps, b.active)
+        assert g.anchor_assoc.keys() == e.anchor_assoc.keys()

@@ -286,7 +286,11 @@ def test_paging_reloads_near_submaps():
 
 def test_paging_matches_jax(small_dataset):
     """The paged host loop against JAX's on the paging test's config: the same
-    path, pages and archive."""
+    path, pages and archive; and, bit for bit, against the same loop with
+    the eager ``slam_step`` in place of the captured step (path, pages,
+    archive and final state, the slot ints host values)."""
+    from _eager_loops import eager_paged
+    from _torch_util import assert_tree_equal
     from lidar_slam_tpu.utils import paging as jpaging
 
     ranges, _ = small_dataset
@@ -294,12 +298,21 @@ def test_paging_matches_jax(small_dataset):
               spawn_fill_frac=0.8)
     jp = jpaging.PagedAtlas(near_dist=1.0, keep_free=2)
     tp = paging.PagedAtlas(near_dist=1.0, keep_free=2)
+    ep = paging.PagedAtlas(near_dist=1.0, keep_free=2)
     jpath, jstate = jpaging.run_host_loop_paged(
         ranges, dataclasses.replace(JCFG, submaps=JSub(**kw)), jp,
         manage_every=4)
-    tpath, tstate = paging.run_host_loop_paged(
-        ranges, dataclasses.replace(TCFG, submaps=TSub(**kw)), tp,
-        manage_every=4, device="cpu")
+    tcfg = dataclasses.replace(TCFG, submaps=TSub(**kw))
+    tpath, tstate = paging.run_host_loop_paged(ranges, tcfg, tp,
+                                               manage_every=4, device="cpu")
+    epath, estate = eager_paged(ranges, tcfg, ep, manage_every=4)
+    assert np.array_equal(tpath, epath)
+    assert_tree_equal(tstate, estate)
+    assert type(tstate.atlas.n_submaps) is int
+    assert (tp.pages_out, tp.pages_in) == (ep.pages_out, ep.pages_in) != (0, 0)
+    assert all(np.array_equal(a.pts, b.pts) and np.array_equal(a.anchor,
+                                                               b.anchor)
+               for a, b in zip(tp.archive, ep.archive, strict=True))
     np.testing.assert_allclose(tpath, jpath, atol=PATH_TOL, rtol=0)
     assert (tp.pages_out, tp.pages_in) == (jp.pages_out, jp.pages_in)
     assert len(tp.archive) == len(jp.archive)

@@ -38,11 +38,21 @@ def runs():
     jpath, jopt = jg.run(ranges, chunk_size=32)
     tg = SubmapGraphSlam(TCFG, tgs.LoopClosureConfig(min_gap=3), device="cpu")
     tpath, topt = tg.run(ranges, chunk_size=32)
-    return (tg, tpath, topt), (jg, jpath, jopt), gt
+    eg = SubmapGraphSlam(TCFG, tgs.LoopClosureConfig(min_gap=3), device="cpu",
+                         eager=True)
+    epath, eopt = eg.run(ranges, chunk_size=32)
+    return (tg, tpath, topt), (jg, jpath, jopt), gt, (eg, epath, eopt)
 
 
 def test_submap_graph_run_matches_jax(runs):
-    (tg, tpath, topt), (jg, jpath, jopt), gt = runs
+    """The captured run (the one-graph submap step, its slot ints read once
+    a chunk) equals the eager run bit for bit and JAX's within the
+    module's tolerances."""
+    (tg, tpath, topt), (jg, jpath, jopt), gt, (eg, epath, eopt) = runs
+    assert np.array_equal(tpath, epath) and np.array_equal(topt, eopt)
+    assert tg.closures == eg.closures and tg.path_epoch == eg.path_epoch
+    assert tg.anchor_assoc.keys() == eg.anchor_assoc.keys()
+    assert type(tg.final_state.atlas.n_submaps) is int
     assert tg.kf.count == jg.kf.count > 15
     assert len(tg.closures) >= 1
     assert tg.closures == jg.closures
@@ -56,7 +66,7 @@ def test_submap_graph_run_matches_jax(runs):
 def test_anchor_association_matches_jax(runs):
     """Every submap tied to the same keyframe by the same rigid relation,
     and the final anchors (re-anchored by the feedback) alike."""
-    (tg, _, _), (jg, _, _), _ = runs
+    (tg, _, _), (jg, _, _), _, _ = runs
     n = tg.final_state.atlas.n_submaps
     assert n >= 2
     assert set(tg.anchor_assoc) == set(range(n))
@@ -71,7 +81,7 @@ def test_anchor_association_matches_jax(runs):
 
 
 def test_world_map_matches_jax(runs):
-    (tg, _, _), (jg, _, _), _ = runs
+    (tg, _, _), (jg, _, _), _, _ = runs
     got = tg.world_map(tg.final_state)
     want = jg.world_map(jg.final_state)
     assert len(got) > 100 and np.isfinite(got).all()
