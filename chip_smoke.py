@@ -19,6 +19,9 @@ parallel layer on an NCCL world of one) and checks the results:
    (``utils/graphs.cond``: the port's C++, ``csrc/graph_cond.cu``);
 2. kernel build (one nvcc a source, in parallel; sm_90a, --fmad=false) and
    the C++ oracle build (g++);
+   2b. a CUDA graph WHILE node (``utils/graphs.while_loop``) in one graph
+   replayed with device counts 16, 0, 3 and 0: its body runs that many
+   times (none for 0) and ``fetch`` books the 19 iterations;
 3. K1 clamped EDT == plain, exactly, on random grids and museum rasters;
 4. K2 correlation volume == plain, exactly, on quantized EDT fields;
    4b. batched K2 == plain on real loop-tour keyframe rasters (B=8, T=21,
@@ -81,12 +84,16 @@ parallel layer on an NCCL world of one) and checks the results:
     launched (> 0);
 11. EKF (``--mode ekf``), museum-1000, ``long_tour_config(1024)``,
     captured (``EkfStepFn``; phase 12's hybrid and 13's submap runs
-    through ``HybridStepFn`` and ``submap_slam.make_step_fn``): ATE
-    printed; 100 scans on the card and on the CPU with the same numpy-made
-    draws, max |pose difference| <= 1e-3; museum-400 with the config of
+    through ``HybridStepFn`` and ``submap_slam.make_step_fn``): the step
+    object the run made holds one graph for every detection count, and its
+    WHILE node's iterations equal the valid detection rows; ATE printed;
+    100 scans on the card and on the CPU with the same numpy-made draws,
+    max |pose difference| <= 1e-3; museum-400 with the config of
     ``tests/test_ekf_slam.py``'s museum test: ATE < 0.15 m;
 12. hybrid EKF (``--mode ekf-hybrid``), museum-1000, ``long_tour_config
-    (1024)``: ATE printed; 100 scans card against CPU, <= 1e-3; museum-500
+    (1024)``: one graph, its WHILE node's iterations == the valid rows of
+    scans 2..T-1 (scan 1 is the eager seed step); ATE printed; 100 scans
+    card against CPU, <= 1e-3; museum-500
     at 512 particles: ATE < 0.12 m and below the landmark-only filter's +
     0.02 m;
 13. submap SLAM (``--mode submap``), museum-1000, ``DEFAULT_CONFIG``,
@@ -101,11 +108,19 @@ parallel layer on an NCCL world of one) and checks the results:
 14. submap graph SLAM (``--mode submap-graph``), loop-700: >= 1 closure,
     ATE < 0.1 m, graph error per edge < 1, >= 2 submaps all tied to a
     keyframe, map within the tour's extent + 30 m;
-    14c. captured against eager: the eager loops (``GraphSlam(eager=True)``,
-    frontend and backend eager; ``slam_step`` / ``ekf_slam_step_ml`` /
-    ``hybrid_step`` a scan) equal phases 8, 9 (without feedback), 10, 13
-    and 14 and captured EKF-1024 and hybrid-EKF-1024 runs on the first 300
-    museum scans (``np.array_equal``), with the same K1/K2 launches by
+    14c. captured against eager: captured EKF-1024 and hybrid-EKF-1024 runs
+    on the first 300 museum scans (one graph each, the WHILE node's
+    iterations == the valid rows, graphs, pool bytes and capture seconds);
+    each filter's pre-pass, then the filter from its inputs under the sync
+    debug mode: at most one host sync (the final read) after the
+    pre-pass; the pre-pass split into the detector, the batched
+    ``read_scans`` and the matcher's chunk graphs, against the eager chunk
+    loop (``read_scan`` a scan, ``match_batch`` a chunk): the same deltas
+    (``torch.equal``) and K1 launches by shape, both timed; the eager
+    loops (``GraphSlam(eager=True)``, frontend and backend eager;
+    ``slam_step`` / ``ekf_slam_step_ml`` / ``hybrid_step`` a scan) equal
+    phases 8, 9 (without feedback), 10, 13 and 14 and those filter runs
+    (``np.array_equal``), with the same K1/K2 launches by
     shape; the graph runs' closures, attempt logs and keyframe poses equal
     too, and each backend stage's seconds and share of its run print
     eager against captured; graph loop-700 captured once more in the same
@@ -115,7 +130,7 @@ parallel layer on an NCCL world of one) and checks the results:
     device ops, device time and host syncs a scan and the busy share (the
     graph runs profile that window from inside their chunk loop); the
     captured steps' graph count and pool bytes; the host syncs of a whole
-    hybrid run and submap ``run_scan``, and those of the graph, PF-graph
+    EKF and hybrid run and submap ``run_scan``, and those of the graph, PF-graph
     and submap-graph frontends' steps over a whole ``GraphSlam.run`` (sync
     debug mode "warn"), equal on the first 200 scans and on the tour, and
     the tour's scans/s run again;
@@ -416,8 +431,8 @@ def eager_paged(ranges, cfg, paged, manage_every, dev):
 
 def eager_ekf(ranges, ecfg, cfg, dev):
     """The eager scan-driven EKF (``run_ekf_slam_scan``'s pre-pass, then
-    ``ekf_slam_step_ml`` a scan, seed 0): (path (T, 3) numpy, final
-    state)."""
+    ``ekf_slam_step_ml`` a scan given its detection count, seed 0): (path
+    (T, 3) numpy, final state)."""
     import torch
 
     from lidar_slam_tpu_torch.models import ekf_slam
@@ -426,49 +441,93 @@ def eager_ekf(ranges, ecfg, cfg, dev):
         ranges, ecfg, cfg.lidar, ekf_slam.LONG_TOUR_MAX_RANGE, device=dev)
     state = ekf_slam.init_ekf_slam(ecfg, 0, dev)
     poses = [torch.zeros(3, device=dev)]
-    for t in range(obs.shape[0]):
+    for t, n_det in enumerate(counts.tolist()):
         state, est = ekf_slam.ekf_slam_step_ml(
-            state, obs[t], valid[t], ecfg, odo=odo[t], n_det=int(counts[t]))
+            state, obs[t], valid[t], ecfg, odo=odo[t], n_det=n_det)
         poses.append(est)
     return torch.stack(poses).cpu().numpy(), state
-
-
-def hybrid_inputs(ranges, cfg, dev):
-    """``run_ekf_hybrid``'s pre-pass: (ranges on the card, detections,
-    scan odometry, detection counts on the host)."""
-    import numpy as np
-    import torch
-
-    from lidar_slam_tpu_torch.models import scan_matcher
-    from lidar_slam_tpu_torch.ops import landmarks
-    from lidar_slam_tpu_torch.ops.scan_odometry import pairwise_odometry
-
-    r = torch.as_tensor(np.asarray(ranges, np.float32), device=dev)
-    angles = scan_matcher.angles_tensor(cfg, dev)
-    det = landmarks.extract_corners(
-        r, angles, range_min=cfg.lidar.range_min,
-        usable_range=cfg.lidar.usable_range, max_range=12.0)
-    odo = pairwise_odometry(r, angles, cfg.lidar)
-    return r, det, odo, det.count.cpu().numpy()
 
 
 def eager_hybrid(ranges, ecfg, cfg, dev):
     """The eager hybrid loop (``run_ekf_hybrid``'s pre-pass, then
-    ``hybrid_step`` a scan, seed 0): (path (T, 3) numpy, final state)."""
+    ``hybrid_step`` a scan given its detection count, seed 0): (path
+    (T, 3) numpy, final state)."""
     import torch
 
     from lidar_slam_tpu_torch.models import ekf_hybrid, scan_matcher
 
-    r, det, odo, counts = hybrid_inputs(ranges, cfg, dev)
+    r, det, odo, _ = ekf_hybrid.hybrid_inputs(ranges, cfg, device=dev)
     angles = scan_matcher.angles_tensor(cfg, dev)
     state = ekf_hybrid.init_hybrid(r[0], ecfg, cfg, 0)
     poses = [torch.zeros(3, device=dev)]
+    counts = det.count.tolist()
     for t in range(1, len(r)):
         state, est = ekf_hybrid.hybrid_step(
             state, r[t], det.rb[t], det.valid[t], odo[t - 1], ecfg, cfg,
-            angles, n_det=int(counts[t]))
+            angles, n_det=counts[t])
         poses.append(est)
     return torch.stack(poses).cpu().numpy(), state
+
+
+def eager_pairwise(r, angles, lidar_cfg):
+    """``pairwise_odometry`` as an eager loop, its form before the batched
+    read and the chunk graphs: ``read_scan`` a scan, then ``match_batch`` a
+    chunk of 50 pairs with the pre-pass's settings. Returns (the deltas,
+    the seconds of the reads, of the chunks)."""
+    import torch
+
+    from lidar_slam_tpu_torch.core import sensor
+    from lidar_slam_tpu_torch.ops import scan_odometry
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scans = [sensor.read_scan(x, angles, lidar_cfg) for x in r]
+    x, y, v = (torch.stack([getattr(sc, f) for sc in scans])
+               for f in ("x", "y", "valid"))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = []
+    for a in range(0, r.shape[0] - 1, 50):
+        b = min(a + 50, r.shape[0] - 1)
+        out.append(scan_odometry.match_batch(
+            x[a:b], y[a:b], v[a:b], x[a + 1:b + 1], y[a + 1:b + 1],
+            v[a + 1:b + 1], torch.zeros((b - a, 3), device=r.device),
+            max_range=10.0, pixel=0.05, size=448, iters=7, step_t0=0.03,
+            step_r0=0.03))
+    out = torch.cat(out)
+    torch.cuda.synchronize()
+    return out, t1 - t0, time.perf_counter() - t1
+
+
+class StepsMade:
+    """Inside ``with``, every object made of ``module``'s class ``name``
+    (the step object a driver makes for itself, as ``run_ml`` makes its
+    ``EkfStepFn``) is kept in ``made``."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.made = module, name, []
+
+    def __enter__(self):
+        cls, made = getattr(self.module, self.name), self.made
+
+        class Kept(cls):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                made.append(self)
+
+        self._cls = cls
+        setattr(self.module, self.name, Kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._cls)
+        return False
+
+
+def loop_iterations(runner) -> int:
+    """The iterations the WHILE bodies of a ``Graphs`` ran, as its last
+    ``fetch`` booked them."""
+    return sum(a.settled for a in runner.arms if a.kind == "while")
 
 
 class ProfileWindow:
@@ -619,6 +678,12 @@ class SyncCount:
 
     def count(self) -> int:
         return sum("synchroniz" in str(w.message) for w in self._caught)
+
+    def where(self, since: int = 0) -> list[str]:
+        """file:line of each host sync after the first ``since``."""
+        syncs = [w for w in self._caught if "synchroniz" in str(w.message)]
+        return [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+                for w in syncs[since:]]
 
 
 class StepSyncs:
@@ -1233,8 +1298,9 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
     from lidar_slam_tpu_torch.utils import graphs
     binding = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
-    print(f"[1] CUDA graph conditional nodes (utils/graphs.cond) recorded "
-          f"by {graphs.IF_NODE_ROUTE}; torch's own binding "
+    print(f"[1] CUDA graph conditional nodes (utils/graphs.cond: IF; "
+          f"utils/graphs.while_loop: WHILE) recorded by "
+          f"{graphs.IF_NODE_ROUTE}; torch's own binding "
           f"(CUDAGraph.begin_capture_to_if_node) "
           f"{'present' if binding else 'absent'}", flush=True)
 
@@ -1253,7 +1319,8 @@ def main() -> int:
                                              submap_slam)
     from lidar_slam_tpu_torch.models.submap_graph_slam import SubmapGraphSlam
     from lidar_slam_tpu_torch.utils import paging
-    from lidar_slam_tpu_torch.ops import correlative, cuda_edt, cuda_match
+    from lidar_slam_tpu_torch.ops import (correlative, cuda_edt, cuda_match,
+                                          landmarks)
     from lidar_slam_tpu_torch.ops import edt as edt_ops
     from lidar_slam_tpu_torch.ops import scan_odometry
 
@@ -1269,6 +1336,40 @@ def main() -> int:
           f"({' '.join(_build.NVCC_FLAGS)}); oracle built in "
           f"{t_oracle:.1f} s", flush=True)
     phase_done("2")
+
+    # ---- 2b. a WHILE node (graphs.while_loop), one graph replayed with
+    # device counts 16, 0, 3, 0: its body runs that many times, none for 0
+    loop_runner = graphs.Graphs(dev)
+    loop_bufs = {"n": torch.zeros((), dtype=torch.int64, device=dev),
+                 "sum": torch.zeros((), device=dev)}
+
+    def loop_body(b):
+        k = torch.zeros((), dtype=torch.int64, device=dev)
+        go = b["n"] > k
+
+        def once():
+            b["sum"].add_(k.to(torch.float32) + 1.0)
+            k.add_(1)
+            torch.lt(k, b["n"], out=go)
+
+        graphs.while_loop(go, once)
+
+    for n in (16, 0, 3, 0):
+        loop_bufs["n"].fill_(n)
+        loop_bufs["sum"].fill_(-1.0)
+        loop_runner.run(None, loop_body, loop_bufs)
+        got = float(loop_bufs["sum"])
+        require(got == -1.0 + n * (n + 1) / 2,
+                f"WHILE node with count {n}: sum {got}")
+    graphs.fetch(runners=[loop_runner])
+    require(len(loop_runner) == 1 and loop_iterations(loop_runner) == 19,
+            f"WHILE node: {len(loop_runner)} graphs, "
+            f"{loop_iterations(loop_runner)} iterations booked (19 run)")
+    print("[2b] a WHILE node (graphs.while_loop) in one graph, replayed "
+          "with device counts 16, 0, 3 and 0: its body ran 16, 0, 3 and 0 "
+          "times (none for 0), 19 iterations booked by fetch", flush=True)
+    del loop_runner, loop_bufs
+    phase_done("2b")
 
     ranges, gt = dataset.ensure_dataset(n_scans=1000, seed=0)
     cfg = DEFAULT_CONFIG
@@ -1988,10 +2089,43 @@ def main() -> int:
                                           max_range=max_range, device=device,
                                           draws=draws)
 
+    def one_graph(title, made, valid_rows):
+        """The step object a filter run made holds one graph, and its WHILE
+        node looped over ``valid_rows`` rows: a line of its numbers."""
+        require(len(made) == 1, f"{title}: {len(made)} step objects made")
+        step = made[0]
+        n_loop = loop_iterations(step.graphs)
+        require(len(step.graphs) == 1,
+                f"{title}: {len(step.graphs)} graphs, not one for every "
+                f"detection count")
+        require(n_loop == valid_rows,
+                f"{title}: the WHILE node ran {n_loop} iterations for "
+                f"{valid_rows} valid rows")
+        return (f"{len(step.graphs)} graph, pools of "
+                f"{step.graphs.pool_bytes()} bytes, captured in "
+                f"{step.graphs.capture_seconds:.3f} s of host time; its "
+                f"WHILE node ran {n_loop} iterations == the {valid_rows} "
+                f"valid rows it looped over")
+
+    def ekf_rows(r):
+        """The valid detection rows of the EKF's steps on ``r``."""
+        return int(ekf_slam.scan_inputs(
+            r, ecfg, cfg.lidar, ekf_slam.LONG_TOUR_MAX_RANGE,
+            device=dev)[3].sum())
+
+    def hybrid_rows(r):
+        """The valid detection rows of the hybrid's captured steps (scans
+        2..T-1; scan 1 is the eager seed step) on ``r``."""
+        return int(ekf_hybrid.hybrid_inputs(r, cfg, device=dev)
+                   .det.count[2:].sum())
+
     title = "EKF-1024 museum-1000"
-    (epath, efinal), dt, used = timed_run(title,
-                                          lambda: run_ekf(ranges, dev))
+    with StepsMade(ekf_slam, "EkfStepFn") as made:
+        (epath, efinal), dt, used = timed_run(title,
+                                              lambda: run_ekf(ranges, dev))
     epath = epath.cpu().numpy()
+    print(f"[11] {title}: the captured step: "
+          f"{one_graph(title, made.made, ekf_rows(ranges))}", flush=True)
     final_states[title] = efinal
     require(used["K1"] > 0, f"{title} launched K1 no time")
     require(np.isfinite(epath).all(), f"{title} path is not finite")
@@ -2017,9 +2151,12 @@ def main() -> int:
                                          draws=draws)
 
     title = "hybrid-EKF-1024 museum-1000"
-    (hpath, hfinal), dt, used = timed_run(title,
-                                          lambda: run_hybrid(ranges, dev))
+    with StepsMade(ekf_hybrid, "HybridStepFn") as made:
+        (hpath, hfinal), dt, used = timed_run(title,
+                                              lambda: run_hybrid(ranges, dev))
     hpath = hpath.cpu().numpy()
+    print(f"[12] {title}: the captured step: "
+          f"{one_graph(title, made.made, hybrid_rows(ranges))}", flush=True)
     final_states[title] = hfinal
     require(used["K1"] > 0 and used["K2"] > 0,
             f"{title} launched K1 {used['K1']} / K2 {used['K2']} times")
@@ -2142,33 +2279,105 @@ def main() -> int:
     # launches by shape, then each driver's steady state as in 6c
     fr = ranges[:FILTER_SCANS]
     filter_runs = {}
-    for title, run in (
-            (f"EKF-1024 museum-{FILTER_SCANS}", lambda: run_ekf(fr, dev)),
+    for title, run, steps, rows in (
+            (f"EKF-1024 museum-{FILTER_SCANS}", lambda: run_ekf(fr, dev),
+             (ekf_slam, "EkfStepFn"), ekf_rows),
             (f"hybrid-EKF-1024 museum-{FILTER_SCANS}",
-             lambda: run_hybrid(fr, dev))):
-        (fpath, ffinal), dt, used = timed_run(title, run)
+             lambda: run_hybrid(fr, dev), (ekf_hybrid, "HybridStepFn"),
+             hybrid_rows)):
+        with StepsMade(*steps) as made:
+            (fpath, ffinal), dt, used = timed_run(title, run)
         fpath = fpath.cpu().numpy()
         require(used["K1"] > 0, f"{title} launched K1 no time")
         require(np.isfinite(fpath).all(), f"{title} path is not finite")
         final_states[title] = ffinal
         scans_per_s[title] = len(fpath) / dt
         filter_runs[title] = fpath
+        print(f"[14c] {title}: {len(fpath) / dt:.1f} scans/s ({dt:.3f} s, "
+              f"pre-pass included); the captured step: "
+              f"{one_graph(title, made.made, rows(fr))}", flush=True)
     f_ekf, f_hybrid = filter_runs
-    # the share of those runs that their pre-pass takes (corner detections
-    # and the scan-odometry matcher, batched over the whole log)
-    for title, prepass in (
+    # each filter's pre-pass, then its filter from the pre-pass's inputs
+    # under the sync debug mode: nothing read on the host between the two
+    # but the run's one final read
+    for title, prepass, run_filter in (
             (f_ekf, lambda: ekf_slam.scan_inputs(
                 fr, ecfg, cfg.lidar, ekf_slam.LONG_TOUR_MAX_RANGE,
-                device=dev)),
-            (f_hybrid, lambda: hybrid_inputs(fr, cfg, dev))):
+                device=dev),
+             lambda inp: ekf_slam.run_ml(*inp[:3], ecfg, 0, dev)),
+            (f_hybrid, lambda: ekf_hybrid.hybrid_inputs(fr, cfg, device=dev),
+             lambda inp: ekf_hybrid.run_hybrid_inputs(inp, ecfg, cfg, 0))):
+        with SyncCount() as sc:
+            t0 = time.perf_counter()
+            inputs = prepass()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            before = sc.count()
+            fpath, _ = run_filter(inputs)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            after = sc.count() - before
+            where = sc.where(before)
+        require(np.array_equal(fpath.cpu().numpy(), filter_runs[title]),
+                f"{title}: the filter from its pre-pass's inputs differs "
+                f"from the whole run")
+        require(after <= 1, f"{title}: {after} host syncs between the "
+                f"pre-pass and the run's end (the final read is 1): "
+                f"{where}")
+        print(f"[14c] {title}: pre-pass {t1 - t0:.3f} s ({before} host "
+              f"syncs), then the filter {t2 - t1:.3f} s with {after} host "
+              f"syncs (sync debug mode \"warn\": {where}), its path == the "
+              f"whole run's", flush=True)
+    # the pre-pass split: the detector, the batched read and the chunk
+    # graphs of the scan-odometry matcher (replays), against the eager
+    # loop (read_scan a scan, match_batch a chunk) on the same scans
+    fr_t = torch.as_tensor(np.asarray(fr, np.float32), device=dev)
+    sangles = scan_matcher.angles_tensor(cfg, dev)
+    split = {}
+
+    def clocked(name, fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prepass()
+        out = fn()
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        run_s = len(filter_runs[title]) / scans_per_s[title]
-        print(f"[14c] {title}: its pre-pass alone {dt:.3f} s of the "
-              f"captured run's {run_s:.3f} s", flush=True)
+        split[name] = time.perf_counter() - t0
+        return out
+
+    clocked("detector", lambda: landmarks.extract_corners(
+        fr_t, sangles, range_min=cfg.lidar.range_min,
+        usable_range=cfg.lidar.usable_range,
+        max_range=ekf_slam.LONG_TOUR_MAX_RANGE))
+    reset_counts()
+    scans = clocked("read_scans", lambda: sensor.read_scans(fr_t, sangles,
+                                                            cfg.lidar))
+    matcher = scan_odometry.pair_matcher(fr_t.device, 50, 10.0, 0.05, 448, 7,
+                                         0.03, 0.03)
+    deltas = clocked("chunk graphs", lambda: matcher(scans.x, scans.y,
+                                                     scans.valid))
+    graph_counts = {"K1": dict(cuda_edt.launches_by_shape)}
+    reset_counts()
+    eager_deltas, t_reads, t_chunks = eager_pairwise(fr_t, sangles,
+                                                     cfg.lidar)
+    eager_counts = {"K1": dict(cuda_edt.launches_by_shape)}
+    reset_counts()
+    require(torch.equal(deltas, eager_deltas),
+            f"the pre-pass's chunk graphs differ from the eager chunk loop: "
+            f"max {(deltas - eager_deltas).abs().max().item()}")
+    require(graph_counts == eager_counts,
+            f"the pre-pass's K1 launches by shape: graphs {graph_counts}, "
+            f"eager {eager_counts}")
+    require(len(matcher.graphs) == len(matcher.bufs),
+            "the pre-pass matcher: a graph for each chunk width")
+    print(f"[14c] the pre-pass on {FILTER_SCANS} scans, s: detector "
+          f"{split['detector']:.4f}; batched read_scans "
+          f"{split['read_scans']:.4f} against {t_reads:.4f} a scan at a "
+          f"time; the matcher's chunk graphs {split['chunk graphs']:.4f} "
+          f"(replays) against {t_chunks:.4f} eager; the deltas == the eager "
+          f"chunk loop's (torch.equal), K1 launches by shape equal "
+          f"{graph_counts['K1']}; the matcher holds {len(matcher.graphs)} "
+          f"graphs (chunk widths {sorted(matcher.bufs)}), pools of "
+          f"{matcher.graphs.pool_bytes()} bytes, captured in "
+          f"{matcher.graphs.capture_seconds:.3f} s of host time", flush=True)
 
     eager_graphs = {}   # title -> the eager GraphSlam
 
@@ -2290,20 +2499,20 @@ def main() -> int:
                    result[False])
             if not eager:
                 graph_report("14c", title, gs.frontend.step, reserved, rates)
-    sangles = scan_matcher.angles_tensor(cfg, dev)
     obs14, valid14, odo14, counts14 = ekf_slam.scan_inputs(
         ranges[:n_steady + 1], ecfg, cfg.lidar,
         ekf_slam.LONG_TOUR_MAX_RANGE, device=dev)
-    hr14, hdet14, hodo14, hcounts14 = hybrid_inputs(ranges[:n_steady + 1],
-                                                    cfg, dev)
+    counts14 = counts14.tolist()
+    hr14, hdet14, hodo14, _ = ekf_hybrid.hybrid_inputs(
+        ranges[:n_steady + 1], cfg, device=dev)
+    hcounts14 = hdet14.count.tolist()
 
     def ekf_inputs(t):
-        return (obs14[t - 1], valid14[t - 1], odo14[t - 1],
-                int(counts14[t - 1]))
+        return obs14[t - 1], valid14[t - 1], odo14[t - 1]
 
     def hybrid_in(t):
         return (hr14[t], hdet14.rb[t], hdet14.valid[t], hodo14[t - 1],
-                int(hcounts14[t]))
+                hcounts14[t])
 
     for title, mk_state, eager_step, mk_graph_step in (
             ("submap museum-1000",
@@ -2315,7 +2524,7 @@ def main() -> int:
              lambda: ekf_slam.init_ekf_slam(ecfg, 0, dev),
              lambda s, t: ekf_slam.ekf_slam_step_ml(
                  s, *ekf_inputs(t)[:2], ecfg, odo=ekf_inputs(t)[2],
-                 n_det=ekf_inputs(t)[3]),
+                 n_det=counts14[t - 1]),
              lambda: ByScan(ekf_slam.EkfStepFn(ecfg, dev), ekf_inputs)),
             (f_hybrid,
              lambda: ekf_hybrid.init_hybrid(hr14[0], ecfg, cfg, 0),
@@ -2359,6 +2568,8 @@ def main() -> int:
             ("submap museum-1000",
              lambda n: submap_slam.run_scan(ranges[:n], cfg, device=dev),
              len(ranges), None),
+            (f_ekf, lambda n: run_ekf(ranges[:n], dev), FILTER_SCANS,
+             None),
             (f_hybrid, lambda n: run_hybrid(ranges[:n], dev), FILTER_SCANS,
              None)):
         whole_run_syncs("14c", title, run, n_full, steps_of)

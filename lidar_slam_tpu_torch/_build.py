@@ -1,5 +1,6 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``) and the
-conditional-node capture that ``utils/graphs.cond`` calls.
+conditional-node capture that ``utils/graphs.cond`` and
+``utils/graphs.while_loop`` call.
 
 Each source compiles with its own ``nvcc``, all started together, and the
 objects link into one shared library with a plain C interface, loaded with
@@ -46,6 +47,9 @@ _SIGNATURES = {
     # graph_cond.cu: capture stream, child stream, pred bool*; child stream
     "slam_if_begin": (_P, _P, _P),
     "slam_if_end": (_P,),
+    # ... and the handle's address (out); child stream, handle, pred bool*
+    "slam_while_begin": (_P, _P, _P, ctypes.POINTER(ctypes.c_ulonglong)),
+    "slam_while_end": (_P, ctypes.c_ulonglong, _P),
 }
 
 

@@ -85,3 +85,30 @@ def read_scan(ranges: torch.Tensor, angles: torch.Tensor,
     size = ok.sum().to(torch.int32)
     valid = torch.arange(ranges.shape[0], device=ranges.device) < size
     return Scan(x=x, y=y, valid=valid, size=size)
+
+
+def read_scans(ranges: torch.Tensor, angles: torch.Tensor,
+               cfg: LidarConfig) -> Scan:
+    """``read_scan`` of every row of ``ranges`` (T, N) at once: a ``Scan``
+    whose x, y and valid are (T, N) and size (T,), each row bit for bit the
+    per-scan call's (each beam's point is the same product, and the
+    compaction runs along the rows)."""
+    ranges = ranges.to(torch.float32)
+    t, n = ranges.shape
+    ok = (ranges >= cfg.range_min) & (ranges <= cfg.usable_range)
+    sa, ca = sincos32(angles)
+    # row r's slots are r * (n + 1) + 0..n; a dropped beam goes to slot n
+    pos = torch.cumsum(ok.to(torch.int32), 1) - 1
+    base = torch.arange(t, device=ranges.device)[:, None] * (n + 1)
+    dest = (base + torch.where(ok, pos, n)).reshape(-1)
+
+    def place(v):
+        flat = torch.zeros(t * (n + 1), dtype=torch.float32,
+                           device=ranges.device)
+        flat[dest] = v.reshape(-1)
+        return flat.view(t, n + 1)[:, :n]
+
+    size = ok.sum(dim=1).to(torch.int32)
+    valid = torch.arange(n, device=ranges.device)[None, :] < size[:, None]
+    return Scan(x=place(ranges * ca), y=place(ranges * sa), valid=valid,
+                size=size)

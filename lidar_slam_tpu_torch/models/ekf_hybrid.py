@@ -22,9 +22,12 @@ becomes one host branch a scan (the step's one device->host sync); ``step``
 and ``mini_updated`` are host values. ``hybrid_step`` is ``hybrid_head``
 (up to the test), that sync, and ``hybrid_refresh`` when the test passed.
 ``HybridStepFn`` (JAX's jitted ``_run_hybrid_jit``, driven by
-``run_ekf_hybrid``) captures both as one CUDA graph a detection count over
-static buffers (``utils/graphs``), the refresh in a conditional node on the
-device test, so the run reads nothing on the host after scan 1.
+``run_ekf_hybrid``) captures both as one CUDA graph for every detection
+count over static buffers (``utils/graphs``): the association loop is a
+WHILE node over the valid rows, found on the card
+(``ekf_slam.DEVICE_LOOP``), and the refresh an IF node on the device test
+beside it, so the run reads nothing on the host after its pre-pass
+(``hybrid_inputs``) until its end.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lidar_slam_tpu_torch.config import SlamConfig
+from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, SlamConfig
 from lidar_slam_tpu_torch.core import gridmap, se2, sensor
 from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap
 from lidar_slam_tpu_torch.device import constant, resolve_device
@@ -47,7 +50,9 @@ from lidar_slam_tpu_torch.models.scan_matcher import (angles_tensor,
                                                       pose_and_test)
 from lidar_slam_tpu_torch.ops import correlative
 from lidar_slam_tpu_torch.ops import edt as edt_ops
+from lidar_slam_tpu_torch.ops import landmarks as lm_ops
 from lidar_slam_tpu_torch.ops import matching
+from lidar_slam_tpu_torch.ops.scan_odometry import pairwise_odometry
 from lidar_slam_tpu_torch.utils import graphs
 
 
@@ -191,19 +196,22 @@ class _Static(NamedTuple):
 
 
 class HybridStepFn:
-    """``step(state, ranges, obs, valid, odo, n_det, draws=None) -> (state,
-    pose)``: ``hybrid_step`` as captured CUDA graphs (``utils/graphs``),
-    JAX's jitted step with its state donated (``scan_matcher.StepFn`` has
-    the conventions): one graph for each detection count ``n_det`` (a host
-    int of the pre-pass), the head and an IF node on the device test
-    holding the refresh, in one memory pool. A step draws with ``draw``
-    from the filter's generator (or uploads ``draws``) into static buffers
-    and replays the graph of its count; ``advance(...)`` reads nothing on
-    the host (the state's ``mini_updated`` is the device test, read back by
-    ``finish`` with the arms' launch counts), ``step(...)`` also reads the
+    """``step(state, ranges, obs, valid, odo, n_det=None, draws=None) ->
+    (state, pose)``: ``hybrid_step`` as one captured CUDA graph
+    (``utils/graphs``) for every detection count, JAX's jitted step with
+    its state donated (``scan_matcher.StepFn`` has the conventions): the
+    head, whose association loop is a WHILE node over the valid rows of
+    ``valid`` (``ekf_slam.DEVICE_LOOP``), and an IF node on the device test
+    holding the refresh. A step draws with ``draw`` from the filter's
+    generator (or uploads ``draws``) into static buffers and replays the
+    graph; ``advance(...)`` reads nothing on the host (the state's
+    ``mini_updated`` is the device test, read back by ``finish`` with the
+    conditional bodies' launch counts), ``step(...)`` also reads the
     estimate and the test in one 16-byte device->host copy. Scan 1
-    (``state.step == 1``, the seed arm) runs eagerly. ``self.pose`` is the
-    step's estimate on the device, valid until the next call."""
+    (``state.step == 1``, the seed arm) runs eagerly: the only step that
+    takes ``n_det``, its detection count (None: its valid rows are found on
+    the host). ``self.pose`` is the step's estimate on the device, valid
+    until the next call."""
 
     def __init__(self, ekf_cfg: EkfSlamConfig, cfg: SlamConfig,
                  device: str | torch.device = "cuda"):
@@ -221,7 +229,7 @@ class HybridStepFn:
         if state.step == 1:
             state = self.advance(state, ranges, obs, valid, odo, n_det, draws)
             return state, self.pose.cpu().numpy()
-        self._replay(state, ranges, obs, valid, odo, n_det, draws)
+        self._replay(state, ranges, obs, valid, odo, draws)
         host = self.bufs.out.to("cpu", copy=True)   # a copy on the CPU too
         self.state = self.state._replace(mini_updated=bool(host[3]))
         return self.state, host[:3].numpy()
@@ -238,16 +246,16 @@ class HybridStepFn:
                                            self.angles, draws, n_det)
             return state
         with graphs.no_host_sync(self.device):
-            self._replay(state, ranges, obs, valid, odo, n_det, draws)
+            self._replay(state, ranges, obs, valid, odo, draws)
         return self.state
 
     def finish(self, state: HybridState) -> HybridState:
         """``state`` with its ``mini_updated`` read back to a host bool,
-        and the step's conditional launches counted: the run's one host
-        read (``graphs.finish``)."""
+        and the step's conditional launches and loop iterations counted:
+        the run's one host read (``graphs.finish``)."""
         return graphs.finish(self, state)
 
-    def _replay(self, state: HybridState, ranges, obs, valid, odo, n_det,
+    def _replay(self, state: HybridState, ranges, obs, valid, odo,
                 draws) -> None:
         if state is not self.state:
             self._load(state, obs)
@@ -262,7 +270,7 @@ class HybridStepFn:
         else:
             graphs.upload(b.noise, np.asarray(draws[0], np.float32))
             graphs.upload(b.u0, np.asarray(draws[1], np.float32))
-        self.graphs.run(n_det, self._body(n_det), b)
+        self.graphs.run(None, self._body, b)
         st = b.head.state
         self.state = st._replace(ekf=st.ekf._replace(rng=state.ekf.rng),
                                  step=state.step + 1,
@@ -291,32 +299,32 @@ class HybridStepFn:
         else:
             graphs.copy_into(self.bufs.head.state, state)
 
-    def _body(self, n_det):
-        def body(b: _Static) -> None:
-            head = hybrid_head(b.head.state, b.ranges, b.obs, b.valid, b.odo,
-                               self.ekf_cfg, self.cfg, self.angles,
-                               draws=(b.noise, b.u0), n_det=n_det)
-            graphs.copy_into(b.head, head)
-            graphs.cond(b.head.test, lambda: graphs.copy_into(
-                b.head.state, hybrid_refresh(b.head, False, self.cfg)))
-            b.out.copy_(pose_and_test(b.head.est_pose, b.head.test))
-        return body
+    def _body(self, b: _Static) -> None:
+        head = hybrid_head(b.head.state, b.ranges, b.obs, b.valid, b.odo,
+                           self.ekf_cfg, self.cfg, self.angles,
+                           draws=(b.noise, b.u0), n_det=ekf_slam.DEVICE_LOOP)
+        graphs.copy_into(b.head, head)
+        graphs.cond(b.head.test, lambda: graphs.copy_into(
+            b.head.state, hybrid_refresh(b.head, False, self.cfg)))
+        b.out.copy_(pose_and_test(b.head.est_pose, b.head.test))
 
 
-def run_ekf_hybrid(ranges_all: np.ndarray, ekf_cfg: EkfSlamConfig,
-                   cfg: SlamConfig | None = None, seed: int = 0,
-                   max_range: float = 12.0,
-                   device: str | torch.device = "cuda", draws=None,
-                   **extract_kw) -> tuple[torch.Tensor, HybridState]:
-    """Whole-log hybrid run through ``HybridStepFn``: raw (T, N) ranges ->
-    (path (T, 3) on ``device``, final state). Corner detections and scan
-    odometry come from batched pre-passes; the detection counts reach the
-    host in one copy, and then nothing until the final state's one read.
-    ``draws``: per-step (noise, u0) for steps 1..T-1."""
-    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
-    from lidar_slam_tpu_torch.ops import landmarks as lm_ops
-    from lidar_slam_tpu_torch.ops.scan_odometry import pairwise_odometry
+class HybridInputs(NamedTuple):
+    """``run_ekf_hybrid``'s pre-pass over a log of T scans."""
+    ranges: torch.Tensor    # (T, N) on the device
+    det: lm_ops.LandmarkDetections  # corner detections, rows (T, M)
+    odo: torch.Tensor       # (T-1, 3) scan odometry, scan t-1 -> t
+    seed_count: int         # scan 1's detections (the eager seed step's)
 
+
+def hybrid_inputs(ranges_all: np.ndarray, cfg: SlamConfig | None = None,
+                  max_range: float = 12.0,
+                  device: str | torch.device = "cuda",
+                  **extract_kw) -> HybridInputs:
+    """The hybrid's pre-pass: corner detections of every scan
+    (``ops/landmarks.extract_corners``, one batch) and the scan-odometry
+    prior (``ops/scan_odometry.pairwise_odometry``). Its one host read is
+    scan 1's detection count, which the eager seed step loops over."""
     cfg = cfg or DEFAULT_CONFIG
     dev = resolve_device(device)
     ranges = torch.as_tensor(np.asarray(ranges_all, np.float32), device=dev)
@@ -325,14 +333,41 @@ def run_ekf_hybrid(ranges_all: np.ndarray, ekf_cfg: EkfSlamConfig,
         ranges, angles, range_min=cfg.lidar.range_min,
         usable_range=cfg.lidar.usable_range, max_range=max_range,
         **extract_kw)
-    odo_all = pairwise_odometry(ranges, angles, cfg.lidar)
-    counts = det.count.cpu().numpy()            # one copy for the whole log
+    seed_count = int(det.count[1]) if ranges.shape[0] > 1 else 0
+    return HybridInputs(ranges, det, pairwise_odometry(ranges, angles,
+                                                       cfg.lidar), seed_count)
+
+
+def run_hybrid_inputs(inputs: HybridInputs, ekf_cfg: EkfSlamConfig,
+                      cfg: SlamConfig | None = None, seed: int = 0,
+                      draws=None) -> tuple[torch.Tensor, HybridState]:
+    """The hybrid filter over a pre-pass's ``inputs`` through
+    ``HybridStepFn``: scan 1 eager, then no host read until the final
+    state's one read. ``draws``: per-step (noise, u0) for steps 1..T-1.
+    Returns (path (T, 3) on the inputs' device, final state)."""
+    cfg = cfg or DEFAULT_CONFIG
+    ranges, det, odo_all = inputs.ranges, inputs.det, inputs.odo
+    dev = ranges.device
     state = init_hybrid(ranges[0], ekf_cfg, cfg, seed)
     step = HybridStepFn(ekf_cfg, cfg, dev)
     path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32, device=dev)
     for t in range(1, ranges.shape[0]):
         state = step.advance(state, ranges[t], det.rb[t], det.valid[t],
-                             odo_all[t - 1], int(counts[t]),
+                             odo_all[t - 1], inputs.seed_count,
                              None if draws is None else draws[t - 1])
         path[t] = step.pose
     return path, graphs.clone_tree(step.finish(state))
+
+
+def run_ekf_hybrid(ranges_all: np.ndarray, ekf_cfg: EkfSlamConfig,
+                   cfg: SlamConfig | None = None, seed: int = 0,
+                   max_range: float = 12.0,
+                   device: str | torch.device = "cuda", draws=None,
+                   **extract_kw) -> tuple[torch.Tensor, HybridState]:
+    """Whole-log hybrid run: raw (T, N) ranges -> the pre-pass
+    (``hybrid_inputs``) -> the filter (``run_hybrid_inputs``). ``draws``:
+    per-step (noise, u0) for steps 1..T-1. Returns (path (T, 3) on
+    ``device``, final state)."""
+    return run_hybrid_inputs(
+        hybrid_inputs(ranges_all, cfg, max_range, device, **extract_kw),
+        ekf_cfg, cfg, seed, draws)

@@ -19,15 +19,17 @@ adjugate solve), never a matmul: the covariances feed the next step's gains
 for a thousand steps, and a reduced-precision matmul path (bf16 on a TPU,
 TF32 on a GPU) turns that into trajectory error.
 
-JAX's ``lax.scan`` over scans and over detections become Python loops.
-Detections are compacted, so the caller passes each scan's detection count
-(copied to the host once for the whole log) and the step loops over the
-valid rows only: an invalid row changes nothing, and no step waits for the
-device to count. The resampling decision is a device-side ``where``; the
-step has no host sync. ``run_ml`` and ``run_ekf_slam`` (JAX's jitted
-``_run_ml_jit`` / ``_run_jit``) drive ``EkfStepFn``, the steps as CUDA
-graphs over static buffers (``utils/graphs``), one graph for each detection
-count.
+JAX's ``lax.scan`` over scans becomes a Python loop; its ``lax.scan`` over
+the M detection rows under a mask loops over the valid rows only (an
+invalid row of JAX's changes nothing). The eager step takes them from the
+host: each scan's count of compacted detections, or the valid rows found
+on the host. The captured step (``n_det=DEVICE_LOOP``) orders the valid
+rows first on the card and loops over their count with
+``graphs.while_loop``, one CUDA graph WHILE node, so one graph serves every
+count and the host never reads one. The resampling decision is a
+device-side ``where``. ``run_ml`` and ``run_ekf_slam`` (JAX's jitted
+``_run_ml_jit`` / ``_run_jit``) drive ``EkfStepFn``, the steps as one CUDA
+graph over static buffers (``utils/graphs``).
 
 Random numbers come from the ``torch.Generator`` in the state; the steps
 take ``draws=(noise (P, 3) standard normal, u0 in [0, 1/P))`` from outside
@@ -417,6 +419,39 @@ def _associate(state: EkfSlamState, poses, lm_mean, lm_cov, seen, zr, zb,
     return lm_mean, lm_cov, seen | sel, add
 
 
+# ``ekf_slam_step_ml``'s ``n_det`` for the association loop on the device
+DEVICE_LOOP = "device loop"
+
+
+def _associate_on_device(state: EkfSlamState, poses, obs, obs_valid,
+                         cfg: EkfSlamConfig):
+    """``_associate`` of every valid row of ``obs`` (M, 2) in row order, as
+    ``graphs.while_loop`` over their device count: the rows are put in a
+    stable order, valid rows first (``torch.nonzero(obs_valid)``'s order),
+    and iteration k takes row ``order[k]`` by an index on the device.
+    Returns (lm_mean, lm_cov, seen, loglik add (P,)), the eager loop's
+    values bit for bit."""
+    order = torch.argsort(torch.logical_not(obs_valid).to(torch.int32),
+                          stable=True)
+    count = obs_valid.sum()
+    k = torch.zeros((), dtype=torch.int64, device=obs.device)
+    go = count > k
+    carry = (state.lm_mean.clone(), state.lm_cov.clone(),
+             state.lm_seen.clone(), torch.zeros_like(state.logw))
+
+    def body():
+        row = obs.index_select(0, order.index_select(0, k.view(1)))[0]
+        lm_mean, lm_cov, seen, add = _associate(
+            state, poses, *carry[:3], row[0], row[1], cfg)
+        graphs.copy_into(carry[:3], (lm_mean, lm_cov, seen))
+        carry[3].add_(add)
+        k.add_(1)
+        torch.lt(k, count, out=go)
+
+    graphs.while_loop(go, body)
+    return carry
+
+
 def ekf_slam_step_ml(state: EkfSlamState, obs: torch.Tensor,
                      obs_valid: torch.Tensor, cfg: EkfSlamConfig,
                      odo: torch.Tensor | None = None, aux_loglik_fn=None,
@@ -433,7 +468,9 @@ def ekf_slam_step_ml(state: EkfSlamState, obs: torch.Tensor,
     (P, 3)) -> (P,)`` adds a per-particle log-likelihood before resampling
     (the hybrid's grid term). ``n_det`` is the number of valid rows when
     they are the first ones (compacted detections), or a tuple of the valid
-    rows; without it the valid rows are found on the host. ``rows``
+    rows; without it the valid rows are found on the host; with
+    ``DEVICE_LOOP`` they are found and looped over on the device
+    (``_associate_on_device``, the captured steps' form). ``rows``
     (``fastslam.AllRows``): the state may hold one block of the particles
     (``parallel/sharded_ekf.py``); the max, the resampling and the weighted
     mean then run over every particle's gathered rows, so a sharded step
@@ -463,16 +500,21 @@ def ekf_slam_step_ml(state: EkfSlamState, obs: torch.Tensor,
         poses = _gn_step(state, poses, zr_m, zb_m, obs_valid, r_w_m, b_w,
                          log_p0)
 
-    if n_det is None:
-        dets = torch.nonzero(obs_valid).flatten().tolist()
+    if n_det is DEVICE_LOOP:
+        lm_mean, lm_cov, seen, logw_add = _associate_on_device(
+            state, poses, obs, obs_valid, cfg)
     else:
-        dets = range(n_det) if isinstance(n_det, int) else n_det
-    lm_mean, lm_cov, seen = state.lm_mean, state.lm_cov, state.lm_seen
-    logw_add = torch.zeros_like(state.logw)
-    for k in dets:
-        lm_mean, lm_cov, seen, add = _associate(
-            state, poses, lm_mean, lm_cov, seen, obs[k, 0], obs[k, 1], cfg)
-        logw_add = logw_add + add
+        if n_det is None:
+            dets = torch.nonzero(obs_valid).flatten().tolist()
+        else:
+            dets = range(n_det) if isinstance(n_det, int) else n_det
+        lm_mean, lm_cov, seen = state.lm_mean, state.lm_cov, state.lm_seen
+        logw_add = torch.zeros_like(state.logw)
+        for k in dets:
+            lm_mean, lm_cov, seen, add = _associate(
+                state, poses, lm_mean, lm_cov, seen, obs[k, 0], obs[k, 1],
+                cfg)
+            logw_add = logw_add + add
     if aux_loglik_fn is not None:
         logw_add = logw_add + aux_loglik_fn(poses)
     logw = rows.gather(state.logw + logw_add)
@@ -498,20 +540,21 @@ class _Static(NamedTuple):
 
 
 class EkfStepFn:
-    """``step(state, obs, valid, odo, n_det, draws=None) -> (state, pose)``:
-    ``ekf_slam_step_ml`` as captured CUDA graphs (``utils/graphs``), one
-    for each ``n_det`` (a count, 0-16 with the detector's 16 rows, or a
-    tuple of the valid rows) in one memory pool; with ``known`` one graph of
+    """``step(state, obs, valid, odo, draws=None) -> (state, pose)``:
+    ``ekf_slam_step_ml`` as one captured CUDA graph (``utils/graphs``) for
+    every detection count: the association loop over the valid rows of
+    ``valid`` is a WHILE node (``DEVICE_LOOP``); with ``known`` one graph of
     ``ekf_slam_step`` (``obs`` the (L, 2) observations, ``valid`` their
-    visibility; ``n_det`` unused). JAX's jitted scans with the state donated
+    visibility). JAX's jitted scans with the state donated
     (``scan_matcher.StepFn`` has the conventions).
 
     A step draws its noise and offset with ``draw`` from the state's
-    generator (or copies ``draws``) into static buffers, as the eager step
+    generator (or uploads ``draws``) into static buffers, as the eager step
     does, and replays its graph; nothing comes back to the host. The
     returned state's tensors and the estimate ``pose`` are the step's
-    buffers, valid until the next call (``self.pose`` is the same
-    tensor)."""
+    buffers, valid until the next call (``self.pose`` is the same tensor).
+    ``graphs.finish(step, state)`` (the run's one read) books the
+    association loop's iterations."""
 
     def __init__(self, cfg: EkfSlamConfig, device: str | torch.device = "cuda",
                  known: bool = False):
@@ -524,20 +567,22 @@ class EkfStepFn:
         self.pose: torch.Tensor | None = None
 
     def __call__(self, state: EkfSlamState, obs: torch.Tensor,
-                 valid: torch.Tensor, odo: torch.Tensor, n_det=None,
-                 draws=None) -> tuple[EkfSlamState, torch.Tensor]:
+                 valid: torch.Tensor, odo: torch.Tensor, draws=None
+                 ) -> tuple[EkfSlamState, torch.Tensor]:
         if state is not self.state:
             self._load(state, obs, valid)
         b = self.bufs
         b.obs.copy_(obs, non_blocking=True)
         b.valid.copy_(valid, non_blocking=True)
         b.odo.copy_(odo, non_blocking=True)
-        noise, u0 = draw(state, self.cfg.n_particles) if draws is None \
-            else draws
-        b.noise.copy_(torch.as_tensor(noise))
-        b.u0.copy_(torch.as_tensor(u0))
-        key = None if self.known else n_det
-        self.graphs.run(key, self._body(key), b)
+        if draws is None:
+            noise, u0 = draw(state, self.cfg.n_particles)
+            b.noise.copy_(noise)
+            b.u0.copy_(u0)
+        else:
+            graphs.upload(b.noise, np.asarray(draws[0], np.float32))
+            graphs.upload(b.u0, np.asarray(draws[1], np.float32))
+        self.graphs.run(None, self._body, b)
         self.state = b.state._replace(rng=state.rng)
         self.pose = b.pose
         return self.state, b.pose
@@ -557,18 +602,16 @@ class EkfStepFn:
         else:
             graphs.copy_into(self.bufs.state, state)
 
-    def _body(self, n_det):
-        def body(b: _Static) -> None:
-            if self.known:
-                new, pose = ekf_slam_step(b.state, b.odo, b.obs, b.valid,
-                                          self.cfg, draws=(b.noise, b.u0))
-            else:
-                new, pose = ekf_slam_step_ml(
-                    b.state, b.obs, b.valid, self.cfg, odo=b.odo,
-                    draws=(b.noise, b.u0), n_det=n_det)
-            graphs.copy_into(b.state, new)
-            b.pose.copy_(pose)
-        return body
+    def _body(self, b: _Static) -> None:
+        if self.known:
+            new, pose = ekf_slam_step(b.state, b.odo, b.obs, b.valid,
+                                      self.cfg, draws=(b.noise, b.u0))
+        else:
+            new, pose = ekf_slam_step_ml(
+                b.state, b.obs, b.valid, self.cfg, odo=b.odo,
+                draws=(b.noise, b.u0), n_det=DEVICE_LOOP)
+        graphs.copy_into(b.state, new)
+        b.pose.copy_(pose)
 
 
 def _path(ests: list[torch.Tensor], dev) -> torch.Tensor:
@@ -582,13 +625,14 @@ def run_ml(obs_all, valid_all, odo_all, cfg: EkfSlamConfig, seed: int = 0,
            device: str | torch.device = "cuda", draws=None, counts=None,
            rows: AllRows = ALL_ROWS) -> tuple[torch.Tensor, EkfSlamState]:
     """The ML-association filter over scans 1..T-1: obs_all (T-1, M, 2),
-    valid_all (T-1, M), odo_all (T-1, 3). ``counts`` (host ints), where
-    given, are the detections of each row (valid rows first); without them
-    each row's valid rows come to the host in one copy. ``draws`` a
-    sequence of per-step (noise, u0). The steps run captured
-    (``EkfStepFn``); with ``rows``, the particle block this process runs
-    (``ekf_slam_step_ml``; the sharded steps are not captured), eagerly.
-    Returns (path (T, 3) on ``device``, final state)."""
+    valid_all (T-1, M), odo_all (T-1, 3). ``draws`` a sequence of per-step
+    (noise, u0). The steps run captured (``EkfStepFn``: the valid rows of
+    each scan are found on the card) and the run reads the host once, at
+    its end (``graphs.finish``). With ``rows``, the particle block this
+    process runs, the steps are the eager ``ekf_slam_step_ml``, which take
+    each scan's rows from the host: ``counts`` (each row's detections,
+    valid rows first), where given, else the masks, in one copy. Returns
+    (path (T, 3) on ``device``, final state)."""
     dev = resolve_device(device)
     obs_all, valid_all, odo_all = (torch.as_tensor(a, device=dev)
                                    for a in (obs_all, valid_all, odo_all))
@@ -596,12 +640,12 @@ def run_ml(obs_all, valid_all, odo_all, cfg: EkfSlamConfig, seed: int = 0,
     odo_all = odo_all.to(torch.float32)
     state = init_ekf_slam(cfg, seed, dev)
     n = obs_all.shape[0]
-    if counts is None:
-        dets = [tuple(np.flatnonzero(v).tolist())
-                for v in valid_all.cpu().numpy()]
-    else:
-        dets = [int(c) for c in counts]
     if rows is not ALL_ROWS:
+        if counts is None:
+            dets = [tuple(np.flatnonzero(v).tolist())
+                    for v in valid_all.cpu().numpy()]
+        else:
+            dets = torch.as_tensor(counts).tolist()
         state = state._replace(**{f: rows.rows(getattr(state, f))
                                   for f in PARTICLE_LEAVES})
         ests = []
@@ -615,10 +659,10 @@ def run_ml(obs_all, valid_all, odo_all, cfg: EkfSlamConfig, seed: int = 0,
     step = EkfStepFn(cfg, dev)
     path = torch.zeros((n + 1, 3), dtype=torch.float32, device=dev)
     for t in range(n):
-        state, _ = step(state, obs_all[t], valid_all[t], odo_all[t], dets[t],
+        state, _ = step(state, obs_all[t], valid_all[t], odo_all[t],
                         None if draws is None else draws[t])
         path[t + 1] = step.pose
-    return path, graphs.clone_tree(state)
+    return path, graphs.clone_tree(graphs.finish(step, state))
 
 
 def scan_inputs(ranges_all: np.ndarray, cfg: EkfSlamConfig, lidar_cfg=None,
@@ -630,7 +674,9 @@ def scan_inputs(ranges_all: np.ndarray, cfg: EkfSlamConfig, lidar_cfg=None,
     scan-to-scan matcher's motion prior (``ops/scan_odometry.
     pairwise_odometry``, kernel K1 on the (50, 448, 448) pair rasters on
     CUDA). Detections of scan t pair with the pose after step t-1. Returns
-    (obs (T-1, M, 2), valid (T-1, M), odo (T-1, 3), counts (T-1,) host)."""
+    (obs (T-1, M, 2), valid (T-1, M), odo (T-1, 3), counts (T-1,)), all on
+    ``device``: the one read of the host is the motion prior's clip check
+    (JAX's too)."""
     from lidar_slam_tpu_torch.config import LidarConfig
     from lidar_slam_tpu_torch.core.sensor import beam_angles
     from lidar_slam_tpu_torch.ops import landmarks as lm_ops
@@ -662,8 +708,7 @@ def scan_inputs(ranges_all: np.ndarray, cfg: EkfSlamConfig, lidar_cfg=None,
     else:
         odo_all = torch.zeros((ranges.shape[0] - 1, 3), dtype=torch.float32,
                               device=dev)
-    counts = det.count[1:].cpu().numpy()       # one copy for the whole log
-    return det.rb[1:], det.valid[1:], odo_all, counts
+    return det.rb[1:], det.valid[1:], odo_all, det.count[1:]
 
 
 def run_ekf_slam_scan(ranges_all: np.ndarray, cfg: EkfSlamConfig,
@@ -675,10 +720,9 @@ def run_ekf_slam_scan(ranges_all: np.ndarray, cfg: EkfSlamConfig,
     the ML-association filter. ``draws``: per-step (noise, u0) for steps
     1..T-1. Returns (path (T, 3) on ``device``, final state)."""
     dev = resolve_device(device)
-    obs, valid, odo, counts = scan_inputs(ranges_all, cfg, lidar_cfg,
-                                          max_range, include_pillars, dev,
-                                          **extract_kw)
-    return run_ml(obs, valid, odo, cfg, seed, dev, draws, counts)
+    obs, valid, odo, _ = scan_inputs(ranges_all, cfg, lidar_cfg, max_range,
+                                     include_pillars, dev, **extract_kw)
+    return run_ml(obs, valid, odo, cfg, seed, dev, draws)
 
 
 def run_ekf_slam(odom: np.ndarray, obs: np.ndarray, vis: np.ndarray,

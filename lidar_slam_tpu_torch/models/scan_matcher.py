@@ -57,7 +57,12 @@ class SlamState(NamedTuple):
 
 
 def angles_tensor(cfg: SlamConfig, device) -> torch.Tensor:
-    return torch.as_tensor(sensor.beam_angles(cfg.lidar), device=device)
+    """The beam angle table on ``device``; on the card copied from pinned
+    memory, so a run that makes it mid-way does not wait for the device."""
+    host = torch.as_tensor(sensor.beam_angles(cfg.lidar))
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def init_state(ranges0: torch.Tensor, cfg: SlamConfig,

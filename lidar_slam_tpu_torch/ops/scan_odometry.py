@@ -9,12 +9,21 @@ matches every consecutive pair of a log, and loop closure re-matches
 accepted keyframe pairs on a fine raster with the same descent
 (``models/graph_slam._refine_rel_batch``).
 
-The JAX package maps a vmapped matcher over chunks with ``lax.map``; here the
-batch is a leading tensor axis and the chunks a Python loop. Relative poses
-are in the reference convention (``W_t = W_{t-1} o delta``).
+The JAX package jits the whole pass and maps a vmapped matcher over padded
+chunks with ``lax.map``. Here every scan is read in one batch
+(``sensor.read_scans``), the batch is a leading tensor axis, and each chunk
+of pairs replays a captured CUDA graph of ``match_batch`` over static
+buffers (``PairMatcher``, ``utils/graphs``): one graph for each chunk
+width, the full width and the tail, so kernel K1 launches at the eager
+shapes, and the graphs are kept for the process as JAX keeps its compiled
+pass. Relative poses are in the reference convention (``W_t = W_{t-1} o
+delta``).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,6 +33,7 @@ from lidar_slam_tpu_torch.core.gridmap import OccGrid, roundf_like
 from lidar_slam_tpu_torch.device import constant
 from lidar_slam_tpu_torch.ops import edt as edt_ops
 from lidar_slam_tpu_torch.ops import matching
+from lidar_slam_tpu_torch.utils import graphs
 
 
 def _raster_centered(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
@@ -85,6 +95,79 @@ def match_batch(x0: torch.Tensor, y0: torch.Tensor, v0: torch.Tensor,
                     step_r0)
 
 
+class _Pairs(NamedTuple):
+    """One chunk width's static buffers: scans 0 and 1 of B pairs, (B, N)
+    each, and their deltas (B, 3)."""
+    x0: torch.Tensor
+    y0: torch.Tensor
+    v0: torch.Tensor
+    x1: torch.Tensor
+    y1: torch.Tensor
+    v1: torch.Tensor
+    out: torch.Tensor
+
+
+class PairMatcher:
+    """``matcher(x, y, valid) -> (T-1, 3)``: ``match_batch`` of every
+    consecutive pair of T read scans ((T, N) each), ``chunk`` pairs at a
+    time, each pair descending from identity; ``match_batch``'s keywords
+    are fixed at construction. Each chunk is copied into the static
+    buffers of its width and replays that width's captured graph
+    (``utils/graphs``; on the CPU the same body runs uncaptured), so a log
+    of any length uses two graphs, the full width and the tail's."""
+
+    def __init__(self, device: torch.device, chunk: int, **match_kw):
+        self.chunk, self.match_kw = chunk, match_kw
+        self.graphs = graphs.Graphs(device)
+        self.bufs: dict[int, _Pairs] = {}
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+        n_pairs = x.shape[0] - 1
+        out = torch.zeros((max(n_pairs, 0), 3), dtype=torch.float32,
+                          device=x.device)
+        for a in range(0, n_pairs, self.chunk):
+            b = min(a + self.chunk, n_pairs)
+            bufs = self._bufs(b - a, x.shape[1])
+            for buf, src in zip(bufs, (x[a:b], y[a:b], valid[a:b],
+                                       x[a + 1:b + 1], y[a + 1:b + 1],
+                                       valid[a + 1:b + 1])):
+                buf.copy_(src)
+            self.graphs.run(b - a, self._body, bufs)
+            out[a:b] = bufs.out
+        return out
+
+    def _bufs(self, width: int, n: int) -> _Pairs:
+        if width not in self.bufs:
+            dev = self.graphs.device
+
+            def zeros(dtype):
+                return torch.zeros((width, n), dtype=dtype, device=dev)
+
+            f32 = torch.float32
+            self.bufs[width] = _Pairs(
+                zeros(f32), zeros(f32), zeros(torch.bool), zeros(f32),
+                zeros(f32), zeros(torch.bool),
+                torch.zeros((width, 3), dtype=f32, device=dev))
+        return self.bufs[width]
+
+    def _body(self, b: _Pairs) -> None:
+        guesses = torch.zeros_like(b.out)
+        b.out.copy_(match_batch(b.x0, b.y0, b.v0, b.x1, b.y1, b.v1, guesses,
+                                **self.match_kw))
+
+
+@functools.lru_cache(maxsize=None)
+def pair_matcher(device: torch.device, chunk: int, max_range: float,
+                 pixel: float, size: int, iters: int, step_t0: float,
+                 step_r0: float) -> PairMatcher:
+    """The process's ``PairMatcher`` for these settings on ``device``: its
+    graphs are captured once and replayed by every later log."""
+    return PairMatcher(device, chunk, max_range=max_range, pixel=pixel,
+                       size=size, iters=iters, step_t0=step_t0,
+                       step_r0=step_r0)
+
+
 def pairwise_odometry(ranges_all: torch.Tensor, angles: torch.Tensor,
                       lidar_cfg, *, max_range: float = 10.0,
                       pixel: float = 0.05, size: int = 448, iters: int = 7,
@@ -93,31 +176,18 @@ def pairwise_odometry(ranges_all: torch.Tensor, angles: torch.Tensor,
     """Relative poses for all consecutive pairs of ``ranges_all`` (T, N).
 
     Returns (T-1, 3): row t-1 is the delta from scan t-1 to scan t in the
-    reference convention, each pair descending from identity. Pairs run
-    ``chunk`` at a time, which bounds memory at chunk * size^2 cells."""
+    reference convention, each pair descending from identity. Every scan is
+    read in one batch; pairs run ``chunk`` at a time (``PairMatcher``),
+    which bounds memory at chunk * size^2 cells."""
     if max_range >= 0.5 * size * pixel:
         raise ValueError(
             f"max_range={max_range} m reaches beyond the centered raster's "
             f"half-extent {0.5 * size * pixel:.2f} m (size={size}, "
             f"pixel={pixel}); widen the grid or lower max_range")
-    scans = [sensor.read_scan(r, angles, lidar_cfg) for r in ranges_all]
-    x = torch.stack([sc.x for sc in scans])
-    y = torch.stack([sc.y for sc in scans])
-    v = torch.stack([sc.valid for sc in scans])
-    n_pairs = ranges_all.shape[0] - 1
-    out = []
-    for a in range(0, n_pairs, chunk):
-        b = min(a + chunk, n_pairs)
-        zeros = torch.zeros((b - a, 3), dtype=torch.float32,
-                            device=ranges_all.device)
-        out.append(match_batch(
-            x[a:b], y[a:b], v[a:b], x[a + 1:b + 1], y[a + 1:b + 1],
-            v[a + 1:b + 1], zeros, max_range=max_range, pixel=pixel,
-            size=size, iters=iters, step_t0=step_t0, step_r0=step_r0))
-    if not out:
-        return torch.zeros((0, 3), dtype=torch.float32,
-                           device=ranges_all.device)
-    return torch.cat(out)
+    scans = sensor.read_scans(ranges_all, angles, lidar_cfg)
+    matcher = pair_matcher(ranges_all.device, chunk, max_range, pixel, size,
+                           iters, step_t0, step_r0)
+    return matcher(scans.x, scans.y, scans.valid)
 
 
 def reach_clip_fraction(deltas: np.ndarray, step_t0: float = 0.03,

@@ -1,6 +1,7 @@
 """Captured steps over static buffers: the port's counterpart of ``jax.jit``
 with ``donate_argnums`` (``scan_matcher.make_step_fn``,
-``fastslam.make_pf_step``), and of ``lax.cond`` inside them (``cond``).
+``fastslam.make_pf_step``), and of ``lax.cond`` and a masked ``lax.scan``
+inside them (``cond``, ``while_loop``).
 
 A step's state and inputs live in static buffers that the step object owns
 (host-made rows enter them through ``upload``). Each step is a *body*: a
@@ -28,13 +29,20 @@ arm makes at its first use (a constant's host->device copy, a kernel's
 build) happens before the capture: a conditional body may hold only
 kernels, memsets, device copies and further conditional nodes. Each arm
 ends by copying its results into static buffers, since the nodes after the
-branch read fixed addresses.
+branch read fixed addresses. A loop over a device count of rows (JAX's
+masked ``lax.scan``) is ``while_loop(pred, body)``: one WHILE node whose
+body runs for as long as the () bool ``pred``, which the body rewrites in
+place, holds, so it runs as many times as the eager loop would; the
+warm-up runs the body once. Conditional nodes do not nest here (every body
+is captured on the one child stream of its ``Graphs``): a branch inside an
+arm becomes a predicate of the main graph.
 
 On the CPU nothing is captured: ``run`` calls the same body on the same
-static buffers and ``cond`` takes the arm ``bool(pred)`` picks, so the CPU
-tests exercise the buffer handling, aliasing included, as the card runs it.
-A capture or replay that fails on the card raises, and so does a missing
-conditional-node binding; nothing falls back to the eager step or to a host
+static buffers, ``cond`` takes the arm ``bool(pred)`` picks and
+``while_loop`` loops on ``bool(pred)``, so the CPU tests exercise the buffer
+handling, aliasing included, as the card runs it. A capture or replay that
+fails on the card raises, and so does a missing conditional-node binding;
+nothing falls back to the eager step, to a graph per count or to a host
 read of the branch.
 
 The kernel wrappers count launches in Python (``cuda_edt.launches``,
@@ -42,7 +50,8 @@ The kernel wrappers count launches in Python (``cuda_edt.launches``,
 count nothing. ``LaunchBook`` takes the counts a capture makes out again:
 what runs on every replay is the graph's delta, added on each replay; what
 runs in a conditional arm is that arm's delta, and the arm adds one to its
-own device counter inside the graph each time it runs. ``fetch``, a run's
+own device counter inside the graph each time it runs (a WHILE body: each
+iteration). ``fetch``, a run's
 one host read, brings the arm counters back with the run's results and adds
 each arm's delta times the runs since the last fetch. The warm-up's
 launches, on the clone, are not counted.
@@ -53,6 +62,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import contextvars
+import ctypes
 import time
 from typing import NamedTuple
 
@@ -64,7 +74,7 @@ from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match
 from lidar_slam_tpu_torch.utils.tree import map_with_path
 
 COUNTED = (cuda_edt, cuda_match)   # modules with launches, launches_by_shape
-# what records ``cond``'s IF nodes on the card (torch 2.11 has no binding)
+# what records the IF and WHILE nodes on the card (torch 2.11 has no binding)
 IF_NODE_ROUTE = "the port's C++ (csrc/graph_cond.cu)"
 
 
@@ -163,12 +173,15 @@ class LaunchBook:
 
 
 class Arm:
-    """One conditional arm of a captured graph: its launch delta, its
-    device counter (() int64, one added inside the graph each time the arm
-    runs) and the runs already added to the book."""
+    """One conditional body of a captured graph: its launch delta, its
+    device counter (() int64, one added inside the graph each time the body
+    runs), the runs already added to the book and its ``kind``: "if" for an
+    arm of ``cond``, "while" for the body of a ``while_loop``."""
 
-    def __init__(self, delta: list[Counts], count: torch.Tensor):
-        self.delta, self.count, self.settled = delta, count, 0
+    def __init__(self, delta: list[Counts], count: torch.Tensor,
+                 kind: str = "if"):
+        self.delta, self.count, self.kind = delta, count, kind
+        self.settled = 0
 
 
 @contextlib.contextmanager
@@ -229,8 +242,40 @@ def cond(pred: torch.Tensor, true_body, false_body=None) -> None:
     if false_body is not None:
         arms.append((torch.logical_not(pred), false_body))
     for p, body in arms:
-        ctx.arms.append(ctx.runner._if_node(p, body,
-                                            ctx.counts[len(ctx.arms)]))
+        ctx.arms.append(ctx.runner._conditional_node(
+            "if", p.contiguous(), body, ctx.counts[len(ctx.arms)]))
+
+
+def while_loop(pred: torch.Tensor, body) -> None:
+    """``body()`` for as long as the () bool tensor ``pred`` holds, tested
+    before every run: a loop over a device count (JAX's ``lax.scan`` over
+    rows under a mask). ``body`` returns nothing; it ends by copying its
+    results into static buffers (tensors made before the loop, which it
+    reads and rewrites in place) and by writing the next test into
+    ``pred`` in place.
+
+    While a ``Graphs`` captures, the loop is one WHILE node whose body adds
+    one to its device counter an iteration; in the warm-up before it the
+    body runs once, on the clone; on the CPU it loops on ``bool(pred)``. On
+    the card anywhere else it raises: the loop would have to read ``pred``
+    on the host."""
+    if pred.shape != () or pred.dtype != torch.bool:
+        raise ValueError(f"while_loop's pred is a () bool tensor, not "
+                         f"{pred.dtype}{tuple(pred.shape)}")
+    ctx = _CAPTURE.get()
+    if ctx is None:
+        if pred.device.type != "cpu":
+            raise RuntimeError("graphs.while_loop on the card runs only "
+                               "inside a body that a Graphs captures")
+        while bool(pred):
+            body()
+        return
+    if ctx.counts is None:   # the warm-up: the body once, on the clone
+        body()
+        ctx.arms.append(None)
+        return
+    ctx.arms.append(ctx.runner._conditional_node(
+        "while", pred, body, ctx.counts[len(ctx.arms)]))
 
 
 def fetch(*tensors: torch.Tensor, runners=()) -> list[np.ndarray]:
@@ -398,19 +443,30 @@ class Graphs:
         self.arms.extend(arms)
         return graph, delta
 
-    def _if_node(self, pred: torch.Tensor, body, count: torch.Tensor
-                 ) -> Arm:
-        """Capture ``body()`` into an IF node on the () bool ``pred`` of the
-        graph being captured on the current stream, with its own launch
-        delta and device counter. The body is captured on ``self.child``,
-        its allocations routed to ``self.cond_pool``."""
-        lib = _build.load_kernels()
-        pred = pred.contiguous()
-        before = self.book.snapshot()
+    def _conditional_node(self, kind: str, pred: torch.Tensor, body,
+                          count: torch.Tensor) -> Arm:
+        """Capture ``body()`` into an IF (``kind`` "if") or a WHILE
+        ("while") node on the () bool ``pred`` of the graph being captured
+        on the current stream, with its own launch delta and device
+        counter. The body is captured on ``self.child``, its allocations
+        routed to ``self.cond_pool``; a WHILE body ends by setting the
+        node's handle from ``pred`` as the body left it."""
         parent = torch.cuda.current_stream(self.device)
-        _build.check(lib.slam_if_begin(parent.cuda_stream,
-                                       self.child.cuda_stream,
-                                       pred.data_ptr()), "slam_if_begin")
+        if parent == self.child:
+            raise RuntimeError("conditional nodes do not nest: every body is "
+                               "captured on the one child stream; make the "
+                               "inner branch a predicate of the main graph")
+        lib = _build.load_kernels()
+        before = self.book.snapshot()
+        handle = ctypes.c_ulonglong()
+        if kind == "while":
+            _build.check(lib.slam_while_begin(
+                parent.cuda_stream, self.child.cuda_stream, pred.data_ptr(),
+                ctypes.byref(handle)), "slam_while_begin")
+        else:
+            _build.check(lib.slam_if_begin(
+                parent.cuda_stream, self.child.cuda_stream, pred.data_ptr()),
+                "slam_if_begin")
         index, pool = self.child.device.index, self.cond_pool.id
         try:
             with torch.cuda.stream(self.child):
@@ -424,12 +480,17 @@ class Graphs:
                     torch._C._cuda_endAllocateToPool(index, pool)
                     torch._C._cuda_releasePool(index, pool)
         finally:
-            _build.check(lib.slam_if_end(self.child.cuda_stream),
-                         "slam_if_end")
+            if kind == "while":
+                _build.check(lib.slam_while_end(
+                    self.child.cuda_stream, handle, pred.data_ptr()),
+                    "slam_while_end")
+            else:
+                _build.check(lib.slam_if_end(self.child.cuda_stream),
+                             "slam_if_end")
         after = self.book.snapshot()
         self.book.restore(before)
         return Arm([Counts(a.launches - b.launches, a.by_shape - b.by_shape)
-                    for a, b in zip(after, before)], count)
+                    for a, b in zip(after, before)], count, kind)
 
     def pool_bytes(self) -> int:
         """Bytes the caching allocator holds in this object's two pools:

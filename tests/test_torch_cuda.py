@@ -1158,8 +1158,7 @@ def test_no_sync_driver_equals_eager_under_the_sync_error_mode(cuda,
             assert torch.equal(getattr(got.atlas, f),
                                getattr(state.atlas, f)), f
     assert _launches_by_shape() == eager and eager[0]
-    if driver != "hybrid":   # the hybrid: one graph a detection count
-        assert len(step.graphs) == 1
+    assert len(step.graphs) == 1
 
 
 @pytest.mark.parametrize("frontend", ["graph", "pf-graph", "submap-graph"])
@@ -1237,3 +1236,158 @@ def test_no_sync_graph_frontend_steps_on_the_card(cuda, frontend):
         assert type(a.n_submaps) is int and a.n_submaps >= 2
         assert (a.n_submaps, a.active) == (b.n_submaps, b.active)
         assert g.anchor_assoc.keys() == e.anchor_assoc.keys()
+
+
+# -- one graph for every detection count: the association loop as a CUDA
+# graph WHILE node (``utils/graphs.while_loop``), and the scan-odometry
+# pre-pass's chunk graphs
+
+def test_while_node_runs_its_body_count_times_on_the_card(cuda):
+    """One captured graph replayed with counts 16, 0, 3 and 0: the body
+    runs exactly that many times (none for 0: the buffer keeps its value),
+    and its device counter, read by ``fetch``, books each iteration."""
+    from lidar_slam_tpu_torch.utils import graphs
+
+    runner = graphs.Graphs(cuda)
+    bufs = {"n": torch.zeros((), dtype=torch.int64, device=cuda),
+            "sum": torch.zeros((), device=cuda)}
+
+    def body(b):
+        k = torch.zeros((), dtype=torch.int64, device=cuda)
+        go = b["n"] > k
+
+        def once():
+            b["sum"].add_(k.to(torch.float32) + 1.0)
+            k.add_(1)
+            torch.lt(k, b["n"], out=go)
+
+        graphs.while_loop(go, once)
+
+    total = 0
+    for n in (16, 0, 3, 0):
+        bufs["n"].fill_(n)
+        bufs["sum"].fill_(-1.0)
+        runner.run(None, body, bufs)
+        assert float(bufs["sum"]) == -1.0 + n * (n + 1) / 2
+        total += n
+    assert len(runner) == 1 and [a.kind for a in runner.arms] == ["while"]
+    graphs.fetch(runners=[runner])
+    assert runner.arms[0].settled == total
+
+
+def _every_count(rb, valid, m=16):
+    """Detections whose count runs 0, 1, ..., m, 0, 1, ... over the scans:
+    a scan's rows repeated into its first ``count`` slots."""
+    rb, valid = rb.clone(), valid.clone()
+    counts = valid.sum(dim=-1)
+    for t in range(rb.shape[0]):
+        want, have = t % (m + 1), max(int(counts[t]), 1)
+        rb[t] = rb[t, torch.arange(m, device=rb.device) % have]
+        valid[t] = torch.arange(m, device=rb.device) < want
+    return rb, valid, valid.sum(dim=-1).to(torch.int32)
+
+
+@pytest.mark.parametrize("filt", ["ekf", "hybrid"])
+def test_filter_step_is_one_graph_for_every_count(cuda, filt):
+    """EKF-256 and hybrid-256 on 60 museum scans whose detection counts take
+    every value 0..16: after scan 1 every step runs under the sync debug
+    mode "error"; one graph; the path and state equal the eager loop's bit
+    for bit (with the same K1/K2 launches by shape for the hybrid); the
+    WHILE node's iterations equal the valid rows it looped over."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.models import ekf_hybrid, ekf_slam, scan_matcher
+    from lidar_slam_tpu_torch.utils import graphs
+
+    cfg = ekf_slam.long_tour_config(256)
+    ranges, _, draws = _ekf_inputs(60, 256)
+    inputs = ekf_hybrid.hybrid_inputs(ranges, DEFAULT_CONFIG, device=cuda)
+    rb, valid, count = _every_count(inputs.det.rb, inputs.det.valid)
+    angles = scan_matcher.angles_tensor(DEFAULT_CONFIG, cuda)
+    counts = count.tolist()
+    assert set(counts) == set(range(17))
+    _reset_launches()
+    if filt == "ekf":
+        state = ekf_slam.init_ekf_slam(cfg, 0, cuda)
+        step = ekf_slam.EkfStepFn(cfg, cuda)
+    else:
+        state = ekf_hybrid.init_hybrid(inputs.ranges[0], cfg,
+                                       DEFAULT_CONFIG, 0)
+        step = ekf_hybrid.HybridStepFn(cfg, DEFAULT_CONFIG, cuda)
+    want, path, eager_state = [], [], state
+    for t in range(1, 60):
+        if filt == "ekf":
+            eager_state, est = ekf_slam.ekf_slam_step_ml(
+                eager_state, rb[t], valid[t], cfg, odo=inputs.odo[t - 1],
+                draws=draws[t - 1], n_det=counts[t])
+        else:
+            eager_state, est = ekf_hybrid.hybrid_step(
+                eager_state, inputs.ranges[t], rb[t], valid[t],
+                inputs.odo[t - 1], cfg, DEFAULT_CONFIG, angles,
+                draws[t - 1], n_det=counts[t])
+        want.append(est)
+    eager = _launches_by_shape()
+    _reset_launches()
+    for t in range(1, 60):
+        args = (rb[t], valid[t], inputs.odo[t - 1])
+        if filt == "ekf":
+            with graphs.no_host_sync(cuda):
+                state, _ = step(state, *args, draws[t - 1])
+        elif t == 1:
+            state = step.advance(state, inputs.ranges[t], *args, counts[t],
+                                 draws[t - 1])
+        else:
+            with graphs.no_host_sync(cuda):
+                state = step.advance(state, inputs.ranges[t], *args,
+                                     draws=draws[t - 1])
+        path.append(step.pose.clone())
+    state = graphs.finish(step, state)
+    assert torch.equal(torch.stack(path), torch.stack(want))
+    got = state if filt == "ekf" else state.ekf
+    ref = eager_state if filt == "ekf" else eager_state.ekf
+    for f in EKF_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert len(step.graphs) == 1
+    loops = [a for a in step.graphs.arms if a.kind == "while"]
+    assert len(loops) == 1
+    # the hybrid's scan 1 is its eager seed step, outside the graph
+    assert loops[0].settled == sum(counts[1 if filt == "ekf" else 2:60])
+    if filt == "hybrid":
+        assert _launches_by_shape() == eager and eager[0] and eager[1]
+
+
+def test_prepass_graphs_equal_the_eager_chunk_loop_on_the_card(cuda):
+    """``pairwise_odometry`` on 120 museum scans (chunks of 50, 50 and the
+    19-pair tail, each a replay of its width's graph) against the eager
+    loop (``read_scan`` a scan, ``match_batch`` a chunk): the same deltas
+    bit for bit and the same K1 launches by shape."""
+    from lidar_slam_tpu_torch.config import LidarConfig
+    from lidar_slam_tpu_torch.core import sensor
+    from lidar_slam_tpu_torch.ops import scan_odometry
+
+    ranges, _ = _museum(120)
+    cfg = LidarConfig()
+    r = torch.as_tensor(ranges, device=cuda)
+    angles = torch.as_tensor(sensor.beam_angles(cfg), device=cuda)
+    _reset_launches()
+    scans = [sensor.read_scan(x, angles, cfg) for x in r]
+    x, y, v = (torch.stack([getattr(s, f) for s in scans])
+               for f in ("x", "y", "valid"))
+    want = []
+    for a in range(0, 119, 50):
+        b = min(a + 50, 119)
+        want.append(scan_odometry.match_batch(
+            x[a:b], y[a:b], v[a:b], x[a + 1:b + 1], y[a + 1:b + 1],
+            v[a + 1:b + 1], torch.zeros((b - a, 3), device=cuda),
+            max_range=10.0, pixel=0.05, size=448, iters=7, step_t0=0.03,
+            step_r0=0.03))
+    eager = _launches_by_shape()
+    for _ in range(2):   # captured, then replayed
+        _reset_launches()
+        got = scan_odometry.pairwise_odometry(r, angles, cfg)
+        assert torch.equal(got, torch.cat(want))
+        assert _launches_by_shape() == eager
+    assert eager[0] == {(50, 448, 448): 2, (19, 448, 448): 1}
+    matcher = scan_odometry.pair_matcher(r.device, 50, 10.0, 0.05, 448, 7,
+                                         0.03, 0.03)
+    assert {50, 19} <= set(matcher.bufs) and len(matcher.graphs) == len(
+        matcher.bufs)

@@ -239,6 +239,7 @@ def _entry_calls():
         "run_ekf_slam": lambda: ekf_slam.run_ekf_slam(odom, obs, vis, ecfg),
         "run_ekf_slam_scan": lambda: ekf_slam.run_ekf_slam_scan(ranges, ecfg),
         "run_ekf_hybrid": lambda: ekf_hybrid.run_ekf_hybrid(ranges, ecfg),
+        "hybrid_inputs": lambda: ekf_hybrid.hybrid_inputs(ranges),
         "submap_run_scan": lambda: submap_slam.run_scan(ranges,
                                                         DEFAULT_CONFIG),
         "submap_run_host_loop": lambda: submap_slam.run_host_loop(
@@ -294,6 +295,7 @@ def _entry_calls():
                                    "empty_graph", "OptimizeFn",
                                    "run_ekf_slam",
                                    "run_ekf_slam_scan", "run_ekf_hybrid",
+                                   "hybrid_inputs",
                                    "submap_run_scan", "submap_run_host_loop",
                                    "run_host_loop_paged", "SubmapGraphSlam",
                                    "run_streaming_slam", "run_pf_supervised",

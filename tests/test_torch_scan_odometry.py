@@ -4,7 +4,10 @@
 Rasters are compared exactly. Odometry deltas agree to 1e-5: both sides run
 the same descent over the same exact EDT sums, but XLA:CPU may contract the
 range gate's ``x*x + y*y`` into a fused multiply-add, which can move a point
-at exactly the gate radius.
+at exactly the gate radius. Within the port, the batched ``read_scans``
+equals ``read_scan`` row by row, and ``pairwise_odometry``'s chunk runner
+(``PairMatcher``, which replays a captured graph a chunk width on the
+card) equals the eager chunk loop bit for bit.
 """
 
 import jax.numpy as jnp
@@ -94,6 +97,64 @@ def test_pairwise_odometry_matches_jax(museum20):
     assert np.abs(want[:, :2]).max() > 0.01
     assert tso.reach_clip_fraction(got.numpy()) == \
         jso.reach_clip_fraction(want)
+
+
+@pytest.mark.parametrize("rows", ["museum-20", "no valid beam"])
+def test_read_scans_equals_read_scan(museum20, rows):
+    """The batched read gives every row's x, y, valid and size bit for bit
+    as the per-scan call: the museum's scans, and rows with no beam in the
+    gate (all short, all long, all zero) among partly gated ones."""
+    ranges = torch.as_tensor(museum20[0])
+    if rows == "no valid beam":
+        ranges = ranges[:6].clone()
+        ranges[0] = 0.0
+        ranges[2] = CFG.usable_range + 1.0
+        ranges[3, ::3] = 0.0
+        ranges[4] = CFG.range_min / 2
+    angles = torch.as_tensor(beam_angles(CFG))
+    got = tsensor.read_scans(ranges, angles, CFG)
+    assert got.x.shape == ranges.shape and got.size.shape == ranges.shape[:1]
+    for t in range(ranges.shape[0]):
+        want = tsensor.read_scan(ranges[t], angles, CFG)
+        for f in ("x", "y", "valid", "size"):
+            assert torch.equal(getattr(got, f)[t], getattr(want, f)), (t, f)
+    if rows == "no valid beam":
+        assert got.size[[0, 2, 4]].tolist() == [0, 0, 0]
+
+
+def _eager_chunk_loop(ranges, angles, chunk, **kw):
+    """``pairwise_odometry`` as an eager loop: ``read_scan`` a scan, then
+    ``match_batch`` a chunk of pairs."""
+    scans = [tsensor.read_scan(r, angles, CFG) for r in ranges]
+    x, y, v = (torch.stack([getattr(sc, f) for sc in scans])
+               for f in ("x", "y", "valid"))
+    n_pairs, out = ranges.shape[0] - 1, []
+    for a in range(0, n_pairs, chunk):
+        b = min(a + chunk, n_pairs)
+        out.append(tso.match_batch(
+            x[a:b], y[a:b], v[a:b], x[a + 1:b + 1], y[a + 1:b + 1],
+            v[a + 1:b + 1], torch.zeros((b - a, 3)), **kw))
+    return torch.cat(out) if out else torch.zeros((0, 3))
+
+
+@pytest.mark.parametrize("n_scans", [1, 2, 51, 101])
+def test_pairwise_odometry_chunk_runner_equals_eager_loop(n_scans):
+    """The batched read and the chunk runner (``PairMatcher``: chunks of 30
+    pairs, so every log but one of a scan ends in a tail chunk) against the
+    eager loop, bit for bit."""
+    ranges, _ = tsim.generate_dataset(max(n_scans, 2), seed=3)
+    ranges = torch.as_tensor(ranges[:n_scans])
+    angles = torch.as_tensor(beam_angles(CFG))
+    got = tso.pairwise_odometry(ranges, angles, CFG, chunk=30)
+    want = _eager_chunk_loop(
+        ranges, angles, 30, max_range=10.0, pixel=0.05, size=448, iters=7,
+        step_t0=0.03, step_r0=0.03)
+    assert got.shape == (n_scans - 1, 3)
+    assert torch.equal(got, want)
+    if n_scans > 2:
+        matcher = tso.pair_matcher(ranges.device, 30, 10.0, 0.05, 448, 7,
+                                   0.03, 0.03)
+        assert {(n_scans - 1) % 30, 30} <= set(matcher.bufs)
 
 
 def test_reach_clip_fraction_and_guard():
