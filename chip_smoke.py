@@ -173,18 +173,36 @@ parallel layer on an NCCL world of one) and checks the results:
     blocks, K1 on each extended block (``edt_row_block``), == K1 on the
     whole grid, and the world-1 ``edt_sharded``/``edt_replicated`` too;
     each block shape timed as in phase 7;
-    20. the sharded PF-1024, museum-1000, == phase 6's ``run_pf``, then
-    again with the keyframe field as 4 row blocks; ms a step against the
-    eager ``pf_step`` loop it wraps, in turns, and the collectives' bytes
-    a step (analytic at D = 1, 2, 4);
-    21. the sharded EKF-1024 bank (``long_tour_config(1024)``), 100 museum
-    scans, == ``ekf_slam_step_ml``'s run;
-    22. the matrix-free sharded BA on phase 17's K = 512 problem: card vs
-    CPU <= 1e-4, the error below 5% of its start, its difference from the
-    dense solve printed; ms and host syncs a GN iteration, and the largest
-    tensors it makes, none (K, K) or (L, K);
+    20. the sharded PF-1024, museum-1000, with the default keyframe
+    field, with it as 4 row blocks and with ``edt_replicated`` over the
+    map axis (its one-rank collectives in the refresh arm's IF node; the
+    form the mesh runs is printed: a map axis of 2 or more ranks runs the
+    eager step, ``sharded.runs_captured``): the captured
+    step (what ``run_sharded_pf`` runs: one CUDA graph with its collectives
+    inside, no host read after scan 1) == the eager step (``eager=True``)
+    == phase 6's ``run_pf``, with the same K1/K2 launches by shape and the
+    same collectives booked; scans/s and the whole run's host syncs of
+    both, equal at 200 scans and on the tour; over scans 101-150 of each
+    step device ops, device time, busy share and host syncs a scan; ms a
+    step against ``run_pf`` in turns; a collective's host time called
+    eagerly and its device time in a graph; the collectives' bytes a step
+    (analytic at D = 1, 2, 4);
+    21. the sharded EKF-1024 bank (``long_tour_config(1024)``), 300 museum
+    scans: the captured step (one graph, its collectives in the main
+    graph, the association loop a WHILE node) == the eager sharded run ==
+    the unsharded ``run_ml``, path and every bank; one host read after
+    the pre-pass; ms a step and the steady window of both;
+    22. the matrix-free sharded BA on phase 17's K = 512 problem: the
+    captured solve (three graphs: an iteration's prologue, a PCG step
+    replayed 50 times, its update) == the eager ``_solve`` bit for bit
+    with the same collectives; card vs CPU <= 1e-4, the error below 5% of
+    its start, its difference from the dense solve printed; ms a GN
+    iteration captured, eager and the dense ``optimize_ba``, host syncs
+    (none), where the device time goes, and the largest tensors it makes,
+    none (K, K) or (L, K);
     23. ``dryrun_multichip(1)`` and ``scaling_report(world_sizes=(1, 2,
-    4))`` (a spawned world of 1; 2 and 4 skipped: 1 GPU).
+    4))`` (a spawned world of 1 timing the captured step; 2 and 4
+    skipped: 1 GPU).
 
 Phases 6c and 14c profile a steady window of each driver: device ops a
 scan and the device busy share (``torch.profiler`` device rows: kernels,
@@ -208,6 +226,7 @@ a checkout, it fails before printing either.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import multiprocessing
 import os
@@ -257,8 +276,8 @@ BA_CPU_CUDA_MAX = 1e-4     # max |pose or landmark difference|, card vs CPU
 BA_CG_ITERS = 50           # phase 22's PCG steps a GN iteration (on the
 #                            CPU 50, 100 and 200 give the same error to 4
 #                            digits)
-TURN_SCANS = 100           # phase 20: scans of each plain/sharded turn
-PROFILE_STEPS = 30         # phase 20: steps of each host profile
+TURN_SCANS = 300           # phase 20: scans of each plain/sharded turn
+#                            (each run captures its step)
 BA_ERROR_RATIO = 0.05      # tests/test_ba.py: error below 5% of its start
 PG_CPU_CUDA_MAX = 2e-6     # robust pose graph, card vs CPU (9.54e-7 read)
 CHI_ROWS = 100000          # random rows of the Huber chi check
@@ -583,6 +602,55 @@ def profiled(run, n: int) -> tuple[float, float, float]:
     finally:
         numbers = window.stop(n)
     return numbers
+
+
+def report(tag, label, numbers, wall_per_scan, steady_wall):
+    """Prints a steady window's ops, device time, busy share and syncs
+    beside the unprofiled wall time a scan, over the whole run and over
+    the same window run unprofiled."""
+    ops, dev_ms, syncs = numbers
+    print(f"[{tag}] {label}: {1 / wall_per_scan:.1f} scans/s; scans "
+          f"{PROFILE_SCANS + 1}-{PROFILE_SCANS + STEADY_SCANS}: "
+          f"{steady_wall * 1e3:.3f} ms a scan unprofiled (host clock), "
+          f"and under the profiler {ops:.1f} device ops a scan, device "
+          f"time {dev_ms:.3f} ms a scan, busy share "
+          f"{dev_ms / 1e3 / steady_wall:.1%} of those scans' unprofiled "
+          f"time and {dev_ms / 1e3 / wall_per_scan:.1%} of the run's "
+          f"{wall_per_scan * 1e3:.3f} ms a scan; host syncs "
+          f"{syncs:.2f} a scan", flush=True)
+
+
+def steady(tag, label, make, wall_per_scan):
+    """Two fresh runs of scans 1..PROFILE_SCANS + STEADY_SCANS
+    (``make() -> (step, state)``; ``step(state, t) -> (state, pose)``
+    runs scan t; the captures happen in the first PROFILE_SCANS): the
+    first times its last STEADY_SCANS unprofiled on the host clock, the
+    second profiles them (``report``). Returns the second run's
+    step."""
+    import torch
+
+    numbers = wall = None
+    for profile in (False, True):
+        step, state = make()
+        for t in range(1, PROFILE_SCANS + 1):
+            state, _ = step(state, t)
+
+        def window():
+            nonlocal state
+            for t in range(PROFILE_SCANS + 1,
+                           PROFILE_SCANS + STEADY_SCANS + 1):
+                state, _ = step(state, t)  # noqa: B023
+
+        if profile:
+            numbers = profiled(window, STEADY_SCANS)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / STEADY_SCANS
+    report(tag, label, numbers, wall_per_scan, wall)
+    return step
 
 
 class WindowedFrontend:
@@ -995,12 +1063,8 @@ def parallel_phases(ctx) -> None:
     on one rank; no multi-GPU run happens here). ``ctx`` carries the
     earlier phases' inputs, results and launch books; the new K1 shapes
     join phase 7's table and each run's launches the kernels line."""
-    import warnings
-
     import numpy as np
     import torch
-
-    from torch.profiler import ProfilerActivity, profile
 
     from lidar_slam_tpu_torch.core import sensor
     from lidar_slam_tpu_torch.models import ba, ekf_slam, fastslam
@@ -1050,6 +1114,14 @@ def parallel_phases(ctx) -> None:
         rep = sharded_edt.edt_replicated(occ, axis)
         require(torch.equal(exch, whole) and torch.equal(rep, whole),
                 f"the NCCL world-1 edt_sharded differs on the {name} raster")
+        # the world of one's block: the whole grid and its halo rows
+        row, err = k1_shape_row(f"(1,{size + 20},{width}) {name} and its "
+                                f"halo (edt_sharded, world of 1)",
+                                sharded_edt.extended_blocks(occ, 1)[0],
+                                cross_check=False)
+        ctx.k1_err = max(ctx.k1_err, err)
+        ctx.shape_rows["K1"].append(row)
+        ctx.device_by_shape["K1"][row["key"]] = row["device_ms"]
         print(f"[19] {name} fine raster: 2, 4 and 8 row blocks, K1 on each "
               f"(edt_row_block), == K1 on the whole grid == plain "
               f"(torch.equal); edt_sharded and edt_replicated on the NCCL "
@@ -1057,103 +1129,152 @@ def parallel_phases(ctx) -> None:
               f"({size + 20},{width}) block) == too", flush=True)
     phase_done("19")
 
-    # ---- 20. the sharded PF-1024, museum-1000, on the world of one
+    # ---- 20. the sharded PF-1024, museum-1000, on the world of one: the
+    # captured step (what run_sharded_pf runs) against the eager one, with
+    # each keyframe field, each == phase 6's run_pf
     mesh = mesh_lib.make_mesh(device_type="cuda")
     steps = len(ctx.ranges) - 1
+    edts = {"default EDT": None,
+            "4-block EDT": lambda o, r: sharded_edt.edt_blocks(o, 4, r),
+            "edt_replicated over the map axis":
+                lambda o, r: sharded_edt.edt_replicated(o, mesh.map, r)}
+    require(sharded.runs_captured(mesh), "the world-of-one mesh does not "
+            "run the captured sharded PF step")
+    print(f"[20] the form run_sharded_pf runs on this {mesh.particles.size}"
+          f"x{mesh.map.size} mesh: captured (a map axis of 2 or more ranks "
+          f"runs the eager step: NCCL refuses multi-rank collectives inside "
+          f"a conditional body)", flush=True)
+
+    def pf_run(ranges, edt_fn=None, eager=False):
+        """A sharded run, its path read: (path, state, seconds, the whole
+        run's host syncs, where the first four were made)."""
+        with SyncCount() as sc:
+            t0 = time.perf_counter()
+            path, state = sharded.run_sharded_pf(
+                ranges, ctx.pcfg, mesh, seed=0, edt_fn=edt_fn, eager=eager)
+            path = path.cpu().numpy()
+            return (path, state, time.perf_counter() - t0, sc.count(),
+                    sc.where()[:4])
+
     runs = {}
-    for label, edt_fn in (
-            ("sharded PF-1024 museum-1000 (NCCL world of 1)", None),
-            ("sharded PF-1024 museum-1000, 4-block EDT (NCCL world of 1)",
-             lambda o, r: sharded_edt.edt_blocks(o, 4, r))):
-        mesh.particles.reset_counts()
-        ctx.reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        spath, sstate = sharded.run_sharded_pf(ctx.ranges, ctx.pcfg, mesh,
-                                               seed=0, edt_fn=edt_fn)
-        spath = spath.cpu().numpy()
-        dt = time.perf_counter() - t0
-        used = ctx.read_counts(label)
-        add_launches(used)
-        require(used["K1"] > 0 and used["K2"] > 0,
-                f"{label} launched K1 {used['K1']} / K2 {used['K2']} times")
-        require(np.array_equal(spath, ctx.ppath),
-                f"{label} differs from phase 6's run_pf: max "
-                f"{np.abs(spath - ctx.ppath).max()}")
-        ctx.final_states[label] = sstate
-        ctx.scans_per_s[label] = len(spath) / dt
-        runs[label] = (dt, used, mesh.particles.calls,
-                       mesh.particles.gathered_bytes,
-                       mesh.particles.reduced_bytes)
-    (dt, used, calls, gathered, reduced), (dt4, used4, *_) = runs.values()
-    # the step's cost in turns on one host: plain, sharded, sharded, plain,
-    # twice
+    for name, edt_fn in edts.items():
+        for form in ("captured", "eager"):
+            label = f"sharded PF-1024 museum-1000, {name}, {form}"
+            mesh.particles.reset_counts()
+            mesh.map.reset_counts()
+            ctx.reset_counts()
+            spath, sstate, dt, syncs, where = pf_run(ctx.ranges, edt_fn,
+                                                     form == "eager")
+            used = ctx.read_counts(label)
+            if form == "captured":   # the main path; eager is its reference
+                add_launches(used)
+                ctx.final_states[label] = sstate
+                ctx.scans_per_s[label] = len(spath) / dt
+            require(used["K1"] > 0 and used["K2"] > 0,
+                    f"{label} launched K1 {used['K1']} / K2 {used['K2']} "
+                    f"times")
+            require(np.array_equal(spath, ctx.ppath),
+                    f"{label} differs from phase 6's run_pf: max "
+                    f"{np.abs(spath - ctx.ppath).max()}")
+            runs[name, form] = dict(
+                dt=dt, syncs=syncs, where=where, label=label,
+                particles=dict(mesh.particles.launches_by_shape),
+                map=dict(mesh.map.launches_by_shape),
+                calls=mesh.particles.calls + mesh.map.calls)
+        cap, eag = runs[name, "captured"], runs[name, "eager"]
+        require(ctx.path_counts[cap["label"]] == ctx.path_counts[
+            eag["label"]], f"{name}: K1/K2 launches by shape, captured "
+            f"{ctx.path_counts[cap['label']]} against eager "
+            f"{ctx.path_counts[eag['label']]}")
+        require(cap["particles"] == eag["particles"]
+                and cap["map"] == eag["map"],
+                f"{name}: collectives booked, captured {cap['particles']} "
+                f"{cap['map']} against eager {eag['particles']} "
+                f"{eag['map']}")
+        print(f"[20] sharded PF-1024 museum-1000, {name}, on the NCCL world "
+              f"of 1 (a 1x1 particles x map mesh): captured step path == "
+              f"eager step path == phase 6's run_pf (np.array_equal); "
+              f"{len(ctx.ranges) / cap['dt']:.1f} scans/s captured against "
+              f"{len(ctx.ranges) / eag['dt']:.1f} eager; host syncs of the "
+              f"whole run {cap['syncs']} captured (at {cap['where']}), "
+              f"{eag['syncs']} eager (sync debug mode \"warn\"); K1/K2 "
+              f"launches by shape equal; "
+              f"collectives booked "
+              f"{cap['calls'] / steps:.2f} a step in both, by kind and shape "
+              f"particles {cap['particles']}, map {cap['map']}", flush=True)
+    require(any(k[1] == 120 for k in
+                ctx.path_counts[runs["4-block EDT", "captured"]["label"]]
+                ["K1"]), "the 4-block run launched no K1 at (1,120,400)")
+    cap = runs["default EDT", "captured"]
+    calls = cap["calls"]
+    gathered = sum(n * int(np.prod(sh)) * b for (k, sh, b), n
+                   in cap["particles"].items() if k == "all_gather")
+    reduced = sum(n * int(np.prod(sh)) * b for (k, sh, b), n
+                  in cap["particles"].items() if k == "all_reduce")
+    # the host syncs of a whole captured run do not grow with the tour
+    short = pf_run(ctx.ranges[:SYNC_SCANS])[3]
+    require(short == cap["syncs"], f"the captured sharded PF's host syncs "
+            f"grow with the tour: {short} at {SYNC_SCANS} scans, "
+            f"{cap['syncs']} at {len(ctx.ranges)}")
+    # the steady window: ms, device ops, busy share and syncs a scan
+    scans_t = torch.as_tensor(
+        ctx.ranges[:PROFILE_SCANS + STEADY_SCANS + 1], device=dev)
+    angles = torch.as_tensor(sensor.beam_angles(ctx.pcfg.lidar), device=dev)
+
+    def pf_state():
+        return mesh_lib.shard_particle_state(
+            fastslam.init_particles(scans_t[0], ctx.pcfg), mesh)
+
+    def eager_sharded(s_, t):
+        return fastslam.pf_step(s_, scans_t[t], ctx.pcfg, angles,
+                                rows=mesh.particles)
+
+    steady("20", "sharded PF-1024 museum-1000 eager",
+               lambda: (eager_sharded, pf_state()),
+               runs["default EDT", "eager"]["dt"] / len(ctx.ranges))
+    step = steady(
+        "20", "sharded PF-1024 museum-1000 captured",
+        lambda: (ByScan(sharded.make_sharded_pf_step(ctx.pcfg, mesh)[0],
+                        lambda t: (scans_t[t],), advance=True), pf_state()),
+        cap["dt"] / len(ctx.ranges))
+    print(f"[20] the captured sharded step: {len(step.graphs)} graph, pool "
+          f"{step.graphs.pool_bytes()} bytes, captured in "
+          f"{step.graphs.capture_seconds:.3f} s", flush=True)
+    del step
+    # the sharding's cost in turns on one host: run_pf, captured sharded,
+    # captured sharded, run_pf, twice
     turns = []
     for run in ("plain", "sharded", "sharded", "plain") * 2:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if run == "plain":   # the eager step the sharded one wraps
-            p, _ = eager_pf(ctx.ranges[:TURN_SCANS], ctx.pcfg, 0, dev)
+        if run == "plain":
+            p, _ = fastslam.run_pf(ctx.ranges[:TURN_SCANS], ctx.pcfg, 0, dev)
         else:
             p, _ = sharded.run_sharded_pf(ctx.ranges[:TURN_SCANS], ctx.pcfg,
                                           mesh)
         p.cpu()
         turns.append((time.perf_counter() - t0) / (TURN_SCANS - 1) * 1e3)
-    require(used4["K1"] > 0 and any(k[1] == 120 for k in
-                                    ctx.path_counts[label]["K1"]),
-            "the 4-block run launched no K1 at (1,120,400)")
-    print(f"[20] sharded PF-1024 museum-1000 on the NCCL world of 1: path == "
-          f"phase 6's run_pf (np.array_equal), and again with the keyframe "
-          f"field as 4 row blocks (K1 a block); {dt / steps * 1e3:.3f} ms a "
-          f"step sharded, {dt4 / steps * 1e3:.3f} ms with the 4-block EDT, "
-          f"against {ctx.pf_seconds / steps * 1e3:.3f} ms unsharded "
-          f"(phase 6, captured); launches K1 {used['K1']} K2 {used['K2']} / K1 "
-          f"{used4['K1']} K2 {used4['K2']}; in turns over {TURN_SCANS} "
-          f"scans, ms a step plain (eager) / sharded / sharded / plain, "
-          f"twice: "
-          + " / ".join(f"{t:.3f}" for t in turns), flush=True)
-    g, r = gathered / steps, reduced / steps
-    # where the sharded step's extra host time goes: a collective's host
-    # cost through the layer's Axis, and the host profile (self CPU time by
-    # op) of 30 steps of each step from the state after 120 scans
+    # a collective's host time called eagerly through the layer's Axis,
+    # against its device time inside a CUDA graph (100 captured, one
+    # replay timed)
     x = torch.randn(1024, 3, device=dev)
     y = torch.zeros(1536, dtype=torch.float64, device=dev)
     gather_us = cuda_time_ms(lambda: mesh.particles.gather(x), iters=1000,
                              warmup=50) * 1e3
     reduce_us = cuda_time_ms(lambda: mesh.particles.all_reduce(y),
                              iters=1000, warmup=50) * 1e3
-    scans_t = torch.as_tensor(ctx.ranges[:PROFILE_STEPS + 121], device=dev)
-    angles = torch.as_tensor(sensor.beam_angles(ctx.pcfg.lidar), device=dev)
-    step, place = sharded.make_sharded_pf_step(ctx.pcfg, mesh)
-    host = {}
-    for run in ("plain", "sharded"):
-        st = fastslam.init_particles(scans_t[0], ctx.pcfg)
-        if run == "plain":
-            def f(s_, r_):
-                return fastslam.pf_step(s_, r_, ctx.pcfg, angles)
-        else:
-            st, f = place(st), step
-        for t in range(1, 121):
-            st, _ = f(st, scans_t[t])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            for t in range(121, 121 + PROFILE_STEPS):
-                st, _ = f(st, scans_t[t])
-            torch.cuda.synchronize()
-        rows = {ev.key: (ev.self_cpu_time_total / PROFILE_STEPS / 1e3,
-                         ev.count / PROFILE_STEPS)
-                for ev in prof.key_averages()}
-        host[run] = (sum(v[0] for v in rows.values()), rows)
-    (hp, rp), (hs, rs) = host["plain"], host["sharded"]
-    extra = sorted(((rs[k][0] - rp.get(k, (0.0, 0))[0], k) for k in rs),
-                   reverse=True)[:4]
-    print(f"[20] a collective's host time through the layer (back-to-back "
-          f"calls, CUDA events): Axis.gather of 1024x3 f32 {gather_us:.1f} "
-          f"us, Axis.all_reduce of 1536 f64 {reduce_us:.1f} us; host profile "
-          f"of {PROFILE_STEPS} steps after scan 120, self CPU ms a step: "
-          f"plain {hp:.3f}, sharded {hs:.3f}; the largest increases: "
-          + "; ".join(f"{k[:32]} +{d:.3f} ms ({rs[k][1]:.1f} calls a step)"
-                      for d, k in extra), flush=True)
+    gather_dev = graph_time_ms(lambda: mesh.particles.gather(x)) * 1e3
+    reduce_dev = graph_time_ms(lambda: mesh.particles.all_reduce(y)) * 1e3
+    mesh.particles.reset_counts()
+    print(f"[20] in turns over {TURN_SCANS} scans, ms a step run_pf / "
+          f"captured sharded / captured sharded / run_pf, twice: "
+          + " / ".join(f"{t:.3f}" for t in turns)
+          + f"; a collective through the layer's Axis, host time called "
+          f"eagerly (back-to-back, CUDA events) against device time in a "
+          f"CUDA graph: gather of 1024x3 f32 {gather_us:.1f} / "
+          f"{gather_dev:.2f} us, all_reduce of 1536 f64 {reduce_us:.1f} / "
+          f"{reduce_dev:.2f} us", flush=True)
+    g, r = gathered / steps, reduced / steps
     print(f"[20] collectives a step: {calls / steps:.2f} calls (all-gathers "
           f"of {g:.0f} result bytes, all-reduces of {r:.0f}); bytes a rank "
           f"receives a step (analytic, P = 1024 over D ranks): " + ", ".join(
@@ -1161,46 +1282,103 @@ def parallel_phases(ctx) -> None:
               for d in (1, 2, 4)), flush=True)
     phase_done("20")
 
-    # ---- 21. the sharded EKF-1024 bank, 100 museum scans
+    # ---- 21. the sharded EKF-1024 bank, museum-300: captured against
+    # eager, each == the unsharded run_ml
     ecfg = ekf_slam.long_tour_config(1024)
-    label = "sharded EKF-1024 museum-100 (NCCL world of 1)"
     ctx.reset_counts()
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
     obs, valid, odo, counts = ekf_slam.scan_inputs(
-        ctx.ranges[:100], ecfg, lidar_cfg=ctx.cfg.lidar,
+        ctx.ranges[:FILTER_SCANS], ecfg, lidar_cfg=ctx.cfg.lidar,
         max_range=ekf_slam.LONG_TOUR_MAX_RANGE, device=dev)
-    epath, estate = sharded_ekf.run_sharded_ml(obs, valid, odo, ecfg, mesh,
-                                               0, counts=counts)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    used = ctx.read_counts(label)
-    add_launches(used)
-    require(used["K1"] > 0, f"{label} launched K1 no time")
-    rpath, rstate = ekf_slam.run_ml(obs, valid, odo, ecfg, 0, dev,
-                                    counts=counts)
-    require(torch.equal(epath, rpath), f"{label}: path differs from "
-            f"ekf_slam_step_ml's run")
-    for f in ekf_slam.PARTICLE_LEAVES:
-        require(torch.equal(getattr(estate, f), getattr(rstate, f)),
-                f"{label}: {f} differs from ekf_slam_step_ml's run")
-    ctx.final_states[label] = estate
-    print(f"[21] {label}: path and every bank == ekf_slam_step_ml's run "
-          f"(torch.equal); {dt:.2f} s with the detections and scan "
-          f"odometry; launches K1 {used['K1']}", flush=True)
+    pre_s = time.perf_counter() - t0
+    label = "sharded EKF-1024 museum-300, captured (pre-pass included)"
+    ekf = {}
+    for form in ("captured", "eager"):
+        if form == "eager":
+            ctx.reset_counts()
+        mesh.particles.reset_counts()
+        with SyncCount() as sc:
+            t0 = time.perf_counter()
+            ekf[form] = sharded_ekf.run_sharded_ml(
+                obs, valid, odo, ecfg, mesh, 0,
+                counts=counts if form == "eager" else None,
+                eager=form == "eager")
+            syncs = sc.count()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        ekf[form] += (dt, syncs, dict(mesh.particles.launches_by_shape),
+                      ctx.read_counts(label if form == "captured" else
+                                      "sharded EKF-1024 museum-300, eager"))
+    (cpath, cstate, cdt, csyncs, ccoll, cused), \
+        (epath, estate, edt, esyncs, ecoll, eused) = ekf.values()
+    add_launches(cused)
+    require(cused["K1"] > 0, f"{label} launched K1 no time")
+    rpath, rstate = ekf_slam.run_ml(obs, valid, odo, ecfg, 0, dev)
+    for what, (pa, st) in (("the eager sharded run", (epath, estate)),
+                           ("the unsharded run_ml", (rpath, rstate))):
+        require(torch.equal(cpath, pa), f"{label}: path differs from {what}")
+        for f in ekf_slam.PARTICLE_LEAVES:
+            require(torch.equal(getattr(cstate, f), getattr(st, f)),
+                    f"{label}: {f} differs from {what}")
+    require(csyncs == 1, f"{label}: {csyncs} host syncs after the pre-pass "
+            f"(one, the final read, expected)")
+    require(ccoll == ecoll, f"{label}: collectives booked, captured {ccoll} "
+            f"against eager {ecoll}")
+    ctx.final_states[label] = cstate
+    ctx.scans_per_s[label] = len(cpath) / (cdt + pre_s)
+    n = len(cpath) - 1
+    print(f"[21] sharded EKF-1024 museum-300 on the NCCL world of 1: the "
+          f"captured step's path and every bank == the eager sharded run's "
+          f"== the unsharded run_ml's (torch.equal); after the pre-pass "
+          f"({pre_s:.3f} s, K1 {cused['K1']}) the captured run reads the "
+          f"host {csyncs} time(s), the eager one {esyncs}; ms a step "
+          f"{cdt / n * 1e3:.3f} captured, {edt / n * 1e3:.3f} eager; "
+          f"collectives a step {sum(ccoll.values()) / n:.2f} in both, by "
+          f"kind and shape {ccoll}", flush=True)
+    ekf_in = lambda t: (obs[t - 1], valid[t - 1], odo[t - 1])  # noqa: E731
+    counts_host = counts.tolist()
+    steady("21", "sharded EKF-1024 museum-300 eager",
+               lambda: ((lambda s_, t: ekf_slam.ekf_slam_step_ml(
+                   s_, *ekf_in(t)[:2], ecfg, odo=ekf_in(t)[2],
+                   n_det=counts_host[t - 1], rows=mesh.particles)),
+                   sharded_ekf.place_state(ekf_slam.init_ekf_slam(
+                       ecfg, 0, dev), mesh)), edt / n)
+    step = steady(
+        "21", "sharded EKF-1024 museum-300 captured",
+        lambda: (ByScan(sharded_ekf.make_sharded_ekf_step(ecfg, mesh)[0],
+                        ekf_in), sharded_ekf.place_state(
+                            ekf_slam.init_ekf_slam(ecfg, 0, dev), mesh)),
+        cdt / n)
+    print(f"[21] the captured sharded step: {len(step.graphs)} graph, pool "
+          f"{step.graphs.pool_bytes()} bytes, captured in "
+          f"{step.graphs.capture_seconds:.3f} s", flush=True)
+    del step
     phase_done("21")
 
-    # ---- 22. the matrix-free sharded BA on phase 17's K = 512 problem
+    # ---- 22. the matrix-free sharded BA on phase 17's K = 512 problem:
+    # the captured solve (three graphs) against the eager one
     gaxis = sharded_ba.make_graph_mesh("cuda")
     bgpu, bgo = ctx.bgpu, ctx.bgo
     e0 = float(ba.ba_error(bgpu))
 
-    def solve(p, iters=BA_ITERS, cg_iters=BA_CG_ITERS):
-        return sharded_ba.optimize_ba_sharded(p, gaxis, iters=iters,
-                                              cg_iters=cg_iters)
+    def solve(p, iters=BA_ITERS, cg_iters=BA_CG_ITERS, eager=False,
+              axis=gaxis):
+        return sharded_ba.optimize_ba_sharded(
+            p, axis, iters=iters, cg_iters=cg_iters, eager=eager)
 
+    gaxis.reset_counts()
     out = solve(bgpu)
-    out_cpu = solve(type(bgpu)(*[t.cpu() for t in bgpu]))
+    cap_calls = gaxis.calls
+    gaxis.reset_counts()
+    eager_out = solve(bgpu, eager=True)
+    require(gaxis.calls == cap_calls, f"sharded BA: {cap_calls} collectives "
+            f"booked captured, {gaxis.calls} eager")
+    require(torch.equal(out.poses, eager_out.poses)
+            and torch.equal(out.landmarks, eager_out.landmarks),
+            "the captured sharded BA differs from the eager _solve")
+    out_cpu = solve(type(bgpu)(*[t.cpu() for t in bgpu]),
+                    axis=sharded_ba.make_graph_mesh("cuda"))
     e1 = float(ba.ba_error(out))
     card_cpu = max(float((out.poses.cpu() - out_cpu.poses).abs().max()),
                    float((out.landmarks.cpu() - out_cpu.landmarks)
@@ -1212,32 +1390,48 @@ def parallel_phases(ctx) -> None:
             f"sharded BA card vs CPU: max {card_cpu}")
     require(e1 < BA_ERROR_RATIO * e0, f"sharded BA error {e1} >= "
             f"{BA_ERROR_RATIO} x start {e0}")
-    ms_iter = cuda_time_ms(lambda: solve(bgpu), iters=1, warmup=0) / BA_ITERS
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            solve(bgpu)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    _, shapes = tensor_shapes(solve, bgpu, 1, 8)
+    ms = {}
+    for form in ("captured", "eager", "captured", "eager"):
+        t = cuda_time_ms(lambda: solve(bgpu, eager=form == "eager"),
+                         iters=1, warmup=0) / BA_ITERS
+        ms[form] = min(ms.get(form, t), t)
+    ms["dense"] = cuda_time_ms(lambda: ba.optimize_ba(bgpu, iters=BA_ITERS),
+                               iters=1, warmup=1) / BA_ITERS
+    with SyncCount() as sc:
+        solve(bgpu)
+        syncs = sc.count()
+    require(syncs == 0, f"the captured sharded BA made {syncs} host syncs")
+    _, shapes = tensor_shapes(solve, bgpu, 1, 8,
+                              axis=sharded_ba.make_graph_mesh("cuda"))
     k, l = bgpu.poses.shape[0], bgpu.landmarks.shape[0]
     dense_like = [sh for sh in shapes
                   if sh.count(k) >= 2 or tuple(sh[:2]) == (l, k)]
     require(dense_like == [], f"sharded BA made {dense_like}")
     largest = sorted(shapes, key=lambda sh: -int(np.prod(sh)))[:4]
+    where = device_rows(lambda: solve(bgpu), BA_ITERS)
     ctx.final_states["sharded BA museum K=512"] = out
+    kept = gaxis.ba_solve
     print(f"[22] sharded BA museum K=512 on the NCCL world of 1, "
-          f"{BA_ITERS} iterations of {BA_CG_ITERS} PCG steps: error {e0:.1f} "
-          f"-> {e1:.1f} ({e1 / e0:.2%} of start, bar {BA_ERROR_RATIO:.0%}); "
-          f"card vs CPU max {card_cpu:.3g} (bar {BA_CPU_CUDA_MAX}); vs the "
-          f"dense optimize_ba on the card max {dense:.3g} (its soft 1e6 "
-          f"gauge prior let pose 0's heading move {heading0:.3g} rad; the "
-          f"exact gauge holds it); {ms_iter:.3f} ms a GN iteration (CUDA "
-          f"events); host syncs {syncs / BA_ITERS:.2f} an iteration; largest "
+          f"{BA_ITERS} iterations of {BA_CG_ITERS} PCG steps: the captured "
+          f"solve ({len(kept.graphs)} graphs, {BA_CG_ITERS + 2} replays "
+          f"an iteration, pool {kept.graphs.pool_bytes()} bytes) == the "
+          f"eager _solve (torch.equal), {cap_calls / BA_ITERS:.0f} "
+          f"collectives an iteration in both; error {e0:.1f} -> {e1:.1f} "
+          f"({e1 / e0:.2%} of start, bar {BA_ERROR_RATIO:.0%}); card vs "
+          f"CPU max {card_cpu:.3g} (bar {BA_CPU_CUDA_MAX}); vs the dense "
+          f"optimize_ba on the card max {dense:.3g} (its soft 1e6 gauge "
+          f"prior let pose 0's heading move {heading0:.3g} rad; the exact "
+          f"gauge holds it); ms a GN iteration (CUDA events, the better of "
+          f"two turns) captured {ms['captured']:.3f}, eager "
+          f"{ms['eager']:.3f}, dense captured optimize_ba {ms['dense']:.3f}; "
+          f"host syncs {syncs / BA_ITERS:.2f} an iteration; largest "
           f"tensors made {largest}, none (K, K) or (L, K) among "
-          f"{len(shapes)} shapes", flush=True)
+          f"{len(shapes)} shapes (a fresh captured solve, 1 iteration of 8 "
+          f"PCG steps)", flush=True)
+    print(f"[22] where a captured GN iteration's device time goes: {where}",
+          flush=True)
+    del kept
+    gaxis.ba_solve = None
     phase_done("22")
 
     # ---- 23. the dry run and the scaling report
@@ -1247,21 +1441,24 @@ def parallel_phases(ctx) -> None:
     add_launches(used)
     require(np.isfinite(dry["pf_est"]).all()
             and np.isfinite(dry["ekf_est"]).all(), f"dry run: {dry}")
+    gc.collect()   # no captured collective outlives its communicator
     multihost.shutdown()
     rep = multihost.scaling_report(ctx.ranges, n_particles=1024,
-                                   world_sizes=(1, 2, 4), n_scans=60,
+                                   world_sizes=(1, 2, 4), n_scans=300,
                                    device_type="cuda", timeout_s=300.0)
     require(set(rep.scans_per_s) == {1} and set(rep.skipped) == {2, 4},
             f"scaling report: {rep}")
-    print(f"[23] dryrun_multichip(1) on the NCCL world of 1: PF step, BA "
+    print(f"[23] dryrun_multichip(1) on the NCCL world of 1: two PF steps "
+          f"(the eager first, then the captured step), BA "
           f"error {dry['ba_error'][0]:.4f} -> {dry['ba_error'][1]:.4f}, EDT "
           f"point checks, two EKF steps; launches K1 {used['K1']} K2 "
           f"{used['K2']}. scaling_report(world_sizes=(1, 2, 4)), PF-1024 "
-          f"museum, 58 timed scans in a spawned world: ran 1 ("
+          f"museum, 297 timed scans in a spawned world: ran 1 ("
           f"{rep.scans_per_s[1]:.1f} scans/s); skipped " + ", ".join(
               f"{d} ({why})" for d, why in sorted(rep.skipped.items()))
-          + "; no multi-GPU run (its rank's launches are counted in its "
-          "own process, not here)", flush=True)
+          + "; the captured step, timed after its capture; no multi-GPU "
+          "run (its rank's launches are counted in its own process, not "
+          "here)", flush=True)
     for name, st in ctx.final_states.items():
         if name not in known_states:
             bad = debug.validate_state(st, name)
@@ -1646,51 +1843,6 @@ def main() -> int:
               f"{SYNC_SCANS} scans, {s_full} at {n_full} (sync debug mode "
               f"\"warn\"); the {n_full}-scan run again in this process "
               f"{n_full / dt:.1f} scans/s ({dt:.3f} s)", flush=True)
-
-    def report(tag, label, numbers, wall_per_scan, steady_wall):
-        """Prints a steady window's ops, device time, busy share and syncs
-        beside the unprofiled wall time a scan, over the whole run and over
-        the same window run unprofiled."""
-        ops, dev_ms, syncs = numbers
-        print(f"[{tag}] {label}: {1 / wall_per_scan:.1f} scans/s; scans "
-              f"{PROFILE_SCANS + 1}-{PROFILE_SCANS + STEADY_SCANS}: "
-              f"{steady_wall * 1e3:.3f} ms a scan unprofiled (host clock), "
-              f"and under the profiler {ops:.1f} device ops a scan, device "
-              f"time {dev_ms:.3f} ms a scan, busy share "
-              f"{dev_ms / 1e3 / steady_wall:.1%} of those scans' unprofiled "
-              f"time and {dev_ms / 1e3 / wall_per_scan:.1%} of the run's "
-              f"{wall_per_scan * 1e3:.3f} ms a scan; host syncs "
-              f"{syncs:.2f} a scan", flush=True)
-
-    def steady(tag, label, make, wall_per_scan):
-        """Two fresh runs of scans 1..PROFILE_SCANS + STEADY_SCANS
-        (``make() -> (step, state)``; ``step(state, t) -> (state, pose)``
-        runs scan t; the captures happen in the first PROFILE_SCANS): the
-        first times its last STEADY_SCANS unprofiled on the host clock, the
-        second profiles them (``report``). Returns the second run's
-        step."""
-        numbers = wall = None
-        for profile in (False, True):
-            step, state = make()
-            for t in range(1, PROFILE_SCANS + 1):
-                state, _ = step(state, t)
-
-            def window():
-                nonlocal state
-                for t in range(PROFILE_SCANS + 1,
-                               PROFILE_SCANS + STEADY_SCANS + 1):
-                    state, _ = step(state, t)  # noqa: B023
-
-            if profile:
-                numbers = profiled(window, STEADY_SCANS)
-            else:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                window()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) / STEADY_SCANS
-        report(tag, label, numbers, wall_per_scan, wall)
-        return step
 
     def graph_report(tag, title, step, reserved, rates):
         """Prints a captured driver's graphs and pool beside its scans/s
@@ -2681,14 +2833,14 @@ def main() -> int:
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
     reset_counts()
-    report = watchdog.run_supervised(
+    sup = watchdog.run_supervised(
         _wedging_pf_worker, (ranges, pcfg, 0, SUP_CKPT_EVERY, "cuda",
                              SUP_WEDGE_AT), run_dir,
         stall_timeout_s=SUP_STALL_S, max_restarts=1,
         boot_grace_s=SUP_BOOT_GRACE_S)
-    require(report.completed and report.attempts == 2
-            and report.stalls == 1,
-            f"{title}: {report}")
+    require(sup.completed and sup.attempts == 2
+            and sup.stalls == 1,
+            f"{title}: {sup}")
     spf = np.load(os.path.join(run_dir, watchdog.PATH_FILE))
     require(np.array_equal(spf, ppath),
             f"{title}: resumed path differs from phase 6's run_pf: max "
@@ -2715,10 +2867,10 @@ def main() -> int:
           flush=True)
     print(f"[16] {title}: wedge injected at scan {SUP_WEDGE_AT} of attempt "
           f"1, stall timeout {SUP_STALL_S:.0f} s, checkpoint every "
-          f"{SUP_CKPT_EVERY}: completed, attempts {report.attempts}, stalls "
-          f"{report.stalls}, crashes {report.crashes}; {report.seconds:.1f} s "
+          f"{SUP_CKPT_EVERY}: completed, attempts {sup.attempts}, stalls "
+          f"{sup.stalls}, crashes {sup.crashes}; {sup.seconds:.1f} s "
           f"against phase 6's unsupervised {pf_seconds:.1f} s (restart cost "
-          f"{report.seconds - pf_seconds:.1f} s, the stall timeout and one "
+          f"{sup.seconds - pf_seconds:.1f} s, the stall timeout and one "
           f"more start-up and resume included); path == phase 6's run_pf "
           f"(np.array_equal); launches K1 {used['K1']} K2 {used['K2']}",
           flush=True)

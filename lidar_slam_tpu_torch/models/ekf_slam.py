@@ -554,14 +554,25 @@ class EkfStepFn:
     returned state's tensors and the estimate ``pose`` are the step's
     buffers, valid until the next call (``self.pose`` is the same tensor).
     ``graphs.finish(step, state)`` (the run's one read) books the
-    association loop's iterations."""
+    association loop's iterations.
+
+    ``rows`` is ``ekf_slam_step_ml``'s: a sharded step
+    (``parallel/sharded_ekf.py``) holds a block of the particles, and its
+    collectives (the weights' gather, the resampling's) are captured in
+    the main graph, none in the WHILE body, and a mesh axis as ``rows``
+    books them once a replay. The noise buffer holds the full (P, 3); the
+    body keeps its rows."""
 
     def __init__(self, cfg: EkfSlamConfig, device: str | torch.device = "cuda",
-                 known: bool = False):
+                 known: bool = False, rows: AllRows = ALL_ROWS):
+        if known and rows is not ALL_ROWS:
+            raise ValueError("the known-association step is not sharded")
         self.cfg = cfg
         self.known = known
+        self.rows = rows
         self.device = resolve_device(device)
-        self.graphs = graphs.Graphs(self.device)
+        self.graphs = graphs.Graphs(self.device, counters=graphs.COUNTED + (
+            () if rows is ALL_ROWS else (rows,)))
         self.bufs: _Static | None = None
         self.state: EkfSlamState | None = None   # the state last returned
         self.pose: torch.Tensor | None = None
@@ -609,55 +620,49 @@ class EkfStepFn:
         else:
             new, pose = ekf_slam_step_ml(
                 b.state, b.obs, b.valid, self.cfg, odo=b.odo,
-                draws=(b.noise, b.u0), n_det=DEVICE_LOOP)
+                draws=(b.noise, b.u0), n_det=DEVICE_LOOP, rows=self.rows)
         graphs.copy_into(b.state, new)
         b.pose.copy_(pose)
 
 
-def _path(ests: list[torch.Tensor], dev) -> torch.Tensor:
-    """The estimates after scan 0, behind the origin (pose 0 by
-    convention)."""
-    return torch.stack([torch.zeros(3, dtype=torch.float32, device=dev)]
-                       + ests)
-
-
 def run_ml(obs_all, valid_all, odo_all, cfg: EkfSlamConfig, seed: int = 0,
            device: str | torch.device = "cuda", draws=None, counts=None,
-           rows: AllRows = ALL_ROWS) -> tuple[torch.Tensor, EkfSlamState]:
+           rows: AllRows = ALL_ROWS, eager: bool = False
+           ) -> tuple[torch.Tensor, EkfSlamState]:
     """The ML-association filter over scans 1..T-1: obs_all (T-1, M, 2),
     valid_all (T-1, M), odo_all (T-1, 3). ``draws`` a sequence of per-step
     (noise, u0). The steps run captured (``EkfStepFn``: the valid rows of
     each scan are found on the card) and the run reads the host once, at
-    its end (``graphs.finish``). With ``rows``, the particle block this
-    process runs, the steps are the eager ``ekf_slam_step_ml``, which take
-    each scan's rows from the host: ``counts`` (each row's detections,
-    valid rows first), where given, else the masks, in one copy. Returns
-    (path (T, 3) on ``device``, final state)."""
+    its end (``graphs.finish``). ``rows``: the particle block this process
+    runs (the state holds its rows). With
+    ``eager`` the steps are the eager ``ekf_slam_step_ml``, the captured
+    run's reference, which take each scan's rows from the host: ``counts``
+    (each row's detections, valid rows first), where given, else the
+    masks, in one copy. Returns (path (T, 3) on ``device``, final
+    state)."""
     dev = resolve_device(device)
     obs_all, valid_all, odo_all = (torch.as_tensor(a, device=dev)
                                    for a in (obs_all, valid_all, odo_all))
     obs_all = obs_all.to(torch.float32)
     odo_all = odo_all.to(torch.float32)
     state = init_ekf_slam(cfg, seed, dev)
+    state = state._replace(**{f: rows.rows(getattr(state, f))
+                              for f in PARTICLE_LEAVES})
     n = obs_all.shape[0]
-    if rows is not ALL_ROWS:
+    path = torch.zeros((n + 1, 3), dtype=torch.float32, device=dev)
+    if eager:
         if counts is None:
             dets = [tuple(np.flatnonzero(v).tolist())
                     for v in valid_all.cpu().numpy()]
         else:
             dets = torch.as_tensor(counts).tolist()
-        state = state._replace(**{f: rows.rows(getattr(state, f))
-                                  for f in PARTICLE_LEAVES})
-        ests = []
         for t in range(n):
-            state, est = ekf_slam_step_ml(
+            state, path[t + 1] = ekf_slam_step_ml(
                 state, obs_all[t], valid_all[t], cfg, odo=odo_all[t],
                 draws=None if draws is None else draws[t], n_det=dets[t],
                 rows=rows)
-            ests.append(est)
-        return _path(ests, dev), state
-    step = EkfStepFn(cfg, dev)
-    path = torch.zeros((n + 1, 3), dtype=torch.float32, device=dev)
+        return path, state
+    step = EkfStepFn(cfg, dev, rows=rows)
     for t in range(n):
         state, _ = step(state, obs_all[t], valid_all[t], odo_all[t],
                         None if draws is None else draws[t])

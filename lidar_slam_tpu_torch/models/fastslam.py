@@ -309,13 +309,24 @@ class PfStepFn:
     return is copied in first (``scan_matcher.StepFn`` has the details).
     ``self.pose`` is the step's estimate on the device and ``self.scan``
     its gated scan (None after the eager scan 1), valid until the next
-    call."""
+    call.
 
-    def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda"):
+    ``rows`` and ``edt_fn`` are ``pf_step``'s: a sharded step
+    (``parallel/sharded.py``) holds a block of the particles, and its
+    collectives are captured in the graph with its kernels (the refresh
+    arm's too, where ``edt_fn`` gathers). The noise buffer holds the full
+    (P, 3), drawn from the replicated generator; the body keeps its rows.
+    ``axes``: the mesh axes whose collectives the step runs, booked once a
+    replay as the kernels' launches are."""
+
+    def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda",
+                 rows: AllRows = ALL_ROWS, edt_fn=None, axes=()):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.rows, self.edt_fn = rows, edt_fn
         self.angles = angles_tensor(cfg, self.device)
-        self.graphs = graphs.Graphs(self.device)
+        self.graphs = graphs.Graphs(self.device,
+                                    counters=graphs.COUNTED + tuple(axes))
         self.bufs: _PfStatic | None = None
         self.state: ParticleState | None = None   # the state last returned
         self.pose: torch.Tensor | None = None
@@ -351,7 +362,7 @@ class PfStepFn:
     def _first(self, state: ParticleState, ranges: torch.Tensor, draws):
         ranges = ranges.to(self.device, non_blocking=True)
         state, self.pose = pf_step(state, ranges, self.cfg, self.angles,
-                                   draws)
+                                   draws, self.edt_fn, self.rows)
         self.scan = None
         return state
 
@@ -362,7 +373,7 @@ class PfStepFn:
         b = self.bufs
         b.ranges.copy_(ranges, non_blocking=True)
         if draws is None:
-            noise, u0 = draw(state)
+            noise, u0 = draw(state, self.cfg.particles.n_particles)
             b.noise.copy_(noise)
             b.u0.copy_(u0)
         else:
@@ -394,10 +405,10 @@ class PfStepFn:
 
     def _body(self, b: _PfStatic) -> None:
         head = pf_head(b.head.state, b.ranges, self.cfg, self.angles,
-                       draws=(b.noise, b.u0))
+                       draws=(b.noise, b.u0), rows=self.rows)
         graphs.copy_into(b.head, head)
         graphs.cond(b.head.test, lambda: graphs.copy_into(
-            b.head.state, pf_refresh(b.head, False, self.cfg)))
+            b.head.state, pf_refresh(b.head, False, self.cfg, self.edt_fn)))
         b.out.copy_(pose_and_test(b.head.est_pose, b.head.test))
 
 

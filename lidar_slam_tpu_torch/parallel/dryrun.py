@@ -1,8 +1,10 @@
 """Multi-rank dry run of the four sharded subsystems (counterpart of
 ``__graft_entry__.dryrun_multichip``).
 
-``dryrun_multichip(n)`` runs inside every rank of a world of n: one PF
-step on a (particles x map) mesh, with a map axis of 2 when n is even and
+``dryrun_multichip(n)`` runs inside every rank of a world of n: two PF
+steps on a (particles x map) mesh (``sharded.make_sharded_pf_step``'s
+form: captured on a map axis of one, its first step eager; eager on a map
+axis of two), with a map axis of 2 when n is even and
 at least 4, so both axes carry work; one sharded BA iteration whose error
 must fall; the row-block EDT over n ranks with the JAX package's point
 checks; and two sharded EKF steps. Tiny shapes throughout: 8 particles a
@@ -107,12 +109,13 @@ def dryrun_multichip(n_devices: int, device_type: str = "cuda") -> dict:
     mesh = mesh_lib.make_mesh(n_particles_shards=n_devices // n_map,
                               n_map_shards=n_map, device_type=device_type)
     cfg = _tiny_cfg(8 * n_devices, vol_theta_bins=5, vol_half=4)
-    ranges = torch.as_tensor(_ranges(2), device=device_type)
+    ranges = torch.as_tensor(_ranges(3), device=device_type)
     step, place = sharded.make_sharded_pf_step(cfg, mesh)
     state = place(fastslam.init_particles(ranges[0], cfg))
-    state, est = step(state, ranges[1])
-    out["pf_est"] = est.cpu().numpy()
-    say(f"dryrun_multichip({n_devices}): PF step ok on a "
+    for t in (1, 2):
+        state, est = step(state, ranges[t])
+    out["pf_est"] = np.asarray(torch.as_tensor(est).cpu())
+    say(f"dryrun_multichip({n_devices}): PF steps ok on a "
         f"{n_devices // n_map}x{n_map} (particles x map) mesh, est pose = "
         f"{out['pf_est']}")
 

@@ -19,11 +19,20 @@ through its group: the one-card machine checks this code that way.
 There is no ``NamedSharding``: a placed state is this rank's rows of its
 per-particle leaves, the rest replicated, and the ``Axis`` it was cut
 along (``shard_particle_state``).
+
+The captured steps (``utils/graphs``) hold their collectives inside their
+CUDA graphs. NCCL makes a group's communicator at the group's first
+collective, a call no capture can hold, so ``make_mesh`` and ``make_axis``
+run one eager collective on every group they make. An ``Axis`` counts its
+collectives as the kernel wrappers count launches (``launches`` and
+``launches_by_shape``), so a captured step books them once a replay.
 """
 
 from __future__ import annotations
 
+import collections
 import datetime
+import math
 from typing import NamedTuple
 
 import torch
@@ -90,17 +99,45 @@ class Axis:
     this rank's place in it and its size. ``gather`` and ``all_reduce`` are
     the layer's collectives; ``rows`` slices this rank's block of an
     every-rank tensor, so an ``Axis`` over the particles is the sharded
-    counterpart of ``models.fastslam.AllRows``. The counters record what
-    the collectives moved: ``gathered_bytes`` the size of every gathered
-    result, ``reduced_bytes`` of every summed tensor."""
+    counterpart of ``models.fastslam.AllRows``.
+
+    The counters follow the kernel wrappers' (``graphs.LaunchBook``):
+    ``launches`` the collectives made, ``launches_by_shape`` a count by
+    (kind, result shape, element bytes). ``calls``, ``gathered_bytes`` (the
+    size of every gathered result) and ``reduced_bytes`` (of every summed
+    tensor) are read from them.
+
+    ``ba_solve`` is the captured bundle adjustment over this axis
+    (``sharded_ba.ShardedSolve``), made at its first call and kept with the
+    group, so later calls replay its graphs."""
 
     def __init__(self, group=None):
         self.group = group
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
-        self.calls = 0
-        self.gathered_bytes = 0
-        self.reduced_bytes = 0
+        self.launches = 0
+        self.launches_by_shape = collections.Counter()
+        self.ba_solve = None
+
+    def _book(self, kind: str, t: torch.Tensor) -> None:
+        self.launches += 1
+        self.launches_by_shape[(kind, tuple(t.shape), t.element_size())] += 1
+
+    def _bytes(self, kind: str) -> int:
+        return sum(n * math.prod(shape) * size for (k, shape, size), n
+                   in self.launches_by_shape.items() if k == kind)
+
+    @property
+    def calls(self) -> int:
+        return self.launches
+
+    @property
+    def gathered_bytes(self) -> int:
+        return self._bytes("all_gather")
+
+    @property
+    def reduced_bytes(self) -> int:
+        return self._bytes("all_reduce")
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` concatenated along dim 0 in rank order. A bool
@@ -111,15 +148,13 @@ class Axis:
         out = torch.empty((self.size * send.shape[0],) + send.shape[1:],
                           dtype=send.dtype, device=send.device)
         _all_gather_single(out, send, group=self.group)
-        self.calls += 1
-        self.gathered_bytes += out.numel() * out.element_size()
+        self._book("all_gather", out)
         return out.to(torch.bool) if flag else out
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum ``x`` (contiguous) over the group, in place; returns it."""
         dist.all_reduce(x, group=self.group)
-        self.calls += 1
-        self.reduced_bytes += x.numel() * x.element_size()
+        self._book("all_reduce", x)
         return x
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
@@ -128,7 +163,15 @@ class Axis:
         return x[self.rank * n:(self.rank + 1) * n]
 
     def reset_counts(self) -> None:
-        self.calls = self.gathered_bytes = self.reduced_bytes = 0
+        self.launches = 0
+        self.launches_by_shape.clear()
+
+
+def _warmed(axis: Axis, device_type: str) -> Axis:
+    """``axis`` after one eager all-reduce on its group, not counted: the
+    group's communicator exists before any capture needs it."""
+    dist.all_reduce(torch.zeros(1, device=device_type), group=axis.group)
+    return axis
 
 
 def bytes_per_rank(gathered: int, reduced: int, d: int) -> float:
@@ -166,8 +209,8 @@ def make_mesh(n_particles_shards: int | None = None, n_map_shards: int = 1,
         raise ValueError(f"{n_particles_shards}x{n_map_shards} != {n} ranks")
     dm = init_device_mesh(device_type, (n_particles_shards, n_map_shards),
                           mesh_dim_names=("particles", "map"))
-    return Mesh(dm, Axis(dm.get_group("particles")),
-                Axis(dm.get_group("map")))
+    return Mesh(dm, *(_warmed(Axis(dm.get_group(name)), device_type)
+                      for name in ("particles", "map")))
 
 
 def make_axis(name: str, device_type: str = "cuda") -> Axis:
@@ -178,7 +221,7 @@ def make_axis(name: str, device_type: str = "cuda") -> Axis:
     device_type = device_type_of(device_type)
     dm = init_device_mesh(device_type, (dist.get_world_size(),),
                           mesh_dim_names=(name,))
-    return Axis(dm.get_group(name))
+    return _warmed(Axis(dm.get_group(name)), device_type)
 
 
 def shard_particle_state(state, mesh: Mesh, leaves=PARTICLE_LEAVES):

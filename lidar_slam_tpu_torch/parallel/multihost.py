@@ -17,6 +17,7 @@ request for the card raises without one.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import queue
 import shutil
@@ -115,6 +116,7 @@ def _rank_main(jobs, rank, world_size, init_method, device_type,
     except BaseException:  # reported to the parent, which raises
         results.put((rank, "error", traceback.format_exc()))
     finally:
+        gc.collect()   # no captured collective outlives its communicator
         shutdown()
 
 
@@ -185,9 +187,11 @@ def launch(world_size: int, jobs, device_type: str = "cuda",
 
 def scaling_job(ranges: np.ndarray, cfg, n_scans: int,
                 device_type: str = "cuda") -> float:
-    """In a launched world: scans/s of the sharded PF with config ``cfg``
-    over ``n_scans`` scans (the first step, which builds the first map,
-    untimed)."""
+    """In a launched world: scans/s of the captured sharded PF step with
+    config ``cfg`` over ``n_scans`` scans, as ``sharded.run_sharded_pf``
+    drives it (``advance``, one read at the end); the first step, which
+    builds the first map, and the second, which captures the graph,
+    untimed."""
     from lidar_slam_tpu_torch.models import fastslam
     from lidar_slam_tpu_torch.parallel import sharded
 
@@ -196,14 +200,14 @@ def scaling_job(ranges: np.ndarray, cfg, n_scans: int,
     scans = torch.as_tensor(np.asarray(ranges[:n_scans], np.float32),
                             device=mesh.device_type)
     state = place(fastslam.init_particles(scans[0], cfg))
-    state, est = step(state, scans[1])
-    if mesh.device_type == "cuda":
-        torch.cuda.synchronize()
+    for t in (1, 2):
+        state = step.advance(state, scans[t])
+    state = step.finish(state)
     t0 = time.perf_counter()
-    for t in range(2, scans.shape[0]):
-        state, est = step(state, scans[t])
-    est.cpu()
-    return (scans.shape[0] - 2) / (time.perf_counter() - t0)
+    for t in range(3, scans.shape[0]):
+        state = step.advance(state, scans[t])
+    step.finish(state)
+    return (scans.shape[0] - 3) / (time.perf_counter() - t0)
 
 
 def devices_present(device_type: str) -> tuple[int, str]:

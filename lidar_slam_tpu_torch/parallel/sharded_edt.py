@@ -80,7 +80,9 @@ def edt_sharded(occ_local: torch.Tensor, axis: Axis, max_dist: int = 10
 def edt_replicated(occ: torch.Tensor, axis: Axis, max_dist: int = 10
                    ) -> torch.Tensor:
     """A replicated grid's field computed in row blocks over ``axis`` and
-    gathered back whole (the sharded PF's ``edt_fn`` on its map axis)."""
+    gathered back whole (the sharded PF's ``edt_fn`` on its map axis; in
+    the captured step its two all-gathers sit in the refresh arm's IF
+    node, which every rank takes alike)."""
     if occ.shape[0] % axis.size:
         raise ValueError(f"{occ.shape[0]} rows do not split into "
                          f"{axis.size} equal blocks")

@@ -55,6 +55,11 @@ iteration). ``fetch``, a run's
 one host read, brings the arm counters back with the run's results and adds
 each arm's delta times the runs since the last fetch. The warm-up's
 launches, on the clone, are not counted.
+
+A body may run the parallel layer's collectives (``parallel/mesh.Axis``),
+in the main graph or in a conditional body: NCCL's kernels are captured
+with the body's (``CAPTURE_MODE``), and an ``Axis`` among a ``Graphs``'s
+``counters`` has its collectives booked as the kernels' launches are.
 """
 
 from __future__ import annotations
@@ -74,6 +79,11 @@ from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match
 from lidar_slam_tpu_torch.utils.tree import map_with_path
 
 COUNTED = (cuda_edt, cuda_match)   # modules with launches, launches_by_shape
+# the capture's cudaStreamCaptureMode: "thread_local" lets another thread
+# (c10d's NCCL watchdog, which polls the events of earlier collectives)
+# make CUDA calls while a graph that holds collectives is captured
+# (tests/_nccl_probe.py tries every mode)
+CAPTURE_MODE = "thread_local"
 # what records the IF and WHILE nodes on the card (torch 2.11 has no binding)
 IF_NODE_ROUTE = "the port's C++ (csrc/graph_cond.cu)"
 
@@ -431,7 +441,8 @@ class Graphs:
             # synchronizes and empties the caching allocator and the pinned
             # host cache before every capture
             with torch.cuda.stream(side), no_host_sync(self.device):
-                graph.capture_begin(pool=self.pool)
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode=CAPTURE_MODE)
                 token = _CAPTURE.set(_Capture(self, counts, arms))
                 try:
                     body(bufs)

@@ -1391,3 +1391,145 @@ def test_prepass_graphs_equal_the_eager_chunk_loop_on_the_card(cuda):
                                          0.03, 0.03)
     assert {50, 19} <= set(matcher.bufs) and len(matcher.graphs) == len(
         matcher.bufs)
+
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """An NCCL world of one (one card: NCCL takes one rank a GPU) and its
+    (particles x map) mesh, made and destroyed here."""
+    import gc
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lidar_slam_tpu_torch.parallel import multihost
+
+    assert multihost.initialize(device_type="cuda") == (0, 1)
+    try:
+        yield multihost.global_particle_mesh(device_type="cuda")
+    finally:
+        gc.collect()   # no captured collective outlives its communicator
+        multihost.shutdown()
+
+
+@pytest.mark.parametrize("edt", ["default", "4 blocks", "replicated"])
+def test_captured_sharded_pf_equals_eager_on_the_card(nccl_world, edt):
+    """PF-256, 60 museum scans, on the NCCL world of one: the captured
+    sharded step (its collectives in the graph, the map axis's in the
+    refresh arm with ``edt_replicated``; scans 2.. under the sync debug
+    mode "error") equals the eager sharded step and ``run_pf`` bit for
+    bit, with the same K1/K2 launches by shape and collectives booked."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, ParticleConfig
+    from lidar_slam_tpu_torch.models import fastslam
+    from lidar_slam_tpu_torch.parallel import sharded, sharded_edt
+
+    mesh = nccl_world
+    cfg = dataclasses.replace(DEFAULT_CONFIG,
+                              particles=ParticleConfig(n_particles=256))
+    ranges, _ = _museum(60)
+    edt_fn = {"default": None,
+              "4 blocks": lambda o, r: sharded_edt.edt_blocks(o, 4, r),
+              "replicated": lambda o, r: sharded_edt.edt_replicated(
+                  o, mesh.map, r)}[edt]
+    ref, rstate = fastslam.run_pf(ranges, cfg, seed=0, device="cuda")
+    out = {}
+    for eager in (False, True):
+        _reset_launches()
+        mesh.particles.reset_counts()
+        mesh.map.reset_counts()
+        path, state = sharded.run_sharded_pf(ranges, cfg, mesh, seed=0,
+                                             edt_fn=edt_fn, eager=eager)
+        out[eager] = (path, state, _launches_by_shape(),
+                      dict(mesh.particles.launches_by_shape),
+                      dict(mesh.map.launches_by_shape))
+    (cp, cs, *cc), (ep, es, *ec) = out[False], out[True]
+    assert cc == ec and cc[0][0] and cc[0][1]
+    assert (mesh.map.calls > 0) == (edt == "replicated")
+    assert torch.equal(cp, ref) and torch.equal(ep, ref)
+    for f in ("poses", "prev_poses", "logw", "fine_metric"):
+        assert torch.equal(getattr(cs, f), getattr(rstate, f)), f
+        assert torch.equal(getattr(es, f), getattr(rstate, f)), f
+
+
+def test_captured_sharded_ekf_equals_eager_on_the_card(nccl_world):
+    """EKF-256 (``long_tour_config``), 60 museum scans, on the NCCL world
+    of one: the captured sharded run (one graph, the collectives in the
+    main graph, the association loop a WHILE node) equals the eager
+    sharded run and the unsharded ``run_ml``, path and every bank, with
+    the same collectives booked, and reads the host once."""
+    import warnings
+
+    from lidar_slam_tpu_torch.models import ekf_slam
+    from lidar_slam_tpu_torch.parallel import sharded_ekf
+
+    mesh = nccl_world
+    cfg = ekf_slam.long_tour_config(256)
+    ranges, _ = _museum(60)
+    obs, valid, odo, counts = ekf_slam.scan_inputs(
+        ranges, cfg, max_range=ekf_slam.LONG_TOUR_MAX_RANGE, device="cuda")
+    ref, rstate = ekf_slam.run_ml(obs, valid, odo, cfg, 0, "cuda")
+    out = {}
+    for eager in (False, True):
+        mesh.particles.reset_counts()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                path, state = sharded_ekf.run_sharded_ml(
+                    obs, valid, odo, cfg, mesh, 0,
+                    counts=counts if eager else None, eager=eager)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        out[eager] = (path, state, dict(mesh.particles.launches_by_shape),
+                      syncs)
+    assert out[False][2] == out[True][2]
+    assert out[False][3] == 1
+    for path, state, *_ in out.values():
+        assert torch.equal(path, ref)
+        for f in ekf_slam.PARTICLE_LEAVES:
+            assert torch.equal(getattr(state, f), getattr(rstate, f)), f
+
+
+@pytest.mark.parametrize("problem,iters,cg_iters", [("museum", 3, 20),
+                                                    ("tiny", 5, None)])
+def test_captured_sharded_ba_equals_eager_on_the_card(nccl_world, problem,
+                                                      iters, cg_iters):
+    """The K = 512 museum problem, 3 iterations of 20 PCG steps, and the
+    dry run's 6-pose problem, 5 iterations of the default PCG steps (where
+    the eager solve once left the captured one: its preconditioner blocks
+    were column-major, the captured buffers row-major), on the NCCL world
+    of one: the
+    captured solve (three graphs) equals the eager ``_solve`` bit for bit
+    with the same collectives booked; a second solve replays the graphs
+    under the sync debug mode "error"."""
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import ba, state_io
+    from lidar_slam_tpu_torch.parallel import dryrun, sharded_ba
+
+    axis = sharded_ba.make_graph_mesh("cuda")
+    if problem == "tiny":
+        p = dryrun.tiny_ba_problem("cuda")
+    else:
+        p = state_io.ba_problem_from_numpy(
+            ba.BAProblem(**simulate.generate_ba_problem()), "cuda")
+    outs, calls = [], []
+    for eager in (False, True):
+        axis.reset_counts()
+        outs.append(sharded_ba.optimize_ba_sharded(
+            p, axis, iters=iters, cg_iters=cg_iters, eager=eager))
+        calls.append(dict(axis.launches_by_shape))
+    assert calls[0] == calls[1]
+    assert torch.equal(outs[0].poses, outs[1].poses)
+    assert torch.equal(outs[0].landmarks, outs[1].landmarks)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = sharded_ba.optimize_ba_sharded(p, axis, iters=iters,
+                                               cg_iters=cg_iters)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(again.poses, outs[0].poses)
+    assert len(axis.ba_solve.graphs) == 3

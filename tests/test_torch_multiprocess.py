@@ -9,7 +9,12 @@ check once, in a module fixture, after the sharded PF's timing of
 ``multihost.scaling_job``, and every test below reads its result; a fourth
 world is ``scaling_report``'s own. The JAX package holds its two-process PF
 to 1e-5 (resampling off) and 0.2 m (on); here every rank's path equals the
-single process's bit for bit.
+single process's bit for bit. The sharded steps run captured
+(``PfStepFn``, ``EkfStepFn``, ``ShardedSolve``; on the CPU the same bodies
+on the same static buffers), and worlds of 2 and 4 also run their eager
+forms: each rank's captured result equals its eager one, with the same
+collectives booked. A 2 x 2 mesh runs the eager PF step
+(``sharded.runs_captured``).
 
 The worlds are gloo worlds on the CPU. The file imports neither JAX nor
 the JAX package, so on a machine with at least four cards (and no JAX)
@@ -46,7 +51,8 @@ WORLDS = (2, 4)
 BA_TOL = 1e-5      # a world of 2 or 4 against a world of 1 (float64 sums)
 ATE_MAX = 0.25     # tests/test_parallel.py's sharded PF pin
 JOBS = ("scans_per_s", "pf_no_resample", "pf_resample", "ekf", "edt", "ba",
-        "imports", "dryrun", "pf_tracks")
+        "imports", "pf_eager", "ekf_eager", "ba_eager", "dryrun", "pf_tracks",
+        "pf_map2")
 
 
 def _pf_cfg(p, threshold=0.5):
@@ -91,11 +97,19 @@ def worlds(inputs):
         (sharded_ekf.steps_job, _ekf_case() + (0, DEVICE)),
         (sharded_edt.replicated_job, (inputs["occ"], 10, DEVICE)),
         ba_job,
-        (multihost.imported_packages, ())]
+        (multihost.imported_packages, ()),
+        # the eager steps, which the captured ones above must equal
+        (sharded.run_job, (ranges[:13], _pf_cfg(64), 1, 0, DEVICE, True)),
+        (sharded_ekf.steps_job, _ekf_case() + (0, DEVICE, True)),
+        (sharded_ba.optimize_job, (inputs["ba"], 5, None, DEVICE, True))]
     jobs = {1: [timing, ba_job],
             2: checks,
             4: checks + [(dryrun.dryrun_multichip, (4, DEVICE)),
                          (sharded.run_job, (ranges[:40], _pf_cfg(32), 1, 0,
+                                            DEVICE)),
+                         # a 2 x 2 mesh: the map axis's collectives in the
+                         # refresh arm
+                         (sharded.run_job, (ranges[:13], _pf_cfg(64), 2, 0,
                                             DEVICE))]}
     return {d: multihost.launch(d, jobs[d], DEVICE, timeout_s=400.0)
             for d in (1, 2, 4)}
@@ -145,7 +159,7 @@ def test_sharded_pf_equals_single_process(worlds, inputs, d, threshold,
     ref, state = tfs.run_pf(inputs["ranges"][:13], _pf_cfg(64, threshold),
                             device=DEVICE)
     out = _results(worlds, d, job)
-    for path, _, _ in out:
+    for path, *_ in out:
         assert np.array_equal(path, ref.cpu().numpy())
     assert np.array_equal(np.concatenate([o[1] for o in out]),
                           state.poses.cpu().numpy())
@@ -165,7 +179,7 @@ def test_sharded_ekf_equals_single_process(worlds, d):
             odo=torch.as_tensor(odo, device=DEVICE))
         ests.append(est)
     out = _results(worlds, d, "ekf")
-    for got_ests, _ in out:
+    for got_ests, *_ in out:
         assert np.array_equal(got_ests, torch.stack(ests).cpu().numpy())
     for f in tek.PARTICLE_LEAVES:
         assert np.array_equal(
@@ -211,6 +225,48 @@ def test_sharded_pf_tracks_on_four_ranks(worlds, inputs):
     """32 particles over 4 ranks, 40 scans: ATE < 0.25 m, and every rank's
     path equal to the single process's."""
     ref, _ = tfs.run_pf(inputs["ranges"][:40], _pf_cfg(32), device=DEVICE)
-    for path, _, _ in _results(worlds, 4, "pf_tracks"):
+    for path, *_ in _results(worlds, 4, "pf_tracks"):
         assert np.array_equal(path, ref.cpu().numpy())
         assert ate(path, inputs["gt"][:40]) < ATE_MAX
+
+
+def _same(a, b) -> bool:
+    """Two job results (tuples of arrays, states and count dicts) equal
+    leaf by leaf."""
+    if isinstance(a, dict):
+        return a == b
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if a is None:
+        return b is None
+    return np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("d", WORLDS)
+@pytest.mark.parametrize("captured,eager", [("pf_resample", "pf_eager"),
+                                            ("ekf", "ekf_eager"),
+                                            ("ba", "ba_eager")])
+def test_captured_equals_eager_across_ranks(worlds, d, captured, eager):
+    """Every rank's captured sharded PF, EKF and BA equal its eager forms
+    bit for bit: paths, estimates, its rows of the state, the solved
+    poses and landmarks, and the collectives booked by kind and shape."""
+    for cap, eag in zip(_results(worlds, d, captured),
+                        _results(worlds, d, eager)):
+        assert _same(cap, eag)
+
+
+def test_two_by_two_mesh_equals_run_pf(worlds, inputs):
+    """Four ranks as 2 particle blocks x 2 map blocks: the refresh arm's
+    field is ``edt_replicated`` over the map axis, and the step is the
+    eager one (``sharded.runs_captured``: NCCL refuses multi-rank
+    collectives inside a conditional body). Its path equals ``run_pf``'s
+    on every rank, and its particle blocks the single process's."""
+    ref, state = tfs.run_pf(inputs["ranges"][:13], _pf_cfg(64),
+                            device=DEVICE)
+    out = _results(worlds, 4, "pf_map2")
+    for path, *_ in out:
+        assert np.array_equal(path, ref.cpu().numpy())
+    # ranks (p, m) and (p, m') hold the same particle block
+    assert np.array_equal(np.concatenate([out[0][1], out[2][1]]),
+                          state.poses.cpu().numpy())
+    assert np.array_equal(out[0][1], out[1][1])

@@ -3,10 +3,15 @@ the single-process port and ``lidar_slam_tpu.parallel`` on the 8-device
 virtual mesh (the counterpart of ``tests/test_parallel.py``).
 
 A world of one still runs every collective through its process group.
-Worlds of 2 and 4 processes are ``tests/test_torch_multiprocess.py``.
+Worlds of 2 and 4 processes are ``tests/test_torch_multiprocess.py``. The
+sharded steps run captured (``PfStepFn`` and ``EkfStepFn`` with a mesh
+axis as their rows; here the same bodies on the same static buffers) and
+are held to their eager forms (``eager=True``) bit for bit, with the same
+collectives booked.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -190,15 +195,121 @@ def test_sharded_ekf_world1_matches_single_rank_and_jax(world):
 
 
 def test_sharded_ekf_run_ml_world1_equals_run_ml(world, small_dataset):
-    """The scan-driven inputs through ``run_sharded_ml`` equal
-    ``run_ml``'s run."""
+    """The scan-driven inputs through ``run_sharded_ml`` (captured, the
+    valid rows found on the device) equal ``run_ml``'s run."""
     ranges, _ = small_dataset
     cfg = tek.long_tour_config(64)
     inputs = tek.scan_inputs(ranges[:30], cfg,
                              max_range=tek.LONG_TOUR_MAX_RANGE,
                              device="cpu")
-    ref, rstate = tek.run_ml(*inputs[:3], cfg, 2, "cpu", counts=inputs[3])
-    got, gstate = sharded_ekf.run_sharded_ml(*inputs[:3], cfg, world, 2,
-                                             counts=inputs[3])
+    ref, rstate = tek.run_ml(*inputs[:3], cfg, 2, "cpu")
+    got, gstate = sharded_ekf.run_sharded_ml(*inputs[:3], cfg, world, 2)
     assert torch.equal(got, ref)
     assert torch.equal(gstate.lm_mean, rstate.lm_mean)
+
+
+def _axes_counts(*axes):
+    return [dict(ax.launches_by_shape) for ax in axes]
+
+
+@pytest.mark.parametrize("edt", ["default", "replicated"])
+@pytest.mark.parametrize("threshold", [0.0, 0.5])
+def test_captured_sharded_pf_equals_eager_and_run_pf(world, small_dataset,
+                                                     threshold, edt):
+    """The captured sharded step (what ``run_sharded_pf`` runs) equals the
+    eager sharded step and ``run_pf`` bit for bit, path and final state,
+    resampling off and on, with the default field and with
+    ``edt_replicated`` over the map axis (its collectives in the refresh
+    arm); both book the same collectives, kind by kind and shape by
+    shape."""
+    ranges, _ = small_dataset
+    cfg = _pf_cfg(resample_threshold=threshold)
+    ref, rstate = tfs.run_pf(ranges[:25], cfg, seed=1, device="cpu")
+    edt_fn = None if edt == "default" else (
+        lambda occ, r: sharded_edt.edt_replicated(occ, world.map, r))
+    out, counts = {}, {}
+    for eager in (False, True):
+        world.particles.reset_counts()
+        world.map.reset_counts()
+        out[eager] = sharded.run_sharded_pf(ranges[:25], cfg, world, seed=1,
+                                            edt_fn=edt_fn, eager=eager)
+        counts[eager] = _axes_counts(world.particles, world.map)
+    (got, gstate), (eag, estate) = out[False], out[True]
+    assert torch.equal(got, ref) and torch.equal(eag, ref)
+    for f in ("poses", "prev_poses", "logw", "fine_metric"):
+        assert torch.equal(getattr(gstate, f), getattr(rstate, f)), f
+        assert torch.equal(getattr(estate, f), getattr(rstate, f)), f
+    assert counts[False] == counts[True]
+    assert world.particles.calls > 0
+    assert (world.map.calls > 0) == (edt == "replicated")
+
+
+def test_captured_sharded_pf_step_is_pf_step_fn(world):
+    """``make_sharded_pf_step`` returns the captured step (``PfStepFn``
+    on the particles axis, booking both axes' collectives) unless asked
+    for the eager one, or unless the map axis has two or more ranks
+    (decided from the mesh's shape: NCCL refuses their collectives in the
+    refresh arm's conditional body)."""
+    cfg = _pf_cfg(32)
+    assert sharded.runs_captured(world)
+    step, _ = sharded.make_sharded_pf_step(cfg, world)
+    assert isinstance(step, tfs.PfStepFn)
+    assert step.rows is world.particles
+    assert world.particles in step.graphs.book.counters
+    assert world.map in step.graphs.book.counters
+    eager, _ = sharded.make_sharded_pf_step(cfg, world, eager=True)
+    assert not isinstance(eager, tfs.PfStepFn)
+    # a map axis of two ranks (only its size is read)
+    two = world._replace(map=types.SimpleNamespace(size=2))
+    assert not sharded.runs_captured(two)
+    by_shape, _ = sharded.make_sharded_pf_step(cfg, two)
+    assert not isinstance(by_shape, tfs.PfStepFn)
+
+
+def test_captured_sharded_run_ml_equals_eager(world, small_dataset):
+    """``run_ml(rows=...)`` captured (the valid rows found and looped over
+    on the card) equals the eager sharded steps, which take each scan's
+    rows from the host, and the unsharded captured ``run_ml``: path and
+    every bank, with the same collectives booked."""
+    ranges, _ = small_dataset
+    cfg = tek.long_tour_config(64)
+    inputs = tek.scan_inputs(ranges[:30], cfg,
+                             max_range=tek.LONG_TOUR_MAX_RANGE,
+                             device="cpu")
+    ref, rstate = tek.run_ml(*inputs[:3], cfg, 2, "cpu")
+    out, counts = {}, {}
+    for eager, kw in ((False, {}), (True, {"counts": inputs[3]}),
+                      (True, {})):
+        world.particles.reset_counts()
+        out[eager, bool(kw)] = sharded_ekf.run_sharded_ml(
+            *inputs[:3], cfg, world, 2, eager=eager, **kw)
+        counts[eager, bool(kw)] = _axes_counts(world.particles)
+    assert len({str(c) for c in counts.values()}) == 1
+    for path, state in out.values():
+        assert torch.equal(path, ref)
+        for f in tek.PARTICLE_LEAVES:
+            assert torch.equal(getattr(state, f), getattr(rstate, f)), f
+
+
+def test_captured_sharded_ekf_step_books_a_replay(world):
+    """The captured sharded EKF step books its collectives once a step, as
+    the eager step makes them: two all-gathers of the weights and the
+    resampling's gathers, none in the association loop."""
+    cfg = tek.EkfSlamConfig(n_particles=64, max_landmarks=8,
+                            use_scan_odometry=True)
+    obs, valid, odo = (torch.as_tensor(a) for a in _ekf_inputs())
+    counts = {}
+    for eager in (False, True):
+        world.particles.reset_counts()
+        step, place = sharded_ekf.make_sharded_ekf_step(cfg, world, eager)
+        state = place(tek.init_ekf_slam(cfg, 0, "cpu"))
+        ests = []
+        for _ in range(3):
+            state, est = step(state, obs, valid, odo)
+            ests.append(est.clone())
+        counts[eager] = (world.particles.calls,
+                         dict(world.particles.launches_by_shape),
+                         torch.stack(ests))
+    assert counts[False][:2] == counts[True][:2]
+    assert counts[False][0] % 3 == 0
+    assert torch.equal(counts[False][2], counts[True][2])

@@ -3,7 +3,9 @@ package's ``optimize_ba_sharded`` on the 8-device virtual mesh, and the
 property that no (K, K)- or (L, K)-shaped tensor exists (the counterpart of
 ``tests/test_sharded_ba.py``, whose HLO-text check becomes a record of
 every tensor shape the call's aten ops produce). A gloo world of one;
-worlds of 2 and 4 are in ``tests/test_torch_multiprocess.py``.
+worlds of 2 and 4 are in ``tests/test_torch_multiprocess.py``. The solve
+runs captured (three graphs on the card, the same bodies on the same
+static buffers here) and is held to the eager ``_solve`` bit for bit.
 """
 
 import jax
@@ -152,3 +154,41 @@ def test_museum_512_matches_jax_and_differs_from_dense_by_the_gauge(axis):
           f"{float((got.poses - dense.poses).abs().max()):.4g}, JAX "
           f"{jgap:.4g}; the dense solve moved pose 0's heading "
           f"{heading:.4g} rad")
+
+
+@pytest.mark.parametrize("kwargs,iters,cg_iters", [
+    ({}, 4, None), (dict(n_poses=13, n_lms=7, seed=2), 3, 7),
+    ("museum", 2, 20)])
+def test_captured_solve_equals_eager(axis, kwargs, iters, cg_iters):
+    """The captured solve (``ShardedSolve``: an iteration's prologue, a
+    PCG step and its update over static buffers) equals the eager
+    ``_solve`` bit for bit, with the same collectives booked; the solve
+    the axis keeps for later calls (another damping, then the first again)
+    replays its buffers and still equals the eager solve."""
+    from lidar_slam_tpu_torch.io import simulate
+
+    if kwargs == "museum":
+        p = tba.BAProblem(**simulate.generate_ba_problem())
+        tp = state_io.ba_problem_from_numpy(p, "cpu")
+    else:
+        tp = _port(_make_problem(**kwargs)[0])
+    for damping in (1e-3, 1e-2, 1e-3):
+        calls = []
+        outs = []
+        for eager in (False, True):
+            axis.reset_counts()
+            outs.append(sharded_ba.optimize_ba_sharded(
+                tp, axis, iters=iters, damping=damping, cg_iters=cg_iters,
+                eager=eager))
+            calls.append(dict(axis.launches_by_shape))
+        got, want = outs
+        assert torch.equal(got.poses, want.poses), damping
+        assert torch.equal(got.landmarks, want.landmarks), damping
+        assert calls[0] == calls[1]
+    k = tp.poses.shape[0]
+    cg = 3 * k if cg_iters is None else cg_iters
+    # five block sums an iteration's prologue, three a PCG step, one its
+    # update: an all-reduce each
+    assert axis.calls == iters * (5 + 3 * cg + 1)
+    solver = axis.ba_solve
+    assert solver.graphs is not None and len(solver.bufs.cg) == 5
