@@ -175,13 +175,15 @@ parallel layer on an NCCL world of one) and checks the results:
     each block shape timed as in phase 7;
     20. the sharded PF-1024, museum-1000, with the default keyframe
     field, with it as 4 row blocks and with ``edt_replicated`` over the
-    map axis (its one-rank collectives in the refresh arm's IF node; the
-    form the mesh runs is printed: a map axis of 2 or more ranks runs the
-    eager step, ``sharded.runs_captured``): the captured
-    step (what ``run_sharded_pf`` runs: one CUDA graph with its collectives
-    inside, no host read after scan 1) == the eager step (``eager=True``)
-    == phase 6's ``run_pf``, with the same K1/K2 launches by shape and the
-    same collectives booked; scans/s and the whole run's host syncs of
+    map axis (``sharded_edt.ReplicatedField``: the refresh arm's IF node
+    computes this rank's row block, the main graph all-gathers the field
+    every scan, as on a map axis of 2 or more ranks): the captured
+    step (what ``run_sharded_pf`` runs on every mesh shape: one CUDA graph
+    with its collectives inside, none in the IF node, no host read after
+    scan 1) == the eager step (``eager=True``) == phase 6's ``run_pf``,
+    with the same K1/K2 launches by shape and the same collectives booked
+    on the particles axis (the map axis: one all-gather of the field a
+    scan captured, one a keyframe eager); scans/s and the whole run's host syncs of
     both, equal at 200 scans and on the tour; over scans 101-150 of each
     step device ops, device time, busy share and host syncs a scan; ms a
     step against ``run_pf`` in turns; a collective's host time called
@@ -1137,13 +1139,12 @@ def parallel_phases(ctx) -> None:
     edts = {"default EDT": None,
             "4-block EDT": lambda o, r: sharded_edt.edt_blocks(o, 4, r),
             "edt_replicated over the map axis":
-                lambda o, r: sharded_edt.edt_replicated(o, mesh.map, r)}
-    require(sharded.runs_captured(mesh), "the world-of-one mesh does not "
-            "run the captured sharded PF step")
+                sharded_edt.ReplicatedField(mesh.map)}
     print(f"[20] the form run_sharded_pf runs on this {mesh.particles.size}"
-          f"x{mesh.map.size} mesh: captured (a map axis of 2 or more ranks "
-          f"runs the eager step: NCCL refuses multi-rank collectives inside "
-          f"a conditional body)", flush=True)
+          f"x{mesh.map.size} mesh, as on every mesh shape: captured, with no "
+          f"collective inside the IF node (on a map axis, the refresh arm "
+          f"computes this rank's row block of the field and the main graph "
+          f"all-gathers it every scan)", flush=True)
 
     def pf_run(ranges, edt_fn=None, eager=False):
         """A sharded run, its path read: (path, state, seconds, the whole
@@ -1186,11 +1187,29 @@ def parallel_phases(ctx) -> None:
             eag["label"]], f"{name}: K1/K2 launches by shape, captured "
             f"{ctx.path_counts[cap['label']]} against eager "
             f"{ctx.path_counts[eag['label']]}")
-        require(cap["particles"] == eag["particles"]
-                and cap["map"] == eag["map"],
-                f"{name}: collectives booked, captured {cap['particles']} "
-                f"{cap['map']} against eager {eag['particles']} "
-                f"{eag['map']}")
+        require(cap["particles"] == eag["particles"],
+                f"{name}: collectives booked on the particles axis, captured "
+                f"{cap['particles']} against eager {eag['particles']}")
+        if isinstance(edt_fn, sharded_edt.ReplicatedField):
+            # by design: the field gathered every scan captured, on a
+            # keyframe eager
+            field = ("all_gather", tuple(sstate.fine_metric.shape), 4)
+            keyframes = eag["map"].get(field, 0)
+            require(cap["map"] == {field: steps}
+                    and eag["map"] == {field: keyframes}
+                    and 1 <= keyframes < steps,
+                    f"{name}: the map axis booked {cap['map']} captured "
+                    f"(one all-gather of the field a scan expected, "
+                    f"{steps}) and {eag['map']} eager (one a keyframe)")
+            print(f"[20] {name}: the map axis books one all-gather of the "
+                  f"field a scan captured ({steps} over {steps} steps) and "
+                  f"one a keyframe eager ({keyframes}); K1 by shape "
+                  f"captured == eager: {ctx.path_counts[cap['label']]['K1']}",
+                  flush=True)
+        else:
+            require(cap["map"] == eag["map"], f"{name}: collectives booked "
+                    f"on the map axis, captured {cap['map']} against eager "
+                    f"{eag['map']}")
         print(f"[20] sharded PF-1024 museum-1000, {name}, on the NCCL world "
               f"of 1 (a 1x1 particles x map mesh): captured step path == "
               f"eager step path == phase 6's run_pf (np.array_equal); "
@@ -1199,9 +1218,10 @@ def parallel_phases(ctx) -> None:
               f"whole run {cap['syncs']} captured (at {cap['where']}), "
               f"{eag['syncs']} eager (sync debug mode \"warn\"); K1/K2 "
               f"launches by shape equal; "
-              f"collectives booked "
-              f"{cap['calls'] / steps:.2f} a step in both, by kind and shape "
-              f"particles {cap['particles']}, map {cap['map']}", flush=True)
+              f"collectives booked {cap['calls'] / steps:.2f} a step "
+              f"captured, {eag['calls'] / steps:.2f} eager; by kind and "
+              f"shape particles {cap['particles']}, map {cap['map']} "
+              f"captured, {eag['map']} eager", flush=True)
     require(any(k[1] == 120 for k in
                 ctx.path_counts[runs["4-block EDT", "captured"]["label"]]
                 ["K1"]), "the 4-block run launched no K1 at (1,120,400)")

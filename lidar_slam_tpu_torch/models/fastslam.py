@@ -232,13 +232,10 @@ def pf_head(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
     return PfHead(state=kept, scan=scan, est_pose=est_pose, test=test)
 
 
-def pf_refresh(head: PfHead, first: bool, cfg: SlamConfig, edt_fn=None
-               ) -> ParticleState:
-    """The keyframe refresh when the test passed (or on the first step,
-    ``first``, whose field is still empty): append the novel points, crop,
-    raster, and the keyframe field (``edt_fn``, as ``pf_step``)."""
+def pf_raster(head: PfHead, first: bool, cfg: SlamConfig) -> ParticleState:
+    """``pf_refresh`` up to its field: append the novel points, crop and
+    raster; the state keeps its current ``fine_metric``."""
     g, m = cfg.grid, cfg.map
-    edt_fn = edt_ops.edt if edt_fn is None else edt_fn
     st, scan, est_pose = head.state, head.scan, head.est_pose
     wx, wy = se2.transform_ref(scan.x, scan.y, est_pose)
     if first:
@@ -255,9 +252,19 @@ def pf_refresh(head: PfHead, first: bool, cfg: SlamConfig, edt_fn=None
     min_xy, max_xy = gridmap.local_bounds(local)
     fine = gridmap.rasterize(local, g.fine_pixel, g.fine_size, min_xy,
                              max_xy, g.margin_pixels)
-    fine_metric = edt_fn(fine.occ, int(g.max_dist_px))
-    return st._replace(mini_updated=True, pmap=pmap, fine=fine,
-                       fine_metric=fine_metric)
+    return st._replace(mini_updated=True, pmap=pmap, fine=fine)
+
+
+def pf_refresh(head: PfHead, first: bool, cfg: SlamConfig, edt_fn=None
+               ) -> ParticleState:
+    """The keyframe refresh when the test passed (or on the first step,
+    ``first``, whose field is still empty): append the novel points, crop,
+    raster (``pf_raster``), and the keyframe field (``edt_fn``, as
+    ``pf_step``)."""
+    edt_fn = edt_ops.edt if edt_fn is None else edt_fn
+    st = pf_raster(head, first, cfg)
+    return st._replace(fine_metric=edt_fn(st.fine.occ,
+                                          int(cfg.grid.max_dist_px)))
 
 
 def pf_step(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
@@ -289,6 +296,8 @@ class _PfStatic(NamedTuple):
     u0: torch.Tensor       # () the step's resampling offset
     head: PfHead           # head.state is the step's state
     out: torch.Tensor      # (4,) the estimate and the test
+    block: torch.Tensor | None   # this rank's rows of the field (a split
+    #                              edt_fn's; None otherwise)
 
 
 class PfStepFn:
@@ -313,17 +322,25 @@ class PfStepFn:
 
     ``rows`` and ``edt_fn`` are ``pf_step``'s: a sharded step
     (``parallel/sharded.py``) holds a block of the particles, and its
-    collectives are captured in the graph with its kernels (the refresh
-    arm's too, where ``edt_fn`` gathers). The noise buffer holds the full
-    (P, 3), drawn from the replicated generator; the body keeps its rows.
-    ``axes``: the mesh axes whose collectives the step runs, booked once a
-    replay as the kernels' launches are."""
+    collectives are captured in the main graph with its kernels, none
+    inside the IF node (the card's NCCL refuses a collective of two or
+    more ranks in a conditional body). An ``edt_fn`` that gathers comes
+    with its halves (``sharded_edt.ReplicatedField``: ``local``,
+    ``assemble``, ``block``): the arm then runs ``pf_raster`` and writes
+    this rank's block of the field into a static buffer, and after the IF
+    node the main graph all-gathers that buffer into the state's
+    ``fine_metric`` on every scan (after a scan with no keyframe, the same
+    blocks again). The noise buffer holds the full (P, 3), drawn from the
+    replicated generator; the body keeps its rows. ``axes``: the mesh axes
+    whose collectives the step runs, booked once a replay as the kernels'
+    launches are."""
 
     def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda",
                  rows: AllRows = ALL_ROWS, edt_fn=None, axes=()):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.rows, self.edt_fn = rows, edt_fn
+        self.split = hasattr(edt_fn, "assemble")   # the field's two halves
         self.angles = angles_tensor(cfg, self.device)
         self.graphs = graphs.Graphs(self.device,
                                     counters=graphs.COUNTED + tuple(axes))
@@ -399,16 +416,31 @@ class PfStepFn:
                     est_pose=torch.zeros(3, **f32),
                     test=torch.zeros((), dtype=torch.bool,
                                      device=self.device)),
-                out=torch.zeros(4, **f32))
+                out=torch.zeros(4, **f32),
+                block=(self.edt_fn.block(state.fine_metric).clone()
+                       if self.split else None))
         else:
             graphs.copy_into(self.bufs.head.state, state)
+            if self.split:
+                self.bufs.block.copy_(self.edt_fn.block(state.fine_metric))
 
     def _body(self, b: _PfStatic) -> None:
         head = pf_head(b.head.state, b.ranges, self.cfg, self.angles,
                        draws=(b.noise, b.u0), rows=self.rows)
         graphs.copy_into(b.head, head)
-        graphs.cond(b.head.test, lambda: graphs.copy_into(
-            b.head.state, pf_refresh(b.head, False, self.cfg, self.edt_fn)))
+        if not self.split:
+            graphs.cond(b.head.test, lambda: graphs.copy_into(
+                b.head.state, pf_refresh(b.head, False, self.cfg,
+                                         self.edt_fn)))
+        else:
+            def refresh_block():   # no collective in the arm
+                st = pf_raster(b.head, False, self.cfg)
+                graphs.copy_into(b.head.state, st)
+                b.block.copy_(self.edt_fn.local(
+                    st.fine.occ, int(self.cfg.grid.max_dist_px)))
+
+            graphs.cond(b.head.test, refresh_block)
+            b.head.state.fine_metric.copy_(self.edt_fn.assemble(b.block))
         b.out.copy_(pose_and_test(b.head.est_pose, b.head.test))
 
 

@@ -2,10 +2,9 @@
 ``__graft_entry__.dryrun_multichip``).
 
 ``dryrun_multichip(n)`` runs inside every rank of a world of n: two PF
-steps on a (particles x map) mesh (``sharded.make_sharded_pf_step``'s
-form: captured on a map axis of one, its first step eager; eager on a map
-axis of two), with a map axis of 2 when n is even and
-at least 4, so both axes carry work; one sharded BA iteration whose error
+steps on a (particles x map) mesh (``sharded.make_sharded_pf_step``: the
+captured step, its first step eager), with a map axis of 2 when n is even
+and at least 4, so both axes carry work; one sharded BA iteration whose error
 must fall; the row-block EDT over n ranks with the JAX package's point
 checks; and two sharded EKF steps. Tiny shapes throughout: 8 particles a
 rank, a small correlation volume. It runs on the card unless the caller
@@ -114,7 +113,7 @@ def dryrun_multichip(n_devices: int, device_type: str = "cuda") -> dict:
     state = place(fastslam.init_particles(ranges[0], cfg))
     for t in (1, 2):
         state, est = step(state, ranges[t])
-    out["pf_est"] = np.asarray(torch.as_tensor(est).cpu())
+    out["pf_est"] = est
     say(f"dryrun_multichip({n_devices}): PF steps ok on a "
         f"{n_devices // n_map}x{n_map} (particles x map) mesh, est pose = "
         f"{out['pf_est']}")

@@ -11,23 +11,21 @@ single-process code. The point map, the grids and the field are
 replicated: every rank builds the same correlation volume (kernel K2)
 from the same mean pose. When the map axis has more than one rank, the
 keyframe field is the row-block transform of ``sharded_edt`` over it
-(kernel K1 on every block), gathered back whole.
+(kernel K1 on every block), gathered back whole
+(``sharded_edt.ReplicatedField``).
 
-The step runs as JAX runs its jitted one: ``fastslam.PfStepFn``, one CUDA
-graph over static buffers with the collectives captured inside it, so
-``run_sharded_pf`` reads nothing on the host between its first scan and
-its final read, as ``run_pf``. Every rank captures the same collectives in
-the same order and takes the same arm: the keyframe test is computed from
-gathered tensors. ``eager=True`` gives the eager ``pf_step`` loop, the
-reference the captured step is held to.
-
-A map axis of two or more ranks runs the eager step, chosen from the
-mesh's shape (``runs_captured``): its row-block field is all-gathered in
-the refresh arm, the body of a conditional node, and the card's NCCL
-refuses a collective of two or more ranks there (``capture_end``: invalid
-argument; ``tests/_nccl_probe.py --world 4``). A collective on one rank is
-accepted there, so ``edt_replicated`` over a map axis of one runs
-captured.
+The step runs as JAX runs its jitted one, on every mesh shape:
+``fastslam.PfStepFn``, one CUDA graph over static buffers with the
+collectives captured inside it, so ``run_sharded_pf`` reads nothing on the
+host between its first scan and its final read, as ``run_pf``. Every rank
+captures the same collectives in the same order and takes the same arm:
+the keyframe test is computed from gathered tensors. No collective sits
+inside the graph's IF node (the card's NCCL refuses a collective of two or
+more ranks in a conditional body): the refresh arm computes this rank's
+row block of the field, and the main graph all-gathers the blocks after
+the IF node on every scan. ``eager=True`` gives the eager ``pf_step``
+loop, the reference the captured step is held to; it gathers the field
+only on a keyframe.
 
 Every rank draws the full (P, 3) noise from the shared generator and keeps
 its rows, so a sharded run equals the single-process ``run_pf`` bit for
@@ -47,31 +45,23 @@ from lidar_slam_tpu_torch.parallel import sharded_edt
 from lidar_slam_tpu_torch.utils import graphs
 
 
-def runs_captured(mesh: mesh_lib.Mesh) -> bool:
-    """Whether the sharded PF step runs captured on ``mesh``: only with a
-    map axis of one rank, since NCCL refuses the multi-rank all-gathers of
-    the refresh arm's row-block field inside a conditional node."""
-    return mesh.map.size == 1
-
-
 def make_sharded_pf_step(cfg: SlamConfig, mesh: mesh_lib.Mesh, edt_fn=None,
                          eager: bool = False):
     """Returns (step, place): ``step``, this rank's particle rows' step, and
     ``place(state)`` cutting a whole state to them. ``step`` is the
     captured ``fastslam.PfStepFn`` (``step(state, ranges, draws=None) ->
-    (state, pose as numpy)``, ``advance`` and ``finish``); with ``eager``,
-    or on a map axis of two or more ranks (``runs_captured``), the eager
-    ``pf_step`` (``-> (state, pose tensor)``). ``edt_fn(occ, max_dist)``
-    defaults to the map axis's row-block transform when that axis has more
-    than one rank, else to ``ops/edt.edt``."""
+    (state, pose as numpy)``, ``advance`` and ``finish``) on every mesh
+    shape; with ``eager``, the eager ``pf_step`` (``-> (state, pose
+    tensor)``). ``edt_fn(occ, max_dist)`` defaults to the map axis's
+    row-block transform (``sharded_edt.ReplicatedField``) when that axis
+    has more than one rank, else to ``ops/edt.edt``."""
     if edt_fn is None and mesh.map.size > 1:
-        def edt_fn(occ, max_dist):
-            return sharded_edt.edt_replicated(occ, mesh.map, max_dist)
+        edt_fn = sharded_edt.ReplicatedField(mesh.map)
 
     def place(state):
         return mesh_lib.shard_particle_state(state, mesh)
 
-    if not eager and runs_captured(mesh):
+    if not eager:
         return fastslam.PfStepFn(cfg, mesh.device_type, rows=mesh.particles,
                                  edt_fn=edt_fn,
                                  axes=(mesh.particles, mesh.map)), place
@@ -91,11 +81,9 @@ def run_sharded_pf(ranges_all: np.ndarray, cfg: SlamConfig,
     """Whole-dataset sharded run on the mesh's device type, every rank of
     the world calling it: scans 2.. through the captured step's
     ``advance`` with no host read, the path in a device buffer, one read
-    at the end (``run_pf``'s loop); with ``eager``, or where the mesh
-    does not run captured (``runs_captured``), the eager step a scan.
+    at the end (``run_pf``'s loop); with ``eager``, the eager step a scan.
     ``draws``: per-step whole-P ``(noise, u0)``, as ``fastslam.run_pf``.
     Returns (path (T, 3), this rank's final state)."""
-    eager = eager or not runs_captured(mesh)
     step, place = make_sharded_pf_step(cfg, mesh, edt_fn, eager)
     ranges = torch.as_tensor(np.asarray(ranges_all, np.float32),
                              device=mesh.device_type)
@@ -118,9 +106,10 @@ def run_job(ranges_all: np.ndarray, cfg: SlamConfig, n_map_shards: int = 1,
             seed: int = 0, device_type: str = "cuda", eager: bool = False):
     """``run_sharded_pf`` on a new mesh over the whole world: a job for
     ``multihost.launch``. Returns (path, this rank's poses, its logw, the
-    particles axis's collectives by kind and shape)."""
+    particles axis's and the map axis's collectives by kind and shape)."""
     mesh = mesh_lib.make_mesh(n_map_shards=n_map_shards,
                               device_type=device_type)
     path, state = run_sharded_pf(ranges_all, cfg, mesh, seed, eager=eager)
     return (path, state.poses, state.logw,
-            dict(mesh.particles.launches_by_shape))
+            dict(mesh.particles.launches_by_shape),
+            dict(mesh.map.launches_by_shape))

@@ -13,6 +13,13 @@ whole-grid transform's rows exactly.
 The JAX package exchanges the row pass's f32 output instead and runs a jnp
 min-plus column pass, held to 1e-5. ``edt_row_block`` is the pure per-block
 body, so D blocks can also run in one process.
+
+A replicated grid (the sharded PF's: every rank rasters the same one)
+needs no exchange: each rank cuts its extended block from the whole grid
+(``edt_local_block``, no collective), and one all-gather of the blocks
+assembles the field (``edt_replicated``). ``ReplicatedField`` is that
+pair as the PF's ``edt_fn``: the captured step runs the local half in its
+refresh arm and the gather in its main graph.
 """
 
 from __future__ import annotations
@@ -39,17 +46,24 @@ def _check_height(h: int, n: int, max_dist: int) -> None:
             "exchange needs shard_height >= max_dist")
 
 
-def extended_blocks(occ: torch.Tensor, n: int, max_dist: int = 10
-                    ) -> torch.Tensor:
-    """The ``n`` equal row blocks of a whole grid (H, W), each with its
-    ``max_dist`` halo rows (empty beyond the grid): (n, H/n + 2R, W)."""
-    h_all, w = occ.shape
+def _extended(occ: torch.Tensor, n: int, max_dist: int, blocks
+              ) -> list[torch.Tensor]:
+    """Row blocks ``blocks`` of the ``n`` equal ones of a whole grid (H, W),
+    each with its ``max_dist`` halo rows (empty beyond the grid)."""
+    h_all = occ.shape[0]
     if h_all % n:
         raise ValueError(f"{h_all} rows do not split into {n} equal blocks")
     h, r = h_all // n, int(max_dist)
     _check_height(h, n, r)
     pad = F.pad(occ.to(torch.uint8), (0, 0, r, r)).to(torch.bool)
-    return torch.stack([pad[i * h:(i + 1) * h + 2 * r] for i in range(n)])
+    return [pad[i * h:(i + 1) * h + 2 * r] for i in blocks]
+
+
+def extended_blocks(occ: torch.Tensor, n: int, max_dist: int = 10
+                    ) -> torch.Tensor:
+    """The ``n`` equal row blocks of a whole grid (H, W), each with its
+    ``max_dist`` halo rows (empty beyond the grid): (n, H/n + 2R, W)."""
+    return torch.stack(_extended(occ, n, max_dist, range(n)))
 
 
 def edt_blocks(occ: torch.Tensor, n: int, max_dist: int = 10
@@ -77,16 +91,44 @@ def edt_sharded(occ_local: torch.Tensor, axis: Axis, max_dist: int = 10
                          r)
 
 
+def edt_local_block(occ: torch.Tensor, axis: Axis, max_dist: int = 10
+                    ) -> torch.Tensor:
+    """This rank's rows (H/n, W) of a replicated grid's field over
+    ``axis`` (n ranks): K1 on its extended block cut from the whole grid,
+    as ``extended_blocks`` cuts it; no collective."""
+    (block,) = _extended(occ, axis.size, max_dist, (axis.rank,))
+    return edt_row_block(block, max_dist)
+
+
 def edt_replicated(occ: torch.Tensor, axis: Axis, max_dist: int = 10
                    ) -> torch.Tensor:
     """A replicated grid's field computed in row blocks over ``axis`` and
-    gathered back whole (the sharded PF's ``edt_fn`` on its map axis; in
-    the captured step its two all-gathers sit in the refresh arm's IF
-    node, which every rank takes alike)."""
-    if occ.shape[0] % axis.size:
-        raise ValueError(f"{occ.shape[0]} rows do not split into "
-                         f"{axis.size} equal blocks")
-    return axis.gather(edt_sharded(axis.rows(occ), axis, max_dist))
+    gathered back whole: ``edt_local_block`` and one all-gather."""
+    return axis.gather(edt_local_block(occ, axis, max_dist))
+
+
+class ReplicatedField:
+    """``edt_replicated`` over ``axis`` as the sharded PF's ``edt_fn``
+    (``field(occ, max_dist)``), with its two halves for the captured step
+    (``fastslam.PfStepFn``): ``local(occ, max_dist)`` this rank's block
+    (no collective: the refresh arm runs it), ``assemble(block)`` the
+    whole field (one all-gather: the main graph runs it every scan), and
+    ``block(field)`` this rank's rows of a whole field."""
+
+    def __init__(self, axis: Axis):
+        self.axis = axis
+
+    def __call__(self, occ: torch.Tensor, max_dist: int) -> torch.Tensor:
+        return edt_replicated(occ, self.axis, max_dist)
+
+    def local(self, occ: torch.Tensor, max_dist: int) -> torch.Tensor:
+        return edt_local_block(occ, self.axis, max_dist)
+
+    def assemble(self, block: torch.Tensor) -> torch.Tensor:
+        return self.axis.gather(block)
+
+    def block(self, field: torch.Tensor) -> torch.Tensor:
+        return self.axis.rows(field)
 
 
 def replicated_job(occ, max_dist: int = 10, device_type: str = "cuda"

@@ -56,10 +56,14 @@ one host read, brings the arm counters back with the run's results and adds
 each arm's delta times the runs since the last fetch. The warm-up's
 launches, on the clone, are not counted.
 
-A body may run the parallel layer's collectives (``parallel/mesh.Axis``),
-in the main graph or in a conditional body: NCCL's kernels are captured
-with the body's (``CAPTURE_MODE``), and an ``Axis`` among a ``Graphs``'s
-``counters`` has its collectives booked as the kernels' launches are.
+A body may run the parallel layer's collectives (``parallel/mesh.Axis``)
+in its main graph: NCCL's kernels are captured with the body's
+(``CAPTURE_MODE``), and an ``Axis`` among a ``Graphs``'s ``counters`` has
+its collectives booked as the kernels' launches are. The card's NCCL
+refuses a collective of two or more ranks inside a conditional body (it
+takes one on a world of one), so an arm writes what a collective needs
+into static buffers and the main graph runs it after the node
+(``tests/_nccl_probe.py`` tries each place).
 """
 
 from __future__ import annotations

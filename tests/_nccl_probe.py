@@ -7,7 +7,9 @@ host (a rank a card):
 For each capture mode ("global", "thread_local", "relaxed": the
 ``cudaStreamCaptureMode`` of ``utils/graphs.Graphs``'s capture) and each
 place (the main graph, the body of an IF node from ``graphs.cond``, the
-body of a WHILE node from ``graphs.while_loop``), a world of its own
+body of a WHILE node from ``graphs.while_loop``, and the main graph after
+an IF node whose arm, with no collective, writes the buffers the
+collectives read: the sharded PF step's form), a world of its own
 (``multihost.launch``: new spawned processes a case, so a refused capture
 cannot spoil the next) captures ``Axis.gather`` (an all-gather) and
 ``Axis.all_reduce`` there on every rank, replays the graph three times and
@@ -28,7 +30,7 @@ import sys
 import torch
 
 MODES = ("global", "thread_local", "relaxed")
-PLACES = ("main graph", "IF body", "WHILE body")
+PLACES = ("main graph", "IF body", "WHILE body", "after an IF node")
 REPLAYS = 3
 LOOPS = 3   # iterations of the WHILE body a replay
 
@@ -50,17 +52,29 @@ def case(mode: str, place: str) -> str:
                                device=dev),
             "summed": torch.zeros(64, dtype=torch.float64, device=dev),
             "pred": torch.ones((), dtype=torch.bool, device=dev),
+            # what the "after an IF node" arm writes for the collectives
+            "x2": torch.zeros((256, 3), device=dev),
+            "part": torch.zeros(64, dtype=torch.float64, device=dev),
             "k": torch.zeros((), dtype=torch.int64, device=dev)}
 
-    def collectives(b):
-        b["gathered"].copy_(axis.gather(b["x"] * 2.0))
-        b["summed"].add_(axis.all_reduce(b["mine"].clone()))
+    def collectives(b, x2=None, part=None):
+        x2 = b["x"] * 2.0 if x2 is None else x2
+        part = b["mine"] if part is None else part
+        b["gathered"].copy_(axis.gather(x2))
+        b["summed"].add_(axis.all_reduce(part.clone()))
+
+    def arm(b):   # no collective: it writes what the main graph sends
+        b["x2"].copy_(b["x"] * 2.0)
+        b["part"].copy_(b["mine"])
 
     def body(b):
         if place == "main graph":
             collectives(b)
         elif place == "IF body":
             graphs.cond(b["pred"], lambda: collectives(b))
+        elif place == "after an IF node":
+            graphs.cond(b["pred"], lambda: arm(b))
+            collectives(b, b["x2"], b["part"])
         else:
             b["k"].zero_()
             go = b["k"] < LOOPS

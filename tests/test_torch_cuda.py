@@ -1414,10 +1414,14 @@ def nccl_world():
 @pytest.mark.parametrize("edt", ["default", "4 blocks", "replicated"])
 def test_captured_sharded_pf_equals_eager_on_the_card(nccl_world, edt):
     """PF-256, 60 museum scans, on the NCCL world of one: the captured
-    sharded step (its collectives in the graph, the map axis's in the
-    refresh arm with ``edt_replicated``; scans 2.. under the sync debug
-    mode "error") equals the eager sharded step and ``run_pf`` bit for
-    bit, with the same K1/K2 launches by shape and collectives booked."""
+    sharded step (its collectives in the main graph; with
+    ``edt_replicated`` over the map axis, ``ReplicatedField``, the refresh
+    arm computes the row block and the main graph gathers the field every
+    scan; scans 2.. under the sync debug mode "error") equals the eager
+    sharded step and ``run_pf`` bit for bit, with the same K1/K2 launches
+    by shape and the same collectives booked on the particles axis; the
+    map axis books one all-gather of the field a scan captured and one a
+    keyframe eager."""
     import dataclasses
 
     from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, ParticleConfig
@@ -1430,8 +1434,7 @@ def test_captured_sharded_pf_equals_eager_on_the_card(nccl_world, edt):
     ranges, _ = _museum(60)
     edt_fn = {"default": None,
               "4 blocks": lambda o, r: sharded_edt.edt_blocks(o, 4, r),
-              "replicated": lambda o, r: sharded_edt.edt_replicated(
-                  o, mesh.map, r)}[edt]
+              "replicated": sharded_edt.ReplicatedField(mesh.map)}[edt]
     ref, rstate = fastslam.run_pf(ranges, cfg, seed=0, device="cuda")
     out = {}
     for eager in (False, True):
@@ -1444,8 +1447,14 @@ def test_captured_sharded_pf_equals_eager_on_the_card(nccl_world, edt):
                       dict(mesh.particles.launches_by_shape),
                       dict(mesh.map.launches_by_shape))
     (cp, cs, *cc), (ep, es, *ec) = out[False], out[True]
-    assert cc == ec and cc[0][0] and cc[0][1]
-    assert (mesh.map.calls > 0) == (edt == "replicated")
+    assert cc[:2] == ec[:2] and cc[0][0] and cc[0][1]
+    if edt == "replicated":
+        field = ("all_gather", tuple(rstate.fine_metric.shape), 4)
+        keyframes = ec[2][field]
+        assert cc[2] == {field: len(ranges) - 1}
+        assert ec[2] == {field: keyframes} and keyframes < len(ranges) - 1
+    else:
+        assert cc[2] == ec[2] == {}
     assert torch.equal(cp, ref) and torch.equal(ep, ref)
     for f in ("poses", "prev_poses", "logw", "fine_metric"):
         assert torch.equal(getattr(cs, f), getattr(rstate, f)), f

@@ -11,10 +11,13 @@ world is ``scaling_report``'s own. The JAX package holds its two-process PF
 to 1e-5 (resampling off) and 0.2 m (on); here every rank's path equals the
 single process's bit for bit. The sharded steps run captured
 (``PfStepFn``, ``EkfStepFn``, ``ShardedSolve``; on the CPU the same bodies
-on the same static buffers), and worlds of 2 and 4 also run their eager
-forms: each rank's captured result equals its eager one, with the same
-collectives booked. A 2 x 2 mesh runs the eager PF step
-(``sharded.runs_captured``).
+on the same static buffers) on every mesh shape, and worlds of 2 and 4
+also run their eager forms: each rank's captured result equals its eager
+one, with the same collectives booked on the particles axis. The PF runs
+on a map axis of two or more ranks too (1 x 2 in the world of 2; 2 x 2
+and 1 x 4 in the world of 4), captured and eager: there the captured step
+all-gathers the field's row blocks in its main graph every scan, and the
+eager step on a keyframe only.
 
 The worlds are gloo worlds on the CPU. The file imports neither JAX nor
 the JAX package, so on a machine with at least four cards (and no JAX)
@@ -50,9 +53,6 @@ DEVICE = os.environ.get("LIDAR_SLAM_WORLD_DEVICE", "cpu")
 WORLDS = (2, 4)
 BA_TOL = 1e-5      # a world of 2 or 4 against a world of 1 (float64 sums)
 ATE_MAX = 0.25     # tests/test_parallel.py's sharded PF pin
-JOBS = ("scans_per_s", "pf_no_resample", "pf_resample", "ekf", "edt", "ba",
-        "imports", "pf_eager", "ekf_eager", "ba_eager", "dryrun", "pf_tracks",
-        "pf_map2")
 
 
 def _pf_cfg(p, threshold=0.5):
@@ -80,9 +80,15 @@ def inputs():
                 ba=type(prob)(*(v.numpy() for v in prob)))
 
 
+# a sharded PF on a map axis of two or more ranks: job name -> (world,
+# map shards); each runs captured and, as name + "_eager", eager
+MAP_MESHES = {"pf_map2": (4, 2), "pf_map_only2": (2, 2),
+              "pf_map_only4": (4, 4)}
+
+
 @pytest.fixture(scope="module")
 def worlds(inputs):
-    """Each world's per-rank results of its jobs, in ``JOBS`` order."""
+    """Each world's per-rank results of its jobs, by job name."""
     if DEVICE == "cuda":
         from lidar_slam_tpu_torch import _build
 
@@ -90,35 +96,41 @@ def worlds(inputs):
     ranges = inputs["ranges"]
     timing = (multihost.scaling_job, (ranges, _pf_cfg(64), 8, DEVICE))
     ba_job = (sharded_ba.optimize_job, (inputs["ba"], 5, None, DEVICE))
-    checks = [
-        timing,
-        (sharded.run_job, (ranges[:13], _pf_cfg(64, 0.0), 1, 0, DEVICE)),
-        (sharded.run_job, (ranges[:13], _pf_cfg(64), 1, 0, DEVICE)),
-        (sharded_ekf.steps_job, _ekf_case() + (0, DEVICE)),
-        (sharded_edt.replicated_job, (inputs["occ"], 10, DEVICE)),
-        ba_job,
-        (multihost.imported_packages, ()),
+    checks = {
+        "scans_per_s": timing,
+        "pf_no_resample": (sharded.run_job, (ranges[:13], _pf_cfg(64, 0.0),
+                                             1, 0, DEVICE)),
+        "pf_resample": (sharded.run_job, (ranges[:13], _pf_cfg(64), 1, 0,
+                                          DEVICE)),
+        "ekf": (sharded_ekf.steps_job, _ekf_case() + (0, DEVICE)),
+        "edt": (sharded_edt.replicated_job, (inputs["occ"], 10, DEVICE)),
+        "ba": ba_job,
+        "imports": (multihost.imported_packages, ()),
         # the eager steps, which the captured ones above must equal
-        (sharded.run_job, (ranges[:13], _pf_cfg(64), 1, 0, DEVICE, True)),
-        (sharded_ekf.steps_job, _ekf_case() + (0, DEVICE, True)),
-        (sharded_ba.optimize_job, (inputs["ba"], 5, None, DEVICE, True))]
-    jobs = {1: [timing, ba_job],
-            2: checks,
-            4: checks + [(dryrun.dryrun_multichip, (4, DEVICE)),
-                         (sharded.run_job, (ranges[:40], _pf_cfg(32), 1, 0,
-                                            DEVICE)),
-                         # a 2 x 2 mesh: the map axis's collectives in the
-                         # refresh arm
-                         (sharded.run_job, (ranges[:13], _pf_cfg(64), 2, 0,
-                                            DEVICE))]}
-    return {d: multihost.launch(d, jobs[d], DEVICE, timeout_s=400.0)
-            for d in (1, 2, 4)}
+        "pf_eager": (sharded.run_job, (ranges[:13], _pf_cfg(64), 1, 0,
+                                       DEVICE, True)),
+        "ekf_eager": (sharded_ekf.steps_job, _ekf_case() + (0, DEVICE,
+                                                            True)),
+        "ba_eager": (sharded_ba.optimize_job, (inputs["ba"], 5, None, DEVICE,
+                                               True))}
+    jobs = {1: {"scans_per_s": timing, "ba": ba_job},
+            2: dict(checks),
+            4: dict(checks,
+                    dryrun=(dryrun.dryrun_multichip, (4, DEVICE)),
+                    pf_tracks=(sharded.run_job, (ranges[:40], _pf_cfg(32), 1,
+                                                 0, DEVICE)))}
+    for name, (d, n_map) in MAP_MESHES.items():
+        for suffix, eager in (("", False), ("_eager", True)):
+            jobs[d][name + suffix] = (sharded.run_job, (
+                ranges[:13], _pf_cfg(64), n_map, 0, DEVICE, eager))
+    return {d: [dict(zip(jobs[d], ranks)) for ranks in multihost.launch(
+        d, list(jobs[d].values()), DEVICE, timeout_s=400.0)]
+        for d in (1, 2, 4)}
 
 
 def _results(worlds, d, name):
     """Every rank's result of job ``name`` in the world of ``d``."""
-    i = 1 if (d, name) == (1, "ba") else JOBS.index(name)
-    return [r[i] for r in worlds[d]]
+    return [r[name] for r in worlds[d]]
 
 
 def test_scaling_report_runs_at_every_world_size(worlds):
@@ -255,18 +267,47 @@ def test_captured_equals_eager_across_ranks(worlds, d, captured, eager):
         assert _same(cap, eag)
 
 
-def test_two_by_two_mesh_equals_run_pf(worlds, inputs):
-    """Four ranks as 2 particle blocks x 2 map blocks: the refresh arm's
-    field is ``edt_replicated`` over the map axis, and the step is the
-    eager one (``sharded.runs_captured``: NCCL refuses multi-rank
-    collectives inside a conditional body). Its path equals ``run_pf``'s
-    on every rank, and its particle blocks the single process's."""
-    ref, state = tfs.run_pf(inputs["ranges"][:13], _pf_cfg(64),
+def _check_map_mesh(worlds, inputs, name):
+    """Job ``name`` of ``MAP_MESHES`` against its eager job and ``run_pf``
+    (``test_two_by_two_mesh_equals_run_pf`` says what is held)."""
+    d, n_map = MAP_MESHES[name]
+    scans = 13
+    ref, state = tfs.run_pf(inputs["ranges"][:scans], _pf_cfg(64),
                             device=DEVICE)
-    out = _results(worlds, 4, "pf_map2")
-    for path, *_ in out:
-        assert np.array_equal(path, ref.cpu().numpy())
+    cap, eag = _results(worlds, d, name), _results(worlds, d,
+                                                   name + "_eager")
+    field = ("all_gather", tuple(state.fine_metric.shape), 4)
+    keyframes = eag[0][4][field]
+    assert 1 <= keyframes < scans - 1
+    for c, e in zip(cap, eag):
+        assert np.array_equal(c[0], ref.cpu().numpy())
+        assert _same(c[:4], e[:4])
+        assert c[4] == {field: scans - 1} and e[4] == {field: keyframes}
     # ranks (p, m) and (p, m') hold the same particle block
-    assert np.array_equal(np.concatenate([out[0][1], out[2][1]]),
-                          state.poses.cpu().numpy())
-    assert np.array_equal(out[0][1], out[1][1])
+    blocks = [cap[p * n_map][1] for p in range(d // n_map)]
+    assert np.array_equal(np.concatenate(blocks), state.poses.cpu().numpy())
+    for r in range(d):
+        assert np.array_equal(cap[r][1], blocks[r // n_map])
+
+
+def test_two_by_two_mesh_equals_run_pf(worlds, inputs):
+    """Four ranks as 2 particle blocks x 2 map blocks: the field is
+    ``edt_replicated`` over the map axis, and the step is the captured
+    one. On every rank its path equals the eager step's and ``run_pf``'s,
+    and its particle rows the eager step's and the single process's bit
+    for bit; the particles axis books the same collectives in both forms.
+    The map axis differs by design: the captured step books one all-gather
+    of the (H/2, W) f32 blocks into the (H, W) field a scan (its main
+    graph gathers after the refresh arm's IF node every scan; scan 1 is
+    the eager step's), the eager step one a keyframe (its refresh arm
+    cuts the block from the replicated grid, so the field is its one
+    collective)."""
+    _check_map_mesh(worlds, inputs, "pf_map2")
+
+
+@pytest.mark.parametrize("name", ["pf_map_only2", "pf_map_only4"])
+def test_map_axis_mesh_equals_run_pf(worlds, inputs, name):
+    """The map axis alone, 1 x 2 in the world of 2 and 1 x 4 in the world
+    of 4: held as the 2 x 2 mesh is (``test_two_by_two_mesh_equals_run_pf``),
+    every rank holding every particle."""
+    _check_map_mesh(worlds, inputs, name)

@@ -219,14 +219,17 @@ def test_captured_sharded_pf_equals_eager_and_run_pf(world, small_dataset,
     """The captured sharded step (what ``run_sharded_pf`` runs) equals the
     eager sharded step and ``run_pf`` bit for bit, path and final state,
     resampling off and on, with the default field and with
-    ``edt_replicated`` over the map axis (its collectives in the refresh
-    arm); both book the same collectives, kind by kind and shape by
-    shape."""
+    ``edt_replicated`` over the map axis (``ReplicatedField``: the
+    refresh arm computes this rank's block, the main graph gathers the
+    field). The particles axis books the same collectives, kind by kind
+    and shape by shape. The map axis differs by design: the captured step
+    gathers the field every step, the eager one on a keyframe only, each
+    one all-gather of the (H, W) f32 field."""
     ranges, _ = small_dataset
     cfg = _pf_cfg(resample_threshold=threshold)
     ref, rstate = tfs.run_pf(ranges[:25], cfg, seed=1, device="cpu")
-    edt_fn = None if edt == "default" else (
-        lambda occ, r: sharded_edt.edt_replicated(occ, world.map, r))
+    edt_fn = None if edt == "default" else sharded_edt.ReplicatedField(
+        world.map)
     out, counts = {}, {}
     for eager in (False, True):
         world.particles.reset_counts()
@@ -239,21 +242,28 @@ def test_captured_sharded_pf_equals_eager_and_run_pf(world, small_dataset,
     for f in ("poses", "prev_poses", "logw", "fine_metric"):
         assert torch.equal(getattr(gstate, f), getattr(rstate, f)), f
         assert torch.equal(getattr(estate, f), getattr(rstate, f)), f
-    assert counts[False] == counts[True]
+    assert counts[False][0] == counts[True][0]
     assert world.particles.calls > 0
-    assert (world.map.calls > 0) == (edt == "replicated")
+    if edt == "default":
+        assert counts[False][1] == counts[True][1] == {}
+        return
+    field = ("all_gather", tuple(rstate.fine_metric.shape), 4)
+    steps = len(ref) - 1
+    assert counts[False][1] == {field: steps}
+    keyframes = counts[True][1][field]
+    assert counts[True][1] == {field: keyframes} and 1 <= keyframes < steps
 
 
 def test_captured_sharded_pf_step_is_pf_step_fn(world):
     """``make_sharded_pf_step`` returns the captured step (``PfStepFn``
-    on the particles axis, booking both axes' collectives) unless asked
-    for the eager one, or unless the map axis has two or more ranks
-    (decided from the mesh's shape: NCCL refuses their collectives in the
-    refresh arm's conditional body)."""
+    on the particles axis, booking both axes' collectives) on every mesh
+    shape unless asked for the eager one: a map axis of two ranks gets
+    it too, with the field's two halves (``ReplicatedField``), so its
+    collectives sit in the main graph, none in the refresh arm."""
     cfg = _pf_cfg(32)
-    assert sharded.runs_captured(world)
+    assert not hasattr(sharded, "runs_captured")
     step, _ = sharded.make_sharded_pf_step(cfg, world)
-    assert isinstance(step, tfs.PfStepFn)
+    assert isinstance(step, tfs.PfStepFn) and not step.split
     assert step.rows is world.particles
     assert world.particles in step.graphs.book.counters
     assert world.map in step.graphs.book.counters
@@ -261,9 +271,10 @@ def test_captured_sharded_pf_step_is_pf_step_fn(world):
     assert not isinstance(eager, tfs.PfStepFn)
     # a map axis of two ranks (only its size is read)
     two = world._replace(map=types.SimpleNamespace(size=2))
-    assert not sharded.runs_captured(two)
-    by_shape, _ = sharded.make_sharded_pf_step(cfg, two)
-    assert not isinstance(by_shape, tfs.PfStepFn)
+    split, _ = sharded.make_sharded_pf_step(cfg, two)
+    assert isinstance(split, tfs.PfStepFn) and split.split
+    assert isinstance(split.edt_fn, sharded_edt.ReplicatedField)
+    assert split.edt_fn.axis is two.map
 
 
 def test_captured_sharded_run_ml_equals_eager(world, small_dataset):

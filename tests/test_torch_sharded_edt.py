@@ -5,6 +5,8 @@ process through ``edt_row_block``; a gloo world of one runs the exchange
 itself; the blocks' K1 launches are held to the plain version on a card.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -61,6 +63,63 @@ def test_world_of_one_exchange_equals_plain(axis, size, density, seed):
     assert torch.equal(sharded_edt.edt_sharded(occ, axis), want)
     assert torch.equal(sharded_edt.edt_replicated(occ, axis), want)
     assert axis.calls >= 2
+
+
+def _local_blocks(occ: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """``edt_local_block`` of every rank of n over the replicated ``occ``
+    (only the axis's rank and size are read)."""
+    return [sharded_edt.edt_local_block(
+        occ, types.SimpleNamespace(rank=rank, size=n)) for rank in range(n)]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("size,density,seed", CASES)
+def test_local_blocks_equal_whole_grid_rows(size, density, seed, n):
+    """For n = 2 and 4 ranks of a replicated grid, every rank's
+    ``edt_local_block`` (its extended block cut from the whole grid, K1's
+    input shape (H/n + 2R, W), no collective) equals its rows of the
+    whole-grid transform bit for bit; so what ``edt_replicated`` gathers
+    equals the halo-exchange composition (``edt_blocks``, what n ranks of
+    ``edt_sharded`` compute)."""
+    occ = torch.as_tensor(_occ(size, density, seed))
+    want = edt_ops.edt_clamped(occ)
+    h = size // n
+    blocks = _local_blocks(occ, n)
+    for rank, got in enumerate(blocks):
+        assert torch.equal(got, want[rank * h:(rank + 1) * h]), rank
+    assert torch.equal(torch.cat(blocks), sharded_edt.edt_blocks(occ, n))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_local_blocks_equal_jax_on_n_devices(n):
+    """The n = 2 and 4 blocks gathered equal JAX's ``edt_sharded`` on a
+    "map" mesh of n devices within 1e-5 (the JAX test's tolerance), on
+    the first case's grid (JAX compiles each mesh and shape anew)."""
+    occ = torch.as_tensor(_occ(*CASES[0]))
+    mesh = Mesh(np.asarray(jax.devices()[:n]), axis_names=("map",))
+    jgot = np.asarray(jsedt.edt_sharded(jnp.asarray(occ.numpy()), mesh))
+    np.testing.assert_allclose(torch.cat(_local_blocks(occ, n)).numpy(),
+                               jgot, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("size,density,seed", CASES)
+def test_replicated_equals_old_composition(axis, size, density, seed):
+    """``edt_replicated`` (``edt_local_block`` and one all-gather) equals
+    the composition it replaced (the halo exchange ``edt_sharded`` on this
+    rank's rows, then the gather) on the world of one, making one
+    collective where that made two; ``ReplicatedField``'s call is it, and
+    its ``assemble(local)`` and ``block`` are its two halves."""
+    occ = torch.as_tensor(_occ(size, density, seed))
+    axis.reset_counts()
+    old = axis.gather(sharded_edt.edt_sharded(axis.rows(occ), axis))
+    assert axis.calls == 2
+    axis.reset_counts()
+    new = sharded_edt.edt_replicated(occ, axis)
+    assert axis.calls == 1 and torch.equal(new, old)
+    field = sharded_edt.ReplicatedField(axis)
+    assert torch.equal(field(occ, 10), old)
+    assert torch.equal(field.assemble(field.local(occ, 10)), old)
+    assert torch.equal(field.block(old), old)
 
 
 def test_extended_blocks_carry_their_neighbours_rows():
