@@ -13,8 +13,8 @@ and kept, as the firmware logs them.
 fetches and parses scans (it makes no CUDA call), and the calling thread
 copies each into pinned host memory, then to the card without blocking, and
 runs the fidelity step, whose one host sync (the keyframe test) also brings
-the pose back. Only that function imports torch: a process that only
-serves stays light.
+the pose back. Only the client's stream imports torch (for its spans and
+the step): a process that only serves stays light.
 """
 
 from __future__ import annotations
@@ -158,7 +158,10 @@ def fetch_scan(url: str, param: int, pose=None, timeout: float = 5.0
 def _stream(url: str, n_scans: int, prefetch: int):
     """(scan, host clock when its bytes had arrived and parsed) pairs, from
     a prefetching thread. A fetch error ends the stream by raising it in
-    the consumer."""
+    the consumer. The consumer's wait for row N is an ``io.wait_row``
+    span (``req`` N) while a profiler runs."""
+    from lidar_slam_tpu_torch.utils.profiling import span
+
     q: Queue = Queue(maxsize=prefetch)
 
     def worker():
@@ -171,8 +174,11 @@ def _stream(url: str, n_scans: int, prefetch: int):
             q.put(e)
 
     threading.Thread(target=worker, daemon=True).start()
+    row = 0
     while True:
-        item = q.get()
+        with span("io.wait_row", req=row, host=True):
+            item = q.get()
+        row += 1
         if item is None:
             return
         if isinstance(item, Exception):
@@ -201,12 +207,14 @@ def run_streaming_slam(url: str, n_scans: int, cfg,
     step's static input (``scan_matcher.make_step_fn``) without a host
     sync; the step's keyframe test, its one sync, brings the pose back with
     it. ``latencies``, if given, receives one (arrived, dequeued, pose on
-    host) host-clock triple a scan after the first."""
+    host) host-clock triple a scan after the first. The call is one
+    ``session`` span."""
     import torch
 
     from lidar_slam_tpu_torch.device import resolve_device
     from lidar_slam_tpu_torch.models import scan_matcher
     from lidar_slam_tpu_torch.utils import graphs
+    from lidar_slam_tpu_torch.utils.profiling import session
 
     dev = resolve_device(device)
 
@@ -216,16 +224,17 @@ def run_streaming_slam(url: str, n_scans: int, cfg,
         # that reads it is done
         return t.pin_memory() if dev.type == "cuda" else t
 
-    step = scan_matcher.make_step_fn(cfg, dev)
-    stream = _stream(url, n_scans, PREFETCH)
-    first, _ = next(stream)
-    state = scan_matcher.init_state(host(first).to(dev, non_blocking=True),
-                                    cfg)
-    poses = [np.zeros(3, np.float32)]
-    for scan, arrived in stream:
-        taken = time.perf_counter()
-        state, pose = step(state, host(scan))
-        poses.append(pose)
-        if latencies is not None:
-            latencies.append((arrived, taken, time.perf_counter()))
-    return np.stack(poses), graphs.clone_tree(step.finish(state))
+    with session("run_streaming_slam", dev):
+        step = scan_matcher.make_step_fn(cfg, dev)
+        stream = _stream(url, n_scans, PREFETCH)
+        first, _ = next(stream)
+        state = scan_matcher.init_state(
+            host(first).to(dev, non_blocking=True), cfg)
+        poses = [np.zeros(3, np.float32)]
+        for scan, arrived in stream:
+            taken = time.perf_counter()
+            state, pose = step(state, host(scan))
+            poses.append(pose)
+            if latencies is not None:
+                latencies.append((arrived, taken, time.perf_counter()))
+        return np.stack(poses), graphs.clone_tree(step.finish(state))

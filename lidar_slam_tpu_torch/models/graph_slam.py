@@ -56,7 +56,7 @@ from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor
 from lidar_slam_tpu_torch.ops import correlative, scan_odometry
 from lidar_slam_tpu_torch.ops import edt as edt_ops
 from lidar_slam_tpu_torch.utils import graphs
-from lidar_slam_tpu_torch.utils.profiling import StageTimer
+from lidar_slam_tpu_torch.utils.profiling import StageTimer, session, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -407,13 +407,14 @@ def _np_transform_ref(x, y, poses):
 def _rebuilt_map_points(kf_x, kf_y, kf_valid, poses, cap: int):
     """The keyframe scans at ``poses`` as a (cap, 2) point buffer
     (subsampled to capacity) and its size."""
-    wx, wy = _np_transform_ref(kf_x, kf_y, poses)
-    allpts = np.stack([wx[kf_valid], wy[kf_valid]], axis=1)
-    if len(allpts) > cap:
-        allpts = allpts[:: int(np.ceil(len(allpts) / cap))][:cap]
-    xy = np.zeros((cap, 2), np.float32)
-    xy[: len(allpts)] = allpts
-    return xy, len(allpts)
+    with span("graph.rebuild_map", host=True):
+        wx, wy = _np_transform_ref(kf_x, kf_y, poses)
+        allpts = np.stack([wx[kf_valid], wy[kf_valid]], axis=1)
+        if len(allpts) > cap:
+            allpts = allpts[:: int(np.ceil(len(allpts) / cap))][:cap]
+        xy = np.zeros((cap, 2), np.float32)
+        xy[: len(allpts)] = allpts
+        return xy, len(allpts)
 
 
 class _EagerStep:
@@ -514,26 +515,28 @@ class GraphSlam:
     def _graph_arrays(self) -> tuple[np.ndarray, ...]:
         """The pose graph's fields, in ``PoseGraph``'s order, as host
         arrays of fixed shapes."""
-        kmax, emax = self.max_keyframes, self.max_keyframes * 4
-        k = self._kf_count
-        poses = np.zeros((kmax, 3), np.float32)
-        if k:
-            poses[:k] = np.stack([_np_ref_to_std(p) for p in self.kf_poses])
-        e = min(len(self._edges), emax)
-        if e < len(self._edges) and not self._edge_warned:
-            warnings.warn(
-                f"pose-graph edge store saturated at {e}; "
-                f"{len(self._edges) - e} edges dropped from optimization",
-                stacklevel=2)
-            self._edge_warned = True
-        ei = np.zeros(emax, np.int32)
-        ej = np.zeros(emax, np.int32)
-        ez = np.zeros((emax, 3), np.float32)
-        ew = np.ones((emax, 3), np.float32)
-        for idx, (i, j, z, w) in enumerate(self._edges[:e]):
-            ei[idx], ej[idx], ez[idx], ew[idx] = i, j, z, w
-        return (poses, np.arange(kmax) < k, np.int32(k), ei, ej, ez, ew,
-                np.arange(emax) < e, np.int32(e))
+        with span("graph.graph_arrays", host=True):
+            kmax, emax = self.max_keyframes, self.max_keyframes * 4
+            k = self._kf_count
+            poses = np.zeros((kmax, 3), np.float32)
+            if k:
+                poses[:k] = np.stack([_np_ref_to_std(p)
+                                      for p in self.kf_poses])
+            e = min(len(self._edges), emax)
+            if e < len(self._edges) and not self._edge_warned:
+                warnings.warn(
+                    f"pose-graph edge store saturated at {e}; "
+                    f"{len(self._edges) - e} edges dropped from optimization",
+                    stacklevel=2)
+                self._edge_warned = True
+            ei = np.zeros(emax, np.int32)
+            ej = np.zeros(emax, np.int32)
+            ez = np.zeros((emax, 3), np.float32)
+            ew = np.ones((emax, 3), np.float32)
+            for idx, (i, j, z, w) in enumerate(self._edges[:e]):
+                ei[idx], ej[idx], ez[idx], ew[idx] = i, j, z, w
+            return (poses, np.arange(kmax) < k, np.int32(k), ei, ej, ez, ew,
+                    np.arange(emax) < e, np.int32(e))
 
     # -- keyframe bookkeeping (host) ---------------------------------------------
     def _add_keyframe(self, scan_x, scan_y, scan_valid, pose_ref: np.ndarray,
@@ -627,22 +630,26 @@ class GraphSlam:
         batches, gate on the host, refine the accepted ones and add their
         edges. Returns True if a strong closure was accepted."""
         lc = self.lc
-        rows: list[tuple[int, int]] = []   # (k, i_old)
-        for k in new_kf:
-            for i_old in self._closure_candidates(k):
-                rows.append((k, i_old))
-        if not rows:
-            return False
-        b = len(rows)
-        bucket = _closure_batch(self.device)
-        ks = [k for k, _ in rows]
-        olds = [i for _, i in rows]
-        guesses = np.stack([_np_between_ref(self.kf_poses[i], self.kf_poses[k])
-                            for k, i in rows])
+        with span("graph.candidates", host=True):
+            rows: list[tuple[int, int]] = []   # (k, i_old)
+            for k in new_kf:
+                for i_old in self._closure_candidates(k):
+                    rows.append((k, i_old))
+            if not rows:
+                return False
+            b = len(rows)
+            bucket = _closure_batch(self.device)
+            ks = [k for k, _ in rows]
+            olds = [i for _, i in rows]
+            guesses = np.stack([_np_between_ref(self.kf_poses[i],
+                                                self.kf_poses[k])
+                                for k, i in rows])
         packs = [self._backend.match(olds[s: s + bucket], ks[s: s + bucket],
                                      guesses[s: s + bucket])
                  for s in range(0, b, bucket)]
-        packed = torch.cat(packs).cpu().numpy()              # one copy
+        packed = torch.cat(packs)
+        with span("sync", tag="closure_match"):
+            packed = packed.cpu().numpy()                    # one copy
         rels, avg_ds, inliers, ambigs = (packed[:, :3], packed[:, 3],
                                          packed[:, 4], packed[:, 5])
 
@@ -652,50 +659,52 @@ class GraphSlam:
             self.closure_rejects[reason] = (
                 self.closure_rejects.get(reason, 0) + 1)
 
-        accepted: list[tuple[int, int, int]] = []   # (row, i_old, k)
-        weak: list[tuple[int, int, int]] = []
-        weak_per_kf: dict = {}
-        for row in range(b):
-            i, k = olds[row], ks[row]
-            off = rels[row] - guesses[row]
-            self.attempt_log.append(
-                (k, i, float(avg_ds[row]), float(inliers[row]),
-                 float(ambigs[row] * n_cells),
-                 float(np.hypot(off[0], off[1]))))
-            # rail: a match at the window's edge means the true alignment
-            # lies outside it
-            max_xy = 0.85 * lc.window_half * lc.raster_pixel
-            max_th = 0.85 * (lc.n_theta // 2) * lc.theta_step
-            if (abs(off[0]) > max_xy or abs(off[1]) > max_xy
-                    or abs(off[2]) > max_th):
-                reject("rail")
-                continue
-            # odometry consistency: the correction must fit the drift budget
-            budget = (lc.consistency_abs + lc.consistency_rel
-                      * abs(self._kf_cum[k] - self._kf_cum[i]))
-            if (abs(off[0]) > budget or abs(off[1]) > budget
-                    or abs(off[2]) > budget):
-                reject("consistency")
-                continue
-            strict = (avg_ds[row] <= lc.accept_avg_dist
-                      and inliers[row] >= lc.min_inlier_frac
-                      and ambigs[row] * n_cells <= lc.max_ambiguous_cells)
-            if strict:
-                accepted.append((row, i, k))
-                continue
-            # weak tier: sharp, full-overlap matches failing only the
-            # absolute score, at most 2 per keyframe
-            if (lc.weak_closures and inliers[row] >= 0.9
-                    and avg_ds[row] <= lc.weak_avg_dist
-                    and ambigs[row] * n_cells <= lc.max_ambiguous_cells
-                    and weak_per_kf.get(k, 0) < 2):
-                weak.append((row, i, k))
-                weak_per_kf[k] = weak_per_kf.get(k, 0) + 1
-            else:
-                reject("avg_dist" if avg_ds[row] > lc.accept_avg_dist
-                       else ("inlier_frac"
-                             if inliers[row] < lc.min_inlier_frac
-                             else "ambiguity"))
+        with span("graph.closure_gate", host=True):
+            accepted: list[tuple[int, int, int]] = []   # (row, i_old, k)
+            weak: list[tuple[int, int, int]] = []
+            weak_per_kf: dict = {}
+            for row in range(b):
+                i, k = olds[row], ks[row]
+                off = rels[row] - guesses[row]
+                self.attempt_log.append(
+                    (k, i, float(avg_ds[row]), float(inliers[row]),
+                     float(ambigs[row] * n_cells),
+                     float(np.hypot(off[0], off[1]))))
+                # rail: a match at the window's edge means the true alignment
+                # lies outside it
+                max_xy = 0.85 * lc.window_half * lc.raster_pixel
+                max_th = 0.85 * (lc.n_theta // 2) * lc.theta_step
+                if (abs(off[0]) > max_xy or abs(off[1]) > max_xy
+                        or abs(off[2]) > max_th):
+                    reject("rail")
+                    continue
+                # odometry consistency: the correction must fit the drift
+                # budget
+                budget = (lc.consistency_abs + lc.consistency_rel
+                          * abs(self._kf_cum[k] - self._kf_cum[i]))
+                if (abs(off[0]) > budget or abs(off[1]) > budget
+                        or abs(off[2]) > budget):
+                    reject("consistency")
+                    continue
+                strict = (avg_ds[row] <= lc.accept_avg_dist
+                          and inliers[row] >= lc.min_inlier_frac
+                          and ambigs[row] * n_cells <= lc.max_ambiguous_cells)
+                if strict:
+                    accepted.append((row, i, k))
+                    continue
+                # weak tier: sharp, full-overlap matches failing only the
+                # absolute score, at most 2 per keyframe
+                if (lc.weak_closures and inliers[row] >= 0.9
+                        and avg_ds[row] <= lc.weak_avg_dist
+                        and ambigs[row] * n_cells <= lc.max_ambiguous_cells
+                        and weak_per_kf.get(k, 0) < 2):
+                    weak.append((row, i, k))
+                    weak_per_kf[k] = weak_per_kf.get(k, 0) + 1
+                else:
+                    reject("avg_dist" if avg_ds[row] > lc.accept_avg_dist
+                           else ("inlier_frac"
+                                 if inliers[row] < lc.min_inlier_frac
+                                 else "ambiguity"))
         if not accepted and not weak:
             return False
 
@@ -709,7 +718,9 @@ class GraphSlam:
                 fines.append(self._backend.refine(
                     [i for _, i, _ in sl], [k for _, _, k in sl],
                     np.stack([rels[row] for row, _, _ in sl])))
-            fine = torch.cat(fines).cpu().numpy()             # one copy
+            fine = torch.cat(fines)
+            with span("sync", tag="refine"):
+                fine = fine.cpu().numpy()                     # one copy
             for j, (row, _, _) in enumerate(pairs):
                 z_rel[row] = fine[j]
 
@@ -731,7 +742,8 @@ class GraphSlam:
         """One damped-GN solve over the graph; NaN-revert. Returns the
         largest keyframe position move (m), -1.0 on revert."""
         opt = self._backend.optimize(self._graph_arrays(), iters=10)
-        opt = opt[: self._kf_count].cpu().numpy()
+        with span("sync", tag="optimize"):
+            opt = opt[: self._kf_count].cpu().numpy()
         if not np.isfinite(opt).all():
             return -1.0
         old = np.stack([_np_ref_to_std(p) for p in self.kf_poses])
@@ -743,7 +755,9 @@ class GraphSlam:
     def _error_per_edge(self) -> float:
         """The pose graph's error per active edge (``graph_error``)."""
         g = self.graph
-        return float(posegraph.graph_error(g)) / max(int(g.n_edges), 1)
+        err = posegraph.graph_error(g)
+        with span("sync", tag="error"):
+            return float(err) / max(int(g.n_edges), 1)
 
     # -- frontend feedback ----------------------------------------------------
     def _post_chunk(self, state) -> None:
@@ -756,7 +770,9 @@ class GraphSlam:
         at their optimized poses, in host numpy after one copy of the three
         frontend poses; the next step re-rasters the corrected map."""
         fb = torch.stack([state.pmap.keyframe_pose, state.pose,
-                          state.prev_pose]).cpu().numpy()     # one copy
+                          state.prev_pose])
+        with span("sync", tag="feedback"):
+            fb = fb.cpu().numpy()                             # one copy
         old_last, cur_pose, prev_pose = fb[0], fb[1], fb[2]
         new_last = self.kf_poses[-1]
 
@@ -786,7 +802,12 @@ class GraphSlam:
         Default chunk: 256 scans on CUDA, 64 on the CPU (the JAX package's
         defaults, with the card in the TPU's place). The chunk sets the
         closure cadence: closures are matched and the graph optimized at
-        most once per chunk."""
+        most once per chunk. The call is one ``session`` span."""
+        with session(type(self).__name__ + ".run", self.device):
+            return self._run(ranges_all, optimize_every_closure, chunk_size,
+                             feedback)
+
+    def _run(self, ranges_all, optimize_every_closure, chunk_size, feedback):
         dev = self.device
         if chunk_size is None:
             chunk_size = 256 if dev.type == "cuda" else 64
@@ -796,7 +817,8 @@ class GraphSlam:
         state = self.frontend.init_state(ranges[0], cfg)
         scan0 = sensor.read_scan(ranges[0], self.angles, cfg.lidar)
         s0 = torch.stack([scan0.x, scan0.y, scan0.valid.to(torch.float32)])
-        h0 = s0.cpu().numpy()
+        with span("sync", tag="keyframe0"):
+            h0 = s0.cpu().numpy()
         self._add_keyframe(h0[0], h0[1], h0[2] > 0.5, np.zeros(3, np.float32))
         self._store_kf_scans(0, s0[None])
         self._compute_kf_metrics([0])  # keyframe 0 is a closure target too
@@ -850,22 +872,24 @@ class GraphSlam:
                     if dev.type == "cuda":
                         idx = idx.pin_memory().to(dev, non_blocking=True)
                     kf_dev = scans.index_select(0, idx)
-                    blk = dict(zip(kf_rows, kf_dev.cpu().numpy()))
+                    with span("sync", tag="kf_fetch"):
+                        blk = dict(zip(kf_rows, kf_dev.cpu().numpy()))
             poses_c, quals_c = packed_h[:, :3], packed_h[:, 4]
             # pass 1: register this chunk's keyframes (closure candidates
             # only look backward, so batching the adds is neutral)
             new_kf = []
             count0 = self._kf_count
-            for i in range(n_real):
-                path.append(poses_c[i])
-                self.path_epoch.append(self._epoch)
-                if i not in blk:
-                    continue
-                k = self._add_keyframe(blk[i][0], blk[i][1],
-                                       blk[i][2] > 0.5, poses_c[i],
-                                       scan_t=t + i,
-                                       quality=float(quals_c[i]))
-                new_kf.append(k)
+            with span("graph.keyframes", host=True):
+                for i in range(n_real):
+                    path.append(poses_c[i])
+                    self.path_epoch.append(self._epoch)
+                    if i not in blk:
+                        continue
+                    k = self._add_keyframe(blk[i][0], blk[i][1],
+                                           blk[i][2] > 0.5, poses_c[i],
+                                           scan_t=t + i,
+                                           quality=float(quals_c[i]))
+                    new_kf.append(k)
             if self._kf_count > count0:  # saturation drops the tail
                 self._store_kf_scans(count0,
                                      kf_dev[: self._kf_count - count0])

@@ -40,6 +40,7 @@ from lidar_slam_tpu_torch.device import resolve_device
 from lidar_slam_tpu_torch.ops import edt as edt_ops
 from lidar_slam_tpu_torch.ops import matching
 from lidar_slam_tpu_torch.utils import graphs
+from lidar_slam_tpu_torch.utils.profiling import session, span
 
 
 class SlamState(NamedTuple):
@@ -197,10 +198,14 @@ def slam_step(state: SlamState, ranges: torch.Tensor, cfg: SlamConfig,
     head = slam_head(state, ranges, cfg, angles)
     new_pose = head.state.pose
     if pose_to_host:
-        host = pose_and_test(new_pose, head.test).cpu()
+        both = pose_and_test(new_pose, head.test)
+        with span("sync", tag="step", req=state.step):
+            host = both.cpu()
         moved, out_pose = bool(host[3]), host[:3].numpy()
     else:
-        moved, out_pose = bool(head.test.item()), new_pose
+        with span("sync", tag="step", req=state.step):
+            moved = bool(head.test.item())
+        out_pose = new_pose
     new_state = (slam_moved(head, state.mini_updated, cfg) if moved
                  else head.state)
     return new_state, out_pose
@@ -267,7 +272,9 @@ class StepFn:
         if state.step == 1:
             return self._first(state, ranges)
         self._replay(state, ranges)
-        host = self.bufs.out.to("cpu", copy=True)   # a copy on the CPU too
+        with span("sync", tag="step", req=state.step):
+            # a copy on the CPU too
+            host = self.bufs.out.to("cpu", copy=True)
         self.state = self.state._replace(mini_updated=bool(host[3]))
         return self.state, host[:3].numpy()
 
@@ -385,14 +392,15 @@ def run_scan(ranges_all: np.ndarray, cfg: SlamConfig,
     over the tour): each pose is written into a (T, 3) tensor on the
     device, scans 2.. with no host sync (``StepFn.advance``), and the final
     state's host fields come back in one read at the end. Returns (that
-    path, final state)."""
-    ranges = _as_ranges(ranges_all, device)
-    step = make_step_fn(cfg, ranges.device)
-    state = init_state(ranges[0], cfg)
-    path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32,
-                       device=ranges.device)
-    path[0] = state.pose
-    for t in range(1, ranges.shape[0]):
-        state = step.advance(state, ranges[t])
-        path[t] = step.pose
-    return path, graphs.clone_tree(step.finish(state))
+    path, final state). The call is one ``session`` span."""
+    with session("run_scan", device):
+        ranges = _as_ranges(ranges_all, device)
+        step = make_step_fn(cfg, ranges.device)
+        state = init_state(ranges[0], cfg)
+        path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32,
+                           device=ranges.device)
+        path[0] = state.pose
+        for t in range(1, ranges.shape[0]):
+            state = step.advance(state, ranges[t])
+            path[t] = step.pose
+        return path, graphs.clone_tree(step.finish(state))

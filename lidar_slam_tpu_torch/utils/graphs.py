@@ -80,6 +80,7 @@ import torch
 
 from lidar_slam_tpu_torch import _build
 from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match
+from lidar_slam_tpu_torch.utils.profiling import span
 from lidar_slam_tpu_torch.utils.tree import map_with_path
 
 COUNTED = (cuda_edt, cuda_match)   # modules with launches, launches_by_shape
@@ -303,16 +304,17 @@ def fetch(*tensors: torch.Tensor, runners=()) -> list[np.ndarray]:
         leaves.append(torch.stack(counts))
     hosts = []
     streams = set()
-    for t in leaves:
-        if t.is_cuda:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            streams.add(torch.cuda.current_stream(t.device))
-        else:
-            h = t.detach().clone()
-        hosts.append(h)
-    for s in streams:
-        s.synchronize()
+    with span("sync", tag="fetch"):
+        for t in leaves:
+            if t.is_cuda:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                streams.add(torch.cuda.current_stream(t.device))
+            else:
+                h = t.detach().clone()
+            hosts.append(h)
+        for s in streams:
+            s.synchronize()
     if counts:
         ran = iter(hosts.pop().tolist())
         for r in runners:
@@ -378,7 +380,11 @@ class Graphs:
     CPU it calls ``body(bufs)``. ``capture_seconds``: the host time the
     captures took (warm-up, capture, instantiation), summed. ``arms``: the
     conditional arms of every graph (``cond``), whose launches ``fetch``
-    counts."""
+    counts. While a profiler runs, each capture is a ``graphs.capture``
+    span (its recording and instantiation, which run nothing on the
+    device, a ``graphs.record`` host span inside it) and each replay (the
+    body's call on the CPU) a ``graphs.replay`` span, tagged with the key
+    (``profiling.span``)."""
 
     def __init__(self, device: torch.device, counters=COUNTED):
         self.device = device
@@ -403,14 +409,17 @@ class Graphs:
 
     def run(self, key, body, bufs) -> None:
         if not self.capturing:
-            body(bufs)
+            with span("graphs.replay", tag=key):
+                body(bufs)
             return
         if key not in self._graphs:
             t0 = time.perf_counter()
-            self._graphs[key] = self._capture(body, bufs)
+            with span("graphs.capture", tag=key):
+                self._graphs[key] = self._capture(key, body, bufs)
             self.capture_seconds += time.perf_counter() - t0
         graph, delta = self._graphs[key]
-        graph.replay()
+        with span("graphs.replay", tag=key):
+            graph.replay()
         self.book.add(delta)
 
     def warm_up(self, body, bufs) -> int:
@@ -427,7 +436,7 @@ class Graphs:
             self.book.restore(start)
         return len(arms)
 
-    def _capture(self, body, bufs):
+    def _capture(self, key, body, bufs):
         side = self.stream
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side), no_host_sync(self.device):
@@ -454,7 +463,9 @@ class Graphs:
                     _CAPTURE.reset(token)
                     graph.capture_end()
 
-        delta = self.book.record(capture)
+        # recording and instantiating run nothing on the device: a host span
+        with span("graphs.record", tag=key, host=True):
+            delta = self.book.record(capture)
         self.arms.extend(arms)
         return graph, delta
 

@@ -1542,3 +1542,150 @@ def test_captured_sharded_ba_equals_eager_on_the_card(nccl_world, problem,
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(again.poses, outs[0].poses)
     assert len(axis.ba_solve.graphs) == 3
+
+
+# -- the span log on the card ---------------------------------------------------
+def _profiled_on_the_card(fn):
+    """``fn()`` under ``torch.profiler`` (host and CUDA activities) with an
+    empty span log: (the spans recorded, the counters, kineto's events as
+    (name, on the device, start_ns, end_ns))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidar_slam_tpu_torch.utils.profiling import SPANS
+
+    SPANS.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [(ev.name(), ev.device_type() == DeviceType.CUDA, ev.start_ns(),
+               ev.end_ns()) for ev in prof.profiler.kineto_results.events()]
+    spans, counters = list(SPANS.spans), dict(SPANS.counters)
+    SPANS.clear()
+    return spans, counters, events
+
+
+def test_fresh_run_scan_captures_once_and_replays_a_scan(cuda):
+    """A fresh ``run_scan`` captures its step once (key ``step``) and
+    replays it once a scan after scan 1, in one session whose allocator
+    segments are counted."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import scan_matcher
+
+    n = 40
+    ranges, _ = simulate.generate_dataset(n, seed=3)
+    spans, counters, _ = _profiled_on_the_card(
+        lambda: scan_matcher.run_scan(ranges, DEFAULT_CONFIG, device=cuda))
+    assert [s.tag for s in spans if s.name == "session"] == ["run_scan"]
+    assert [s.tag for s in spans if s.name == "graphs.capture"] == ["step"]
+    replays = [s.tag for s in spans if s.name == "graphs.replay"]
+    assert replays == ["step"] * (n - 2)
+    assert counters["alloc.segments"] >= 0
+
+
+# the host spans of a graph run: its bookkeeping, and the stages' closing
+# synchronizes (``sync`` tagged ``stage``)
+GRAPH_HOST_SPANS = ("graph.keyframes", "graph.candidates",
+                    "graph.closure_gate", "graph.graph_arrays",
+                    "graph.rebuild_map", "graphs.record")
+GRAPH_STAGES = ("frontend_chunk", "kf_fetch", "kf_raster_edt",
+                "closure_match", "optimize", "feedback")
+
+
+def test_profiled_graph_run_keeps_spans_off_the_device(cuda):
+    """A profiled ``GraphSlam.run`` (closures, an optimize and a feedback)
+    makes no device-type kineto event named after a span, and each
+    ``host=True`` span lies inside the kineto event of its name, within
+    100 µs of its ends."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import graph_slam
+
+    ranges, _ = simulate.generate_dataset(160, seed=1,
+                                          waypoints=simulate.LOOP_WAYPOINTS)
+    gs = graph_slam.GraphSlam(DEFAULT_CONFIG,
+                              graph_slam.LoopClosureConfig(min_gap=3),
+                              device=cuda)
+    spans, _, events = _profiled_on_the_card(
+        lambda: gs.run(ranges, chunk_size=32))
+    assert gs.closures and gs._epoch >= 1
+    names = {s.name for s in spans}
+    assert {"session", "graphs.capture", "graphs.replay", "sync", "stage",
+            *GRAPH_HOST_SPANS} <= names
+    assert {s.tag for s in spans if s.name == "stage"} == set(GRAPH_STAGES)
+    assert not [e for e in events if e[1] and e[0] in names]
+    host = [s for s in spans if s.name in GRAPH_HOST_SPANS
+            or (s.name == "sync" and s.tag == "stage")]
+    assert len(host) > 20
+    ends = []
+    for s in host:
+        around = [e for e in events if e[0] == s.name and not e[1]
+                  and e[2] <= s.start_ns and s.end_ns <= e[3]]
+        assert around, (s.name, s.tag)
+        e = min(around, key=lambda e: e[3] - e[2])
+        ends.append((max(s.start_ns - e[2], e[3] - s.end_ns),
+                     s.start_ns - e[2], e[3] - s.end_ns, s.name, s.tag))
+    ends.sort()
+    worst = [(round(a / 1e3, 1), round(b / 1e3, 1), round(c / 1e3, 1), n, t)
+             for a, b, c, n, t in ends[-3:]]
+    print(f"{len(ends)} host spans inside their kineto events; the widest "
+          f"(us apart, at the start, at the end): {worst}")
+    assert ends[-1][0] <= 100_000
+
+
+def test_spans_add_no_host_sync(cuda):
+    """With the profiler on, the captured step's spans, a host span and a
+    session raise nothing under the sync debug mode "error"."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import scan_matcher
+    from lidar_slam_tpu_torch.utils import graphs
+    from lidar_slam_tpu_torch.utils.profiling import session, span
+
+    n = 20
+    ranges = torch.as_tensor(simulate.generate_dataset(n, seed=3)[0],
+                             device=cuda)
+
+    def work():
+        step = scan_matcher.make_step_fn(DEFAULT_CONFIG, cuda)
+        state = step.advance(scan_matcher.init_state(ranges[0],
+                                                     DEFAULT_CONFIG),
+                             ranges[1])
+        with graphs.no_host_sync(cuda), session("probe", cuda):
+            for t in range(2, n):
+                state = step.advance(state, ranges[t])
+                with span("probe.host", req=t, host=True):
+                    pass
+        step.finish(state)
+
+    spans, counters, _ = _profiled_on_the_card(work)
+    assert sum(s.name == "graphs.replay" for s in spans) == n - 2
+    assert [s.req for s in spans if s.name == "probe.host"] == list(
+        range(2, n))
+    assert "alloc.segments" in counters
+
+
+def test_span_costs_at_most_half_a_microsecond_off(cuda):
+    """With no profiler running a span (its call, entry and exit, and the
+    loop around it) costs at most 0.5 µs of the host's time: the best of
+    twenty rounds of 10^5 calls, so that a round slowed by the host's other
+    work does not decide."""
+    import time
+
+    from lidar_slam_tpu_torch.utils.profiling import span
+
+    assert not torch.autograd.profiler._is_profiler_enabled
+    n, rounds = 100_000, []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        for i in range(n):
+            with span("graphs.replay", tag="step", req=i):
+                pass
+        rounds.append((time.perf_counter() - t0) / n)
+    rounds.sort()
+    print(f"span with no profiler: {rounds[0] * 1e6:.3f} us a call "
+          f"(median round {rounds[10] * 1e6:.3f} us)")
+    assert rounds[0] <= 0.5e-6

@@ -10,9 +10,9 @@ and profiling against ``lidar_slam_tpu``'s (the cases of
 - ``run_streaming_slam`` equals the JAX package's exactly (the fidelity
   path is bit-exact) and the port's offline run on the protocol-rounded
   ranges;
-- ``native.read_csv`` reads back ``save_csv``; ``trace`` writes a trace;
-  ``cost_analysis`` counts a matmul's FLOPs; ``device_time_ms`` and a small
-  ``pf_stage_profile`` return numbers on the CPU; the rounding sweep
+- ``native.read_csv`` reads back ``save_csv``; ``trace`` empties the span
+  log and writes a trace that holds a host span; ``device_time_ms`` and a
+  small ``pf_stage_profile`` return numbers on the CPU; the rounding sweep
   counts nothing CPU against CPU.
 """
 
@@ -222,19 +222,23 @@ def test_native_csv_reader_round_trips_save_csv(small_dataset, tmp_path):
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     log_dir = os.path.join(tmp_path, "trace")
+    profiling.SPANS.spans.append(profiling.Span("stale", end_ns=1))
+    profiling.SPANS.counters["stale"] = 1
     with profiling.trace(log_dir):
         torch.ones(64, 64) @ torch.ones(64, 64)
+        with profiling.span("trace.host_span", host=True):
+            sum(range(1000))
+    # the log holds the traced block's spans alone (and any collection of
+    # Python's garbage that ran in it)
+    assert [s.name for s in profiling.SPANS.spans
+            if s.name != "python.gc"] == ["trace.host_span"]
+    assert profiling.SPANS.counters == {}
+    profiling.SPANS.clear()
     path = os.path.join(log_dir, profiling.TRACE_FILE)
     assert os.path.getsize(path) > 100
     with open(path) as f:
-        assert "traceEvents" in f.read()
-
-
-def test_cost_analysis_reports_flops():
-    costs = profiling.cost_analysis(lambda a, b: a @ b,
-                                    torch.zeros(256, 256),
-                                    torch.zeros(256, 256))
-    assert costs["flops"] == 2 * 256 ** 3
+        text = f.read()
+    assert "traceEvents" in text and '"trace.host_span"' in text
 
 
 def test_device_time_ms_and_pf_stage_profile_on_the_cpu():
