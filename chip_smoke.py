@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and a CUDA
-toolkit (``nvcc``). It builds both hand-written kernels from
+toolkit (``nvcc``). It builds the hand-written kernels from
 ``lidar_slam_tpu_torch/csrc/``, holds each against its plain PyTorch version
 on the card, drives the port's main path (the fidelity pipeline and the
 1024- and 10240-particle filters on the 1000-scan museum tour; fidelity
@@ -29,7 +29,7 @@ parallel layer on an NCCL world of one) and checks the results:
 5. fidelity, museum-1000, through the captured driver (``run_scan``: the
    step as one CUDA graph whose branches are conditional nodes,
    ``utils/graphs.py``; no host sync after scan 1): trajectory
-   bit-identical to the C++ oracle;
+   bit-identical to the C++ oracle, K3 launched twice a scan after scan 0;
 6. PF-1024, museum-1000, captured (``run_pf``): ATE < 0.15 m; then 100
    scans on the card and on the CPU with the same numpy-made draws, max
    |pose difference| <= 1e-3;
@@ -37,7 +37,7 @@ parallel layer on an NCCL world of one) and checks the results:
    0.15 m;
    6c. captured against eager on museum-1000: the eager loops (``slam_step``
    / ``pf_step`` a scan, seed 0) equal phases 5 and 6 (``np.array_equal``)
-   with the same K1/K2 launches by shape; for each of the four drivers
+   with the same K1/K2/K3 launches by shape; for each of the four drivers
    scans/s over the tour, and over scans 101-150 under the profiler and the
    sync debug mode device ops, device time and host syncs a scan and the
    busy share (the captured steps through ``advance``, no host read); the
@@ -57,7 +57,10 @@ parallel layer on an NCCL world of one) and checks the results:
    kernel, kernel, plain); the least time the card could take (bytes over
    3.35 TB/s or adds over 67 TFLOP/s) and the share of it reached; for K2
    one grouped conv2d computing the same sums (TF32 off) and whether it
-   equals K2;
+   equals K2; K3 (the matcher) on the museum keyframe's coarse 200^2 and
+   fine 400^2 fields, N = 1079, +-1, every field of its result equal to
+   ``fast_match_plain``'s (max |kernel - plain| over its float fields
+   printed), timed the same way;
 8. graph SLAM, loop-700, captured (``GraphSlam.run`` over
    ``scan_matcher.make_step_fn``, and its backend's keyframe rasters,
    closure matching, fine refinement and optimize as CUDA graphs; phases
@@ -75,7 +78,10 @@ parallel layer on an NCCL world of one) and checks the results:
    card; the JAX package does the same from the card's state on the CPU;
    9b. fidelity, building-3800, captured: with BUILDING_CONFIG
    bit-identical to the C++ oracle and to the eager loop (the same K1
-   launches by shape); with BUILDING_WIDE_CONFIG ATE < 0.5 m;
+   launches by shape); with BUILDING_WIDE_CONFIG ATE < 0.5 m; after each
+   run K3 on its final coarse 256^2 and fine 512^2 fields (+-1: C = 27;
+   the wide window +-2 with its penalty: C = 125) held to
+   ``fast_match_plain`` and timed as in phase 7;
 10. PF-graph, loop-700, 1024 particles: >= 1 closure, ATE < 0.15 m,
     smoothed-path ATE < ATE + 0.03 m;
     10b. PF-1024-graph, building-3800, BUILDING_CONFIG with closure
@@ -120,7 +126,7 @@ parallel layer on an NCCL world of one) and checks the results:
     loops (``GraphSlam(eager=True)``, frontend and backend eager;
     ``slam_step`` / ``ekf_slam_step_ml`` / ``hybrid_step`` a scan) equal
     phases 8, 9 (without feedback), 10, 13 and 14 and those filter runs
-    (``np.array_equal``), with the same K1/K2 launches by
+    (``np.array_equal``), with the same K1/K2/K3 launches by
     shape; the graph runs' closures, attempt logs and keyframe poses equal
     too, and each backend stage's seconds and share of its run print
     eager against captured; graph loop-700 captured once more in the same
@@ -241,11 +247,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 K1_SOURCE = "lidar_slam_tpu_torch/csrc/edt.cu"
 K2_SOURCE = "lidar_slam_tpu_torch/csrc/corr_volume.cu"
+K3_SOURCE = "lidar_slam_tpu_torch/csrc/scan_match.cu"
 K1_REPLACES = "lidar_slam_tpu/ops/pallas_edt.py:119"
 K2_REPLACES = "lidar_slam_tpu/ops/pallas_match.py:120"
+K3_REPLACES = "none: ops/matching.fast_match's plain tensor code"
 # substrings of the kernels' names in a profiler trace
 K1_KERNEL = "edt_"
 K2_KERNEL = "corr_volume"
+K3_KERNEL = "scan_match"
 
 PF_ATE_MAX = 0.15          # m, the pin of tests/test_fastslam.py
 CPU_CUDA_MAX_DIFF = 1e-3   # max |pose difference|, injected draws
@@ -342,7 +351,7 @@ def _wedging_pf_worker(run_dir, ranges, cfg, seed, ckpt_every, device,
     ``launches_<attempt>.json`` in the run directory (the first just before
     it wedges). Module-level, so a spawned child can import it."""
     from lidar_slam_tpu_torch.models import fastslam
-    from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match
+    from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match, cuda_scan_match
     from lidar_slam_tpu_torch.utils import watchdog
 
     attempt = 1 + sum(f.startswith("attempt_") for f in os.listdir(run_dir))
@@ -352,7 +361,8 @@ def _wedging_pf_worker(run_dir, ranges, cfg, seed, ckpt_every, device,
         with open(os.path.join(run_dir, f"launches_{attempt}.json"), "w") as f:
             json.dump({key: [[list(k), v] for k, v in
                              mod.launches_by_shape.items()]
-                       for key, mod in (("K1", cuda_edt), ("K2", cuda_match))},
+                       for key, mod in (("K1", cuda_edt), ("K2", cuda_match),
+                                        ("K3", cuda_scan_match))},
                       f)
 
     if attempt == 1:
@@ -1059,6 +1069,70 @@ def k1_shape_row(label, occ, cross_check: bool = True) -> tuple[dict, float]:
              "bound_ms": bnd, "bound_by": by, "library_ms": None}, err)
 
 
+def k3_shape_row(label, metric, grid, scan, pose, step_t, step_r,
+                 window, penalty, tag="7") -> tuple[dict, float]:
+    """The row for K3 at one shape, and its max |kernel - plain| over the
+    result's float fields (0 when every field is equal): every field of
+    its result equal to the plain version's; its device time (a CUDA graph
+    of raw launches), the profiler's kernel row, the wrapper's and the
+    plain version's times (plain, kernel, kernel, plain) and the bound: the
+    scan, the small inputs and the outputs once, and each field cell the
+    candidates gather once, at 3.35 TB/s, or the candidates' adds at 67
+    TFLOP/s."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops import cuda_scan_match, matching
+
+    args = (metric, grid, scan.x, scan.y, scan.valid, pose, step_t, step_r,
+            window, window, penalty)
+    want = matching.fast_match_plain(*args)
+    got = cuda_scan_match.fast_match_cuda(*args)
+    torch.cuda.synchronize()
+    err = max(float((getattr(got, f) - getattr(want, f)).abs().max())
+              for f in ("pose", "score", "last_hits"))
+    for f in matching.MatchResult._fields:
+        require(torch.equal(getattr(got, f), getattr(want, f)),
+                f"K3 differs from plain at {label}: {f} (max |difference| "
+                f"of the float fields {err})")
+    out = matching.MatchResult(*(torch.empty_like(t) for t in want))
+    raw = lambda: cuda_scan_match.launch(  # noqa: E731
+        metric, grid, scan.x, scan.y, scan.valid, pose, step_t, step_r,
+        window, window, penalty, out)
+    device_ms = graph_time_ms(raw)
+    for f in matching.MatchResult._fields:
+        require(torch.equal(getattr(out, f), getattr(want, f)),
+                f"raw K3 differs at {label}: {f}")
+    prof_ms = profiler_kernel_ms(raw, K3_KERNEL)
+    wrap = lambda: matching.fast_match(*args)  # noqa: E731
+    plain = lambda: matching.fast_match_plain(*args)  # noqa: E731
+    p1, w1, w2, p2 = (cuda_time_ms(f, iters=50, warmup=5)
+                      for f in (plain, wrap, wrap, plain))
+    poses = matching.candidate_grid_ref(pose, step_t, step_r, window, window)
+    _, _, inb = matching.score_candidates(metric, grid, scan.x, scan.y,
+                                          scan.valid, poses)
+    cx, cy = matching.project_scan(scan.x, scan.y, poses, grid)
+    n = scan.x.shape[0]
+    touched = int(torch.unique(((cy - 1).long() * metric.shape[-1]
+                                + (cx - 1).long())[inb]).numel())
+    n_bytes = n * 9 + 12 + 8 + 8 + 12 + 4 + 4 + n * 5 + 4 * touched
+    n_adds = float(inb.sum())
+    bnd, by = bound_ms(n_bytes, n_adds)
+    c = poses.shape[0]
+    print(f"[{tag}] K3 {label}: device {device_ms * 1e3:.2f} us (CUDA graph "
+          f"of {GRAPH_LAUNCHES}; profiler kernel row "
+          f"{'n/a' if prof_ms is None else f'{prof_ms * 1e3:.2f}'} us); "
+          f"wrapper {w1 * 1e3:.1f} / {w2 * 1e3:.1f} us; plain "
+          f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us; bound {bnd * 1e3:.4f} us "
+          f"({by}: {n_bytes} B, {touched} field cells, {n_adds:.0f} adds), "
+          f"{bnd / device_ms:.2%} of it reached; max |kernel - plain| "
+          f"{err}; library: none", flush=True)
+    return ({"shape": label, "key": (c, n, metric.shape[-1]),
+             "device_ms": device_ms, "profiler_ms": prof_ms,
+             "wrapper_ms": min(w1, w2), "plain_ms": min(p1, p2),
+             "bound_ms": bnd, "bound_by": by, "library_ms": None,
+             "adds": n_adds, "bytes": n_bytes}, err)
+
+
 def parallel_phases(ctx) -> None:
     """Phases 19-23: the parallel layer on an NCCL world of one (one card:
     NCCL takes one rank a GPU, so every collective runs through the group
@@ -1537,7 +1611,7 @@ def main() -> int:
     from lidar_slam_tpu_torch.models.submap_graph_slam import SubmapGraphSlam
     from lidar_slam_tpu_torch.utils import paging
     from lidar_slam_tpu_torch.ops import (correlative, cuda_edt, cuda_match,
-                                          landmarks)
+                                          cuda_scan_match, landmarks)
     from lidar_slam_tpu_torch.ops import edt as edt_ops
     from lidar_slam_tpu_torch.ops import scan_odometry
 
@@ -1700,22 +1774,26 @@ def main() -> int:
     phase_done("4b")
 
     # ---- 5. fidelity, museum-1000 (main path; counters start here)
+    counted = (("K1", cuda_edt), ("K2", cuda_match), ("K3", cuda_scan_match))
+
     def reset_counts():
-        for mod in (cuda_edt, cuda_match):
+        for _, mod in counted:
             mod.launches = 0
             mod.launches_by_shape.clear()
 
-    path_counts = {}   # main path -> {"K1": Counter, "K2": Counter}
+    def by_shape():
+        return {key: dict(mod.launches_by_shape) for key, mod in counted}
+
+    path_counts = {}   # main path -> {"K1": Counter, "K2": ..., "K3": ...}
 
     def read_counts(title):
-        used = {"K1": cuda_edt.launches, "K2": cuda_match.launches}
-        path_counts[title] = {"K1": dict(cuda_edt.launches_by_shape),
-                              "K2": dict(cuda_match.launches_by_shape)}
-        require(sum(path_counts[title]["K1"].values()) == used["K1"]
-                and sum(path_counts[title]["K2"].values()) == used["K2"],
+        used = {key: mod.launches for key, mod in counted}
+        path_counts[title] = by_shape()
+        require(all(sum(path_counts[title][k].values()) == used[k]
+                    for k in used),
                 f"{title}: launches by shape do not add up")
-        print(f"    launches by shape (K1: B,H,W; K2: B,T,half,S): "
-              f"{path_counts[title]}", flush=True)
+        print(f"    launches by shape (K1: B,H,W; K2: B,T,half,S; K3: "
+              f"C,N,S): {path_counts[title]}", flush=True)
         return used
 
     reset_counts()
@@ -1732,13 +1810,17 @@ def main() -> int:
             f"{np.abs(path - opath).max()} at scan "
             f"{int(np.argmax(np.abs(path - opath).max(axis=1)))}")
     require(used["K1"] > 0, "fidelity run launched K1 no time")
+    require(used["K3"] == 2 * (len(path) - 1),
+            f"fidelity run launched K3 {used['K3']} times, not two a scan "
+            f"after scan 0")
     launches = dict(used)
     fid_seconds = dt
     scans_per_s = {"fidelity museum-1000": len(path) / dt}
     fid_ate = ate(path, gt)
     print(f"[5] fidelity museum-1000 on cuda: bit-identical to the C++ "
           f"oracle; {len(path) / dt:.1f} scans/s ({dt:.2f} s); "
-          f"ATE {ate(path, gt):.4f} m; K1 launches {used['K1']}", flush=True)
+          f"ATE {ate(path, gt):.4f} m; K1 launches {used['K1']}, K3 "
+          f"{used['K3']}", flush=True)
     phase_done("5")
 
     # ---- 6. PF-1024, museum-1000, the port's generator
@@ -1822,8 +1904,7 @@ def main() -> int:
         t0 = time.perf_counter()
         epath = run_eager()
         dt = time.perf_counter() - t0
-        eager_counts = {"K1": dict(cuda_edt.launches_by_shape),
-                        "K2": dict(cuda_match.launches_by_shape)}
+        eager_counts = by_shape()
         require(np.array_equal(epath, graph_path),
                 f"{title}: the eager loop differs from the captured driver: "
                 f"max {np.abs(epath - graph_path).max()}")
@@ -1948,9 +2029,9 @@ def main() -> int:
          (m512, cx13, cy13, scan.valid, 512, 512, half)),
         (f"B=8 T={lc.n_theta} half={lc.window_half} S={lc.raster_size} "
          f"(closures)", k2b_args)]
-    shape_rows = {"K1": [], "K2": []}
+    shape_rows = {"K1": [], "K2": [], "K3": []}
     # device time of one launch by the shape key of launches_by_shape
-    device_by_shape = {"K1": {}, "K2": {}}
+    device_by_shape = {"K1": {}, "K2": {}, "K3": {}}
     for label, occ in k1_cases:
         row, err = k1_shape_row(label, occ)
         k1_err = max(k1_err, err)
@@ -2003,6 +2084,32 @@ def main() -> int:
               f"({by}: {n_bytes / 1e6:.3f} MB, {n_adds / 1e6:.3f} M adds), "
               f"{bnd / device_ms:.1%} of it reached; conv2d "
               f"{lib_ms * 1e3:.1f} us, == K2: {conv_equal}", flush=True)
+    # K3 at the fidelity step's two calls: the museum keyframe's coarse
+    # (200^2) and fine (400^2) fields, scan 120 from the keyframe's pose
+    # (the building's shapes are held in phase 9b, on its own states)
+    k3_err = 0.0
+
+    def k3_rows(tag, cfg_, state_, scan_, what):
+        nonlocal k3_err
+        mc_ = cfg_.matcher
+        n_ = scan_.x.shape[0]
+        c_ = (2 * mc_.window_r + 1) * (2 * mc_.window_t + 1) ** 2
+        for grid_, metric_, step_t, step_r, which in (
+                (state_.coarse, state_.coarse_metric, mc_.coarse_t,
+                 mc_.coarse_r, "coarse field (first match)"),
+                (state_.fine, state_.fine_metric, mc_.fine_t, mc_.fine_r,
+                 "fine field (second match)")):
+            label = (f"C={c_} N={n_} S={metric_.shape[-1]} {which}"
+                     + (f", {what}" if what else ""))
+            row, err = k3_shape_row(label, metric_, grid_, scan_,
+                                    state_.pose, step_t, step_r,
+                                    int(mc_.window_t),
+                                    float(mc_.window_penalty_px), tag)
+            k3_err = max(k3_err, err)
+            shape_rows["K3"].append(row)
+            device_by_shape["K3"][row["key"]] = row["device_ms"]
+
+    k3_rows("7", cfg, state, scan, "")
     print("[7] order of each wrapper/plain pair: plain, kernel, kernel, "
           "plain; device time and bound are per launch", flush=True)
     # the partial batches the closure and refine passes end on (B < 8):
@@ -2156,6 +2263,12 @@ def main() -> int:
             launches[k] += used[k]
         final_states[title] = bstate
         scans_per_s[title] = len(bpath) / dt
+        # K3 held to plain on the run's final coarse and fine fields, the
+        # last scan from the final pose, at this config's window
+        k3_rows("9b", bcfg, bstate, sensor.read_scan(
+            torch.as_tensor(branges[-1], device=dev),
+            scan_matcher.angles_tensor(bcfg, dev), bcfg.lidar),
+            title.split("(")[1].rstrip(")"))
         require(used["K1"] > 0, f"{title} launched K1 no time")
         b_ate = ate(bpath, bgt)
         if bcfg is BUILDING_CONFIG:
@@ -2399,8 +2512,7 @@ def main() -> int:
     epath, efinal = eager_paged(ranges, pg_cfg, epaged, 4, dev)
     torch.cuda.synchronize()
     edt = time.perf_counter() - t0
-    eager_counts = {"K1": dict(cuda_edt.launches_by_shape),
-                    "K2": dict(cuda_match.launches_by_shape)}
+    eager_counts = by_shape()
     reset_counts()
     require(np.array_equal(epath, gpath),
             f"{title}: the eager paged loop differs from the captured one: "
@@ -2593,8 +2705,7 @@ def main() -> int:
         epath = run_eager()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        eager_counts = {"K1": dict(cuda_edt.launches_by_shape),
-                        "K2": dict(cuda_match.launches_by_shape)}
+        eager_counts = by_shape()
         require(np.array_equal(epath, graph_path),
                 f"{title}: the eager loop differs from the captured driver: "
                 f"max {np.abs(epath - graph_path).max()}")
@@ -2865,7 +2976,7 @@ def main() -> int:
     require(np.array_equal(spf, ppath),
             f"{title}: resumed path differs from phase 6's run_pf: max "
             f"{np.abs(spf - ppath).max()}")
-    counts = {"K1": {}, "K2": {}}
+    counts = {"K1": {}, "K2": {}, "K3": {}}
     for attempt in (1, 2):
         with open(os.path.join(run_dir, f"launches_{attempt}.json")) as f:
             for key, rows in json.load(f).items():
@@ -3059,7 +3170,9 @@ def main() -> int:
     kernels = []
     for key, name, source, replaces, err in (
             ("K1", "K1 clamped EDT", K1_SOURCE, K1_REPLACES, k1_err),
-            ("K2", "K2 correlation volume", K2_SOURCE, K2_REPLACES, k2_err)):
+            ("K2", "K2 correlation volume", K2_SOURCE, K2_REPLACES, k2_err),
+            ("K3", "K3 correlative matcher", K3_SOURCE, K3_REPLACES,
+             k3_err)):
         head = shape_rows[key][1 if key == "K1" else 0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -3076,7 +3189,7 @@ def main() -> int:
     # launches by shape times phase 7's device time of that shape
     for p, counts in path_counts.items():
         parts = []
-        for key in ("K1", "K2"):
+        for key in ("K1", "K2", "K3"):
             known = device_by_shape[key]
             ms = sum(n * known[k] for k, n in counts[key].items() if k in known)
             unmeasured = sum(n for k, n in counts[key].items()

@@ -35,6 +35,7 @@ _kernels: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argtypes of every exported launcher; each returns cudaError_t
 _SIGNATURES = {
     # occ u8 (B,H,W), out f32 (B,H,W), B, H, W, R, band rows, stream
@@ -44,6 +45,12 @@ _SIGNATURES = {
     # beams per block, tile codes, scores f32 (B,T,W,W), stream
     "slam_corr_volume": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
                          _I, _I, _P, _P),
+    # metric f32 (S,S), S, n_rows i32*, n_cols i32*, origin f32 (2),
+    # 1/pixel, x f32 (N), y f32 (N), valid u8 (N), N, pose f32 (3),
+    # step_t, step_r, window_t, window_r, penalty, pose f32 (3), score
+    # f32*, best count i32*, last hits f32 (N), last mask u8 (N), stream
+    "slam_scan_match": (_P, _I, _P, _P, _P, _F, _P, _P, _P, _I, _P, _F, _F,
+                        _I, _I, _F, _P, _P, _P, _P, _P, _P),
     # graph_cond.cu: capture stream, child stream, pred bool*; child stream
     "slam_if_begin": (_P, _P, _P),
     "slam_if_end": (_P,),

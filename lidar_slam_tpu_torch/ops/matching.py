@@ -98,7 +98,29 @@ def fast_match(metric: torch.Tensor, grid: OccGrid,
     Windows wider than the reference's +-1 add ``window_penalty_px`` per
     step of L1 offset beyond the inner 3x3x3 (the JAX package's center-bias
     penalty); window 1 is untouched.
+
+    Device dispatcher: on CUDA tensors one launch of kernel K3
+    (``ops/cuda_scan_match``), on CPU tensors ``fast_match_plain``. A CUDA
+    tensor never reaches the plain version.
     """
+    if metric.is_cuda:
+        from lidar_slam_tpu_torch.ops import cuda_scan_match
+
+        return cuda_scan_match.fast_match_cuda(
+            metric, grid, scan_x, scan_y, valid, pose, step_t, step_r,
+            window_t, window_r, window_penalty_px)
+    return fast_match_plain(metric, grid, scan_x, scan_y, valid, pose,
+                            step_t, step_r, window_t, window_r,
+                            window_penalty_px)
+
+
+def fast_match_plain(metric: torch.Tensor, grid: OccGrid,
+                     scan_x: torch.Tensor, scan_y: torch.Tensor,
+                     valid: torch.Tensor, pose: torch.Tensor, step_t: float,
+                     step_r: float, window_t: int = 1, window_r: int = 1,
+                     window_penalty_px: float = 1.0) -> MatchResult:
+    """``fast_match`` in plain tensor code: the CPU's path, and what K3 is
+    held to with ``torch.equal`` on the card."""
     poses = candidate_grid_ref(pose, step_t, step_r, window_t, window_r)
     scores, hits, inb = score_candidates(metric, grid, scan_x, scan_y, valid,
                                          poses)

@@ -46,15 +46,15 @@ nothing falls back to the eager step, to a graph per count or to a host
 read of the branch.
 
 The kernel wrappers count launches in Python (``cuda_edt.launches``,
-``cuda_match.launches`` and their ``launches_by_shape``), so a replay would
-count nothing. ``LaunchBook`` takes the counts a capture makes out again:
-what runs on every replay is the graph's delta, added on each replay; what
-runs in a conditional arm is that arm's delta, and the arm adds one to its
-own device counter inside the graph each time it runs (a WHILE body: each
-iteration). ``fetch``, a run's
-one host read, brings the arm counters back with the run's results and adds
-each arm's delta times the runs since the last fetch. The warm-up's
-launches, on the clone, are not counted.
+``cuda_match.launches``, ``cuda_scan_match.launches`` and their
+``launches_by_shape``), so a replay would count nothing. ``LaunchBook``
+takes the counts a capture makes out again: what runs on every replay is
+the graph's delta, added on each replay; what runs in a conditional arm is
+that arm's delta, and the arm adds one to its own device counter inside
+the graph each time it runs (a WHILE body: each iteration). ``fetch``, a
+run's one host read, brings the arm counters back with the run's results
+and adds each arm's delta times the runs since the last fetch. The
+warm-up's launches, on the clone, are not counted.
 
 A body may run the parallel layer's collectives (``parallel/mesh.Axis``)
 in its main graph: NCCL's kernels are captured with the body's
@@ -79,11 +79,12 @@ import numpy as np
 import torch
 
 from lidar_slam_tpu_torch import _build
-from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match
+from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match, cuda_scan_match
 from lidar_slam_tpu_torch.utils.profiling import span
 from lidar_slam_tpu_torch.utils.tree import map_with_path
 
-COUNTED = (cuda_edt, cuda_match)   # modules with launches, launches_by_shape
+# modules with launches, launches_by_shape
+COUNTED = (cuda_edt, cuda_match, cuda_scan_match)
 # the capture's cudaStreamCaptureMode: "thread_local" lets another thread
 # (c10d's NCCL watchdog, which polls the events of earlier collectives)
 # make CUDA calls while a graph that holds collectives is captured

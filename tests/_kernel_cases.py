@@ -1,7 +1,7 @@
-"""Inputs of kernels K1 (clamped EDT) and K2 (correlation volume) at the
-shapes the port's main paths launch them with and at their edges, made with
-numpy from a seed. Shared by the CPU tests of the kernels' twins
-(``test_torch_kernel_twins.py``) and the card's tests
+"""Inputs of kernels K1 (clamped EDT), K2 (correlation volume) and K3 (the
+matcher) at the shapes the port's main paths launch them with and at their
+edges, made with numpy from a seed. Shared by the CPU tests of the kernels'
+twins (``test_torch_kernel_twins.py``) and the card's tests
 (``test_torch_cuda.py``); imports neither JAX nor the JAX package."""
 
 import zlib
@@ -148,3 +148,79 @@ def batch_prefix(args, b: int):
 def to_device(args, device):
     return tuple(a.to(device) if isinstance(a, torch.Tensor) else a
                  for a in args)
+
+
+# K3 (the matcher): id -> (S, pixel m, window (t and r), field, extent,
+# valid, guess). field: "edt" (a clamped EDT of random occupancy), "levels"
+# (codes of 0, 1 and 2 px only: frequent exact ties), "flat" (1 px
+# everywhere: every candidate that keeps its beams on the grid ties);
+# extent: "full" (n_rows = n_cols = S) or "inside" (S//2 + 3, S - 17);
+# valid: "prefix" (read_scan's: the first 1000 of 1079 beams) or "none";
+# guess: "centre" (the scan's origin at the grid's centre) or "off" (far
+# off the grid: every candidate leaves it). At +-4 the kernel's cluster of
+# 8 blocks takes 9 headings: one block takes two
+K3_CASES = {
+    "coarse-200": (200, 0.2, 1, "edt", "full", "prefix", "centre"),
+    "fine-400": (400, 0.1, 1, "edt", "full", "prefix", "centre"),
+    "wide-256": (256, 0.2, 2, "edt", "full", "prefix", "centre"),
+    "wide-512": (512, 0.1, 2, "edt", "inside", "prefix", "centre"),
+    "extent-inside": (200, 0.2, 1, "edt", "inside", "prefix", "centre"),
+    "levels": (128, 0.2, 1, "levels", "full", "prefix", "centre"),
+    "tie-flat": (200, 0.2, 1, "flat", "full", "prefix", "centre"),
+    "tie-flat-wide": (200, 0.2, 2, "flat", "full", "prefix", "centre"),
+    "all-invalid": (200, 0.2, 1, "edt", "full", "none", "centre"),
+    "off-grid": (200, 0.2, 2, "edt", "full", "prefix", "off"),
+    "wide-4": (256, 0.2, 4, "edt", "full", "prefix", "centre"),
+}
+K3_BEAMS, K3_VALID = 1079, 1000
+K3_PENALTY = 4.0
+
+
+def k3_case(name: str):
+    """``fast_match``'s arguments for a K3 case, on the CPU: (metric, grid,
+    scan_x, scan_y, valid, pose, step_t, step_r, window_t, window_r,
+    window_penalty_px). The scan's 270 degrees of
+    beams see walls within 0.35 S pixels, from a pose whose heading may lie
+    in any quadrant."""
+    from lidar_slam_tpu_torch.core.gridmap import OccGrid
+
+    s, pixel, window, field, extent, valid_kind, guess = K3_CASES[name]
+    rng = _rng(name)
+    if field == "edt":
+        metric = edt_clamped(torch.as_tensor(rng.random((s, s)) < 0.01))
+    elif field == "levels":
+        metric = torch.as_tensor(rng.integers(0, 3, (s, s)), dtype=torch.float32)
+    else:
+        metric = torch.ones((s, s))
+    n = K3_BEAMS
+    ang = np.linspace(-2.35, 2.35, n)
+    rmax = 0.35 * s * pixel
+    walls = rng.uniform(0.2 * rmax, rmax, 6)
+    r = walls[np.floor((ang + 2.35) * 6 / 4.71).clip(0, 5).astype(int)]
+    r = np.clip(r * (1 + 0.1 * np.sin(5 * ang)) + rng.normal(0, 0.05, n),
+                0.05, rmax)
+    x = (r * np.cos(ang)).astype(np.float32)
+    y = (r * np.sin(ang)).astype(np.float32)
+    valid = np.arange(n) < (K3_VALID if valid_kind == "prefix" else 0)
+    if valid_kind == "prefix":
+        x[~valid], y[~valid] = 0.0, 0.0     # read_scan's zeros past the prefix
+    pose = np.asarray([rng.uniform(-20, 20), rng.uniform(-20, 20),
+                       rng.uniform(-np.pi, np.pi)], np.float32)
+    origin = (pose[:2] - np.float32(s * pixel / 2)).astype(np.float32)
+    if guess == "off":
+        pose[0] += np.float32(10 * s * pixel)
+    n_rows, n_cols = {"full": (s, s), "inside": (s // 2 + 3, s - 17)}[extent]
+    grid = OccGrid(occ=torch.zeros((s, s), dtype=torch.bool),
+                   n_rows=torch.tensor(n_rows, dtype=torch.int32),
+                   n_cols=torch.tensor(n_cols, dtype=torch.int32),
+                   origin=torch.as_tensor(origin), pixel=pixel)
+    step_t, step_r = pixel / 4, (0.008727 if pixel >= 0.2 else 0.004363)
+    return ((metric.contiguous(), grid, torch.as_tensor(x), torch.as_tensor(y),
+             torch.as_tensor(valid), torch.as_tensor(pose), step_t, step_r,
+             window, window, K3_PENALTY))
+
+
+def grid_to(grid, device):
+    """An ``OccGrid`` with its tensors on ``device``."""
+    return grid._replace(**{f: getattr(grid, f).to(device)
+                            for f in ("occ", "n_rows", "n_cols", "origin")})

@@ -1,19 +1,24 @@
-"""CPU twins of kernels K1 (``csrc/edt.cu``) and K2 (``csrc/corr_volume.cu``).
+"""CPU twins of kernels K1 (``csrc/edt.cu``), K2 (``csrc/corr_volume.cu``)
+and K3 (``csrc/scan_match.cu``).
 
 A CUDA kernel cannot run without a card, so each kernel has a twin here in
-plain PyTorch that repeats its index math step by step: bit-packed rows,
-bit-scan distances and row bands for K1; beam chunks, live-beam compaction,
-bounding-box tiles and their halving, lattice codes with the bounds test
-folded in, and window origins for K2. ``test_torch_kernel_twins.py`` holds
+plain PyTorch or numpy that repeats its index math step by step: bit-packed
+rows, bit-scan distances and row bands for K1; beam chunks, live-beam
+compaction, bounding-box tiles and their halving, lattice codes with the
+bounds test folded in, and window origins for K2; gather tables with the
+bounds test folded in, integer code sums, the penalty after the sum and
+compaction by prefix count for K3. ``test_torch_kernel_twins.py`` holds
 them to the plain versions; they are slow and only the tests use them.
 """
 
+import numpy as np
 import torch
 
 from lidar_slam_tpu_torch.ops.cuda_edt import plan_band
 from lidar_slam_tpu_torch.ops.cuda_match import (LATTICE_BITS, plan,
                                                  tile_pitch, window_cells)
 from lidar_slam_tpu_torch.ops.edt import quantize_metric
+from lidar_slam_tpu_torch.ops.matching import MatchResult
 
 _INF_D2 = 1 << 20
 
@@ -174,3 +179,99 @@ def score_volume_twin(metric: torch.Tensor, cx0: torch.Tensor,
     if stats is not None:
         stats.update(blocks=blocks, pieces=pieces)
     return scores.reshape(lead + (t_bins, w, w))
+
+
+_F = np.float32
+
+
+def _roundf_like_np(v: np.ndarray) -> np.ndarray:
+    return np.trunc(v + np.sign(v) * _F(0.5))
+
+
+def _sincos32_np(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``core/trig32.sincos32`` in numpy float32, as the kernel computes it
+    (its constants are the module's)."""
+    from lidar_slam_tpu_torch.core import trig32 as t
+
+    x = x.astype(_F)
+    k = _roundf_like_np(x * _F(t._TWO_OVER_PI))
+    r = ((x - k * _F(t._PIO2_H1)) - k * _F(t._PIO2_H2)) - k * _F(t._PIO2_H3)
+    r2 = r * r
+    sp = (r2 * _F(t._S3) + _F(t._S2)) * r2 + _F(t._S1)
+    sinr = (sp * r2) * r + r
+    cp = (r2 * _F(t._C3) + _F(t._C2)) * r2 + _F(t._C1)
+    cosr = (cp * r2) * r2 + (_F(1.0) - r2 * _F(0.5))
+    q = np.remainder(k.astype(np.int32), 4)
+    sin = np.choose(q, [sinr, cosr, -sinr, -cosr])
+    cos = np.choose(q, [cosr, -sinr, -cosr, sinr])
+    return sin, cos
+
+
+def scan_match_twin(metric, grid, scan_x, scan_y, valid, pose, step_t,
+                    step_r, window_t=1, window_r=1,
+                    window_penalty_px=1.0) -> MatchResult:
+    """K3's algorithm in numpy: the candidates' coordinates and headings
+    once; for each (heading, x offset) a beam's clamped column or -1 (bounds
+    and valid folded in), for each (heading, y offset) its clamped row or
+    -1; each candidate's sum of integer lattice codes over the beams whose
+    two entries are >= 0 (a value off the lattice, or a sum that reaches
+    2^24, poisons its score with NaN); the penalty added after the sum; the
+    first minimum, NaN first; the last candidate's hits compacted by a prefix
+    count. The same result as ``fast_match_cuda``."""
+    m = metric.numpy()
+    s = m.shape[-1]
+    x, y, v = scan_x.numpy(), scan_y.numpy(), valid.numpy()
+    p, org = pose.numpy(), grid.origin.numpy()
+    n_rows, n_cols = int(grid.n_rows), int(grid.n_cols)
+    ipixel = _F(1.0 / grid.pixel)
+    nt, nr = 2 * window_t + 1, 2 * window_r + 1
+    n = x.shape[0]
+    tx = p[0] + np.arange(-window_t, window_t + 1).astype(_F) * _F(step_t)
+    ty = p[1] + np.arange(-window_t, window_t + 1).astype(_F) * _F(step_t)
+    th = p[2] + np.arange(-window_r, window_r + 1).astype(_F) * _F(step_r)
+    offx, offy = (tx - org[0]) * ipixel, (ty - org[1]) * ipixel
+    sin, cos = _sincos32_np(th)
+    px, py = x * ipixel, y * ipixel
+    sx = px[None] * cos[:, None] + py[None] * sin[:, None]         # (nr, N)
+    sy = (-px)[None] * sin[:, None] + py[None] * cos[:, None]
+    cx = _roundf_like_np(sx[:, None] + offx[None, :, None]).astype(np.int32) + 1
+    cy = _roundf_like_np(sy[:, None] + offy[None, :, None]).astype(np.int32) + 1
+    tab_x = np.where(v & (cx > 1) & (cx < n_cols), np.clip(cx - 1, 0, s - 1),
+                     -1).astype(np.int16)                        # (nr, nt, N)
+    tab_y = np.where((cy > 1) & (cy < n_rows), np.clip(cy - 1, 0, s - 1),
+                     -1).astype(np.int16)
+    ix = np.broadcast_to(tab_x[:, :, None], (nr, nt, nt, n)).reshape(-1, n)
+    iy = np.broadcast_to(tab_y[:, None, :], (nr, nt, nt, n)).reshape(-1, n)
+    hit = (ix.astype(np.int32) | iy) >= 0                          # (C, N)
+    vals = np.where(hit, m[np.maximum(iy, 0), np.maximum(ix, 0)], _F(0))
+    scaled = vals * _F(1024.0)
+    with np.errstate(invalid="ignore"):
+        codes = np.clip(np.where(np.isfinite(scaled), scaled, -1), -1,
+                        2.0 ** 31).astype(np.int64)
+    bad = hit & ((codes.astype(_F) != scaled) | (codes < 0))
+    sums = np.where(hit, np.maximum(codes, 0), 0).sum(axis=1)
+    bad = bad.any(axis=1) | (sums >= 1 << 24)
+    counts = hit.sum(axis=1).astype(np.int32)
+    scores = np.where(bad, _F(np.nan),
+                      sums.astype(_F) * _F(2.0 ** -10)).astype(_F)
+    if window_t > 1 or window_r > 1:
+        et = np.maximum(np.abs(np.arange(-window_t, window_t + 1)) - 1,
+                        0).astype(_F)
+        er = np.maximum(np.abs(np.arange(-window_r, window_r + 1)) - 1,
+                        0).astype(_F)
+        excess = ((er[:, None, None] + et[None, :, None])
+                  + et[None, None, :]).reshape(-1)
+        scores = scores + _F(window_penalty_px) * excess
+    nan = np.isnan(scores)
+    best = int(np.argmax(nan)) if nan.any() else int(np.argmin(scores))
+    h, i, j = best // (nt * nt), (best // nt) % nt, best % nt
+    last = hit[-1]
+    slot = np.cumsum(last) - 1          # hits before each beam: its slot
+    last_hits = np.zeros(n, _F)
+    last_hits[slot[last]] = vals[-1][last]
+    return MatchResult(pose=torch.as_tensor(np.asarray([tx[i], ty[j], th[h]],
+                                                       _F)),
+                       score=torch.as_tensor(scores[best]),
+                       best_count=torch.as_tensor(counts[best]),
+                       last_hits=torch.as_tensor(last_hits),
+                       last_inb=torch.as_tensor(last))

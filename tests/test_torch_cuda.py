@@ -7,13 +7,16 @@ does not have, so run them there without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
 
-from _kernel_cases import (K1_CASES, K2_CASES, batch_prefix, k1_case,
-                           k2_case, sparse_chunk_case, to_device)
-from _kernel_twins import edt_twin
+from _kernel_cases import (K1_CASES, K2_CASES, K3_CASES, batch_prefix,
+                           grid_to, k1_case, k2_case, k3_case,
+                           sparse_chunk_case, to_device)
+from _kernel_twins import edt_twin, scan_match_twin
 
 pytestmark = pytest.mark.cuda
 
@@ -1689,3 +1692,129 @@ def test_span_costs_at_most_half_a_microsecond_off(cuda):
     print(f"span with no profiler: {rounds[0] * 1e6:.3f} us a call "
           f"(median round {rounds[10] * 1e6:.3f} us)")
     assert rounds[0] <= 0.5e-6
+
+
+# -- K3, the matcher: one launch a fast_match call ----------------------------
+def _k3_on(args, device):
+    metric, grid, *rest = args
+    return (metric.to(device), grid_to(grid, device),
+            *(a.to(device) if isinstance(a, torch.Tensor) else a
+              for a in rest))
+
+
+def _match_equal(got, want):
+    from lidar_slam_tpu_torch.ops.matching import MatchResult
+
+    return all(torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu())
+               for f in MatchResult._fields)
+
+
+@pytest.mark.parametrize("name", list(K3_CASES))
+def test_k3_cases_equal_plain(cuda, name):
+    """K3 == the plain version on the card and on the CPU, and == its twin,
+    every field with ``torch.equal``: windows +-1 and +-2 with the penalty,
+    exact ties (the first minimum wins), an all-invalid scan and a guess
+    whose candidates all leave the grid."""
+    from lidar_slam_tpu_torch.ops import cuda_scan_match, matching
+
+    args = k3_case(name)
+    dargs = _k3_on(args, cuda)
+    before = cuda_scan_match.launches
+    got = matching.fast_match(*dargs)
+    torch.cuda.synchronize()
+    assert cuda_scan_match.launches == before + 1
+    assert _match_equal(got, matching.fast_match_plain(*dargs))
+    assert _match_equal(got, matching.fast_match_plain(*args))
+    assert _match_equal(got, scan_match_twin(*args))
+
+
+def test_k3_equals_plain_over_museum_steps(cuda, monkeypatch):
+    """200 eager museum steps on the card: each of the 398 matcher calls
+    (coarse and fine fields, the guesses and first-stage poses the run
+    makes) gives K3's result == the plain version's on the same inputs."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import scan_matcher
+    from lidar_slam_tpu_torch.ops import matching
+
+    real = matching.fast_match
+    calls = {"n": 0, "sizes": set()}
+
+    def both(*args, **kw):
+        got = real(*args, **kw)
+        assert _match_equal(got, matching.fast_match_plain(*args, **kw)), \
+            calls["n"]
+        calls["n"] += 1
+        calls["sizes"].add(args[0].shape[-1])
+        return got
+
+    monkeypatch.setattr(matching, "fast_match", both)
+    ranges, _ = simulate.generate_dataset(200, seed=1)
+    cfg = DEFAULT_CONFIG
+    angles = scan_matcher.angles_tensor(cfg, cuda)
+    state = scan_matcher.init_state(torch.as_tensor(ranges[0], device=cuda),
+                                    cfg)
+    for t in range(1, 200):
+        state, _ = scan_matcher.slam_step(
+            state, torch.as_tensor(ranges[t], device=cuda), cfg, angles)
+    assert calls["n"] == 2 * 199
+    assert calls["sizes"] == {cfg.grid.coarse_size, cfg.grid.fine_size}
+
+
+def test_k3_poisons_a_field_off_the_lattice(cuda):
+    """A gathered value off the 2^-10 lattice, or a candidate whose codes
+    sum to 2^24 or more, gives a NaN score, as the twin does; a field lifted
+    past ``max_dist_px`` whose sums stay just under 2^24 gives the plain
+    version's result."""
+    from lidar_slam_tpu_torch.ops import matching
+
+    args = k3_case("coarse-200")
+    for bad in (args[0] + 2.0 ** -12, args[0] + 2.0 ** 14):
+        bargs = (bad,) + args[1:]
+        got = matching.fast_match(*_k3_on(bargs, cuda))
+        twin = scan_match_twin(*bargs)
+        assert torch.isnan(got.score.cpu()) and torch.isnan(twin.score)
+        # torch.equal holds no NaN equal to a NaN: the score is checked above
+        zero = torch.zeros(())
+        assert _match_equal(got._replace(score=zero), twin._replace(score=zero))
+    lifted = (args[0] + 6.375,) + args[1:]
+    assert _match_equal(matching.fast_match(*_k3_on(lifted, cuda)),
+                        matching.fast_match_plain(*lifted))
+
+
+def test_fast_match_is_one_kernel_on_the_card(cuda):
+    """A ``fast_match`` call on the card runs one kernel, K3's, and no
+    PyTorch kernel, copy or memset."""
+    from lidar_slam_tpu_torch.ops import matching
+
+    args = k3_case("fine-400")
+    dargs = _k3_on(args, cuda)
+    matching.fast_match(*dargs)   # built and loaded
+    _, _, events = _profiled_on_the_card(lambda: matching.fast_match(*dargs))
+    device = [name for name, on_device, _, _ in events if on_device]
+    assert len(device) == 1 and "scan_match_kernel" in device[0], device
+
+
+def test_run_scan_books_two_k3_launches_a_scan(cuda):
+    """A fidelity ``run_scan`` of T scans books 2 (T - 1) K3 launches: two
+    a scan from scan 1 on (the eager scan 1, then the captured step's IF
+    arms and second match, counted at ``finish``), at the coarse and the
+    fine field's shapes; its path equals the CPU's."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import scan_matcher
+    from lidar_slam_tpu_torch.ops import cuda_scan_match
+
+    t = 50
+    ranges, _ = simulate.generate_dataset(t, seed=3)
+    cfg = DEFAULT_CONFIG
+    before = cuda_scan_match.launches
+    shapes = collections.Counter(cuda_scan_match.launches_by_shape)
+    gpu, _ = scan_matcher.run_scan(ranges, cfg, device=cuda)
+    assert cuda_scan_match.launches - before == 2 * (t - 1)
+    added = cuda_scan_match.launches_by_shape - shapes
+    n = cfg.lidar.n_beams
+    assert set(added) == {(27, n, cfg.grid.coarse_size),
+                          (27, n, cfg.grid.fine_size)}
+    cpu, _ = scan_matcher.run_scan(ranges, cfg, device="cpu")
+    assert torch.equal(gpu.cpu(), cpu)

@@ -1,24 +1,27 @@
-"""The index math of kernels K1 and K2, held to their plain versions on the
-CPU.
+"""The index math of kernels K1, K2 and K3, held to their plain versions on
+the CPU.
 
-A CUDA kernel cannot run here, so each kernel has a twin in plain PyTorch
-that repeats its index math step by step (``_kernel_twins.edt_twin``,
-``_kernel_twins.score_volume_twin``): bit-packed rows, bit-scan distances
-and row bands for K1; beam chunks, live-beam compaction, bounding-box tiles
-and their halving, lattice codes with the bounds test folded in, and window
-origins for K2. The twins must equal the plain versions exactly at the main
-paths' shapes and at the edges; ``test_torch_cuda.py`` holds the kernels
-themselves to the same cases on the card.
+A CUDA kernel cannot run here, so each kernel has a twin that repeats its
+index math step by step (``_kernel_twins.edt_twin``,
+``_kernel_twins.score_volume_twin``, ``_kernel_twins.scan_match_twin``):
+bit-packed rows, bit-scan distances and row bands for K1; beam chunks,
+live-beam compaction, bounding-box tiles and their halving, lattice codes
+with the bounds test folded in, and window origins for K2; gather tables,
+integer code sums, the penalty after the sum, the first minimum and the
+prefix-count compaction for K3. The twins must equal the plain versions
+exactly at the main paths' shapes and at the edges; ``test_torch_cuda.py``
+holds the kernels themselves to the same cases on the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _kernel_cases import (K1_CASES, K2_CASES, batch_prefix, k1_case,
-                           k2_case, sparse_chunk_case)
-from _kernel_twins import edt_twin, score_volume_twin
-from lidar_slam_tpu_torch.ops import correlative, cuda_edt, cuda_match
+from _kernel_cases import (K1_CASES, K2_CASES, K3_CASES, batch_prefix,
+                           k1_case, k2_case, k3_case, sparse_chunk_case)
+from _kernel_twins import edt_twin, scan_match_twin, score_volume_twin
+from lidar_slam_tpu_torch.ops import (correlative, cuda_edt, cuda_match,
+                                      cuda_scan_match, matching)
 from lidar_slam_tpu_torch.ops.edt import edt_clamped
 
 torch.set_num_threads(2)
@@ -197,3 +200,100 @@ def test_cascade_passes_each_levels_lattice(monkeypatch):
         codes = vol.scores * 2.0 ** (10 + lvl)
         assert torch.equal(codes, codes.round())
         assert f == 1 or vol.scores.abs().sum() > 0
+
+
+def _assert_match_equal(got, want):
+    for f in matching.MatchResult._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("name", list(K3_CASES))
+def test_k3_twin_equals_plain(name):
+    """K3's algorithm (integer code sums, first minimum after the penalty,
+    compaction by prefix count) == ``fast_match_plain``, field by field, on
+    lattice fields at windows +-1 and +-2, with ties, an all-invalid scan
+    and a guess whose candidates all leave the grid."""
+    args = k3_case(name)
+    got = scan_match_twin(*args)
+    want = matching.fast_match_plain(*args)
+    _assert_match_equal(got, want)
+    if name.startswith("tie-flat"):
+        # every candidate keeps its beams on the grid: the first of the
+        # candidates without a penalty wins
+        wt = args[8]
+        first = matching.candidate_grid_ref(args[5], *args[6:10])[
+            0 if wt == 1 else (wt - 1) * (2 * wt + 1) ** 2
+            + (wt - 1) * (2 * wt + 1) + wt - 1]
+        assert torch.equal(want.pose, first)
+        assert int(want.best_count) == int(args[4].sum())
+    if name in ("all-invalid", "off-grid"):
+        assert int(want.best_count) == 0 and float(want.score) == 0.0
+        assert not want.last_hits.any() and not want.last_inb.any()
+
+
+def test_k3_twin_poisons_a_field_off_the_lattice():
+    """A gathered value off the 2^-10 lattice, or a candidate whose codes
+    sum to 2^24 or more, turns that candidate's score into NaN, which wins
+    the argmin as ``torch.argmin`` takes a NaN."""
+    args = k3_case("coarse-200")
+    assert not torch.isnan(scan_match_twin(*args).score)
+    for bad in (args[0] + 2.0 ** -12, args[0] + 2.0 ** 14):
+        got = scan_match_twin(bad, *args[1:])
+        assert torch.isnan(got.score)
+
+
+@pytest.mark.parametrize("lift", [5.0, 6.375])
+def test_k3_twin_sums_exact_below_two_to_the_24(lift):
+    """The exactness bound is the sum's, not the field's clamp: a field
+    lifted past ``max_dist_px`` (values up to 15, or up to 16.375, where the
+    codes of the case's 1000 valid beams sum to at most 16,768,000, just
+    under 2^24) still gives ``fast_match_plain``'s result, since every
+    partial sum of non-negative codes below 2^24 is exact in float32."""
+    args = k3_case("coarse-200")
+    lifted = args[0] + lift
+    got = scan_match_twin(lifted, *args[1:])
+    want = matching.fast_match_plain(lifted, *args[1:])
+    assert not torch.isnan(got.score)
+    assert float(lifted.max()) > 10.0
+    _assert_match_equal(got, want)
+
+
+def test_fast_match_on_the_cpu_never_reaches_the_kernel(monkeypatch):
+    """CPU tensors take the plain version: neither the wrapper nor the
+    kernel library is touched, and no launch is counted, in ``fast_match``
+    and in the captured fidelity step's CPU run."""
+    from lidar_slam_tpu_torch import _build
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import scan_matcher
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the CPU path reached the kernel")
+
+    monkeypatch.setattr(cuda_scan_match, "fast_match_cuda", refuse)
+    monkeypatch.setattr(_build, "load_kernels", refuse)
+    before = (cuda_scan_match.launches,
+              dict(cuda_scan_match.launches_by_shape))
+    args = k3_case("wide-256")
+    _assert_match_equal(matching.fast_match(*args),
+                        matching.fast_match_plain(*args))
+    ranges, _ = simulate.generate_dataset(6, seed=1)
+    path, _ = scan_matcher.run_scan(ranges, DEFAULT_CONFIG, device="cpu")
+    assert path.shape == (6, 3)
+    assert (cuda_scan_match.launches,
+            dict(cuda_scan_match.launches_by_shape)) == before
+
+
+def test_k3_smem_fits_the_main_paths():
+    """The kernel's shared memory at the main paths' windows: +-1 and +-2
+    at 1079 beams fit a block of the cluster (one heading each), and so do
+    +-4 (two headings a block past the cluster's 8); a window whose one
+    heading's tables cannot fit is refused, as are CPU tensors."""
+    for w in (1, 2, 4):
+        assert cuda_scan_match.smem_bytes(w, w, 1079) <= cuda_match.SMEM_BYTES
+    assert cuda_scan_match.smem_bytes(20, 3, 1079) > cuda_match.SMEM_BYTES
+    args = k3_case("coarse-200")
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_scan_match.fast_match_cuda(*args[:8], 20, 3, 4.0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_scan_match.fast_match_cuda(*args)
