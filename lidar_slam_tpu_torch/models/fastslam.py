@@ -26,6 +26,11 @@ Random numbers come from the ``torch.Generator`` carried in the state;
 ``pf_step`` also takes ``draws=(noise, u0)`` so a test can feed both
 packages the same proposal noise and resampling offset.
 
+While a profiler runs, ``run_pf`` is one ``session`` span, each captured
+step's draws and their copies into its static buffers are a ``pf.draw``
+span, and the counter ``pf.refreshes`` gets the run's keyframe refreshes
+(``PfStepFn.refreshes``).
+
 A step may hold only a block of the particles (``parallel/sharded.py``):
 its ``rows`` hook gathers a per-particle tensor from every block and slices
 this block's rows back out. Every cross-particle value (the mean, the ESS,
@@ -52,6 +57,7 @@ from lidar_slam_tpu_torch.ops import correlative
 from lidar_slam_tpu_torch.ops import edt as edt_ops
 from lidar_slam_tpu_torch.ops import matching
 from lidar_slam_tpu_torch.utils import graphs
+from lidar_slam_tpu_torch.utils.profiling import SPANS, session, span
 
 
 class ParticleState(NamedTuple):
@@ -311,7 +317,8 @@ class PfStepFn:
     nothing on the host (the state's ``mini_updated`` is the device test;
     ``finish`` reads it back with the arm's launch count); ``step(...)``
     also reads the estimate and the test in one 16-byte device->host copy.
-    Scan 1 (``state.step == 1``) runs eagerly.
+    Scan 1 (``state.step == 1``) runs eagerly. ``refreshes()`` counts the
+    keyframe refreshes the step has run.
 
     The returned state's tensors are the step's static buffers, valid until
     the next call, which takes the state back; a state the step did not
@@ -348,6 +355,16 @@ class PfStepFn:
         self.state: ParticleState | None = None   # the state last returned
         self.pose: torch.Tensor | None = None
         self.scan: sensor.Scan | None = None
+        # refreshes that no captured arm counts: scan 1's, which runs
+        # eagerly, and on the CPU, where nothing is captured, the arm's
+        self._host_refreshes = 0
+
+    def refreshes(self) -> int:
+        """The keyframe refreshes this step has run: scan 1's and the
+        refresh arm's. On the card the arm's come from its launch counter,
+        read back by the last ``finish`` (or ``graphs.fetch``)."""
+        return self._host_refreshes + sum(arm.settled
+                                          for arm in self.graphs.arms)
 
     def __call__(self, state: ParticleState, ranges: torch.Tensor,
                  draws=None) -> tuple[ParticleState, np.ndarray]:
@@ -381,6 +398,7 @@ class PfStepFn:
         state, self.pose = pf_step(state, ranges, self.cfg, self.angles,
                                    draws, self.edt_fn, self.rows)
         self.scan = None
+        self._host_refreshes += 1     # scan 1 always refreshes
         return state
 
     def _replay(self, state: ParticleState, ranges: torch.Tensor,
@@ -389,14 +407,19 @@ class PfStepFn:
             self._load(state)
         b = self.bufs
         b.ranges.copy_(ranges, non_blocking=True)
-        if draws is None:
-            noise, u0 = draw(state, self.cfg.particles.n_particles)
-            b.noise.copy_(noise)
-            b.u0.copy_(u0)
-        else:
-            graphs.upload(b.noise, np.asarray(draws[0], np.float32))
-            graphs.upload(b.u0, np.asarray(draws[1], np.float32))
+        # eager launches outside the graph: a span that encloses device
+        # work, so not in kineto's trace
+        with span("pf.draw"):
+            if draws is None:
+                noise, u0 = draw(state, self.cfg.particles.n_particles)
+                b.noise.copy_(noise)
+                b.u0.copy_(u0)
+            else:
+                graphs.upload(b.noise, np.asarray(draws[0], np.float32))
+                graphs.upload(b.u0, np.asarray(draws[1], np.float32))
         self.graphs.run("step", self._body, b)
+        if not self.graphs.capturing:     # the CPU ran the arm if it held
+            self._host_refreshes += int(bool(b.head.test))
         self.state = b.head.state._replace(step=state.step + 1,
                                            mini_updated=b.head.test,
                                            rng=state.rng)
@@ -456,15 +479,19 @@ def run_pf(ranges_all: np.ndarray, cfg: SlamConfig, seed: int = 0,
     """Whole-dataset particle-filter run through ``make_pf_step``, scans
     2.. with no host sync and one read at the end. ``draws``, if given, is
     a sequence of per-step ``(noise, u0)`` pairs for steps 1..T-1. Returns
-    (path (T, 3) on ``device``, final state)."""
-    ranges = torch.as_tensor(np.asarray(ranges_all, np.float32),
-                             device=resolve_device(device))
-    step = make_pf_step(cfg, ranges.device)
-    state = init_particles(ranges[0], cfg, seed)
-    path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32,
-                       device=ranges.device)
-    for t in range(1, ranges.shape[0]):
-        state = step.advance(state, ranges[t],
-                             None if draws is None else draws[t - 1])
-        path[t] = step.pose
-    return path, graphs.clone_tree(step.finish(state))
+    (path (T, 3) on ``device``, final state). The call is one ``session``
+    span; its keyframe refreshes go to the counter ``pf.refreshes``."""
+    with session("run_pf", device):
+        ranges = torch.as_tensor(np.asarray(ranges_all, np.float32),
+                                 device=resolve_device(device))
+        step = make_pf_step(cfg, ranges.device)
+        state = init_particles(ranges[0], cfg, seed)
+        path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32,
+                           device=ranges.device)
+        for t in range(1, ranges.shape[0]):
+            state = step.advance(state, ranges[t],
+                                 None if draws is None else draws[t - 1])
+            path[t] = step.pose
+        state = graphs.clone_tree(step.finish(state))
+        SPANS.count("pf.refreshes", step.refreshes())
+        return path, state

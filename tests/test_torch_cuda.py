@@ -1818,3 +1818,48 @@ def test_run_scan_books_two_k3_launches_a_scan(cuda):
                           (27, n, cfg.grid.fine_size)}
     cpu, _ = scan_matcher.run_scan(ranges, cfg, device="cpu")
     assert torch.equal(gpu.cpu(), cpu)
+
+
+def test_fresh_run_pf_records_its_session_draws_and_refreshes(cuda):
+    """A fresh ``run_pf`` on the card is one ``session`` span tagged
+    ``run_pf``: it captures its step once and replays it once a scan after
+    scan 1, each replay after a ``pf.draw`` span, and counts its keyframe
+    refreshes in ``pf.refreshes``, as many as the K1 launches it books (scan
+    1's and the refresh arm's, read back at ``finish``); unprofiled, the
+    same run gives the same path bit for bit."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import fastslam
+    from lidar_slam_tpu_torch.ops import cuda_edt
+
+    n = 60
+    ranges, _ = simulate.generate_dataset(n, seed=3)
+    before = cuda_edt.launches
+    out = {}
+    spans, counters, _ = _profiled_on_the_card(lambda: out.setdefault(
+        "gpu", fastslam.run_pf(ranges, DEFAULT_CONFIG, device=cuda)))
+    assert [s.tag for s in spans if s.name == "session"] == ["run_pf"]
+    assert [s.tag for s in spans if s.name == "graphs.capture"] == ["step"]
+    assert len([s for s in spans if s.name == "graphs.replay"]) == n - 2
+    assert len([s for s in spans if s.name == "pf.draw"]) == n - 2
+    assert counters["pf.refreshes"] == cuda_edt.launches - before >= 3
+    assert counters["alloc.segments"] >= 0
+    again, _ = fastslam.run_pf(ranges, DEFAULT_CONFIG, device=cuda)
+    assert torch.equal(out["gpu"][0], again)
+
+
+def test_pf_cell_equals_its_reference_on_the_card(cuda):
+    """The benchmark's PF-1024 cell, cut to 150 scans: the program's
+    session on the card equals the plain reference run on the card from the
+    same seed, on every number the cell compares (limit 0)."""
+    from slambench import harness
+    from slambench.tests._small import small_cell
+
+    cell = small_cell("museum-pf1024.replay", scans=150)
+    system = harness.system_module("pf")
+    ranges, _ = harness.make_tour(cell.config, 2718281828)
+    out = system.to_host(system.Program(cell.config, "cuda").replay(ranges))
+    ref = system.reference(cell.config, ranges, "cuda", outputs=[out])
+    checks = system.compare(cell.config, [out], ref)
+    assert all(v <= lim for _, v, lim in checks), checks
+    assert ref["refreshes"] >= 3 and ref["resamples"] >= 1
