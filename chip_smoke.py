@@ -30,14 +30,15 @@ parallel layer on an NCCL world of one) and checks the results:
    step as one CUDA graph whose branches are conditional nodes,
    ``utils/graphs.py``; no host sync after scan 1): trajectory
    bit-identical to the C++ oracle, K3 launched twice a scan after scan 0;
-6. PF-1024, museum-1000, captured (``run_pf``): ATE < 0.15 m; then 100
-   scans on the card and on the CPU with the same numpy-made draws, max
-   |pose difference| <= 1e-3;
+6. PF-1024, museum-1000, captured (``run_pf``): ATE < 0.15 m, K4
+   launched twice a scan after scan 0; then 100 scans on the card and on
+   the CPU with the same numpy-made draws, max |pose difference| <= 1e-3;
    6b. PF-10240, museum-1000 (bench.py's stage_pf10240), captured: ATE <
-   0.15 m;
+   0.15 m, K4 launched twice a scan after scan 0;
    6c. captured against eager on museum-1000: the eager loops (``slam_step``
    / ``pf_step`` a scan, seed 0) equal phases 5 and 6 (``np.array_equal``)
-   with the same K1/K2/K3 launches by shape; for each of the four drivers
+   with the same K1-K4 launches by shape (K4 twice a scan after scan 0 in
+   the PF's); for each of the four drivers
    scans/s over the tour, and over scans 101-150 under the profiler and the
    sync debug mode device ops, device time and host syncs a scan and the
    busy share (the captured steps through ``advance``, no host read); the
@@ -60,7 +61,14 @@ parallel layer on an NCCL world of one) and checks the results:
    equals K2; K3 (the matcher) on the museum keyframe's coarse 200^2 and
    fine 400^2 fields, N = 1079, +-1, every field of its result equal to
    ``fast_match_plain``'s (max |kernel - plain| over its float fields
-   printed), timed the same way;
+   printed), timed the same way; K4 (the volume lookups) at the PF's
+   1024 particles and its estimate's 3 x 27 refinement on cascades of 1-3
+   levels of the museum field, at 10240 particles, at the building's 13
+   bins, at the dry run's 8 particles (5 bins, 9^2 window) and its
+   refinement, and at the closure match's (8, 27) passes and (8, 1)
+   inlier lookup, each ``torch.equal`` to its plain version (max
+   |kernel - plain| printed) and timed the same way, and at the closure
+   match's partial batches B = 1..7 of both, held equal and timed;
 8. graph SLAM, loop-700, captured (``GraphSlam.run`` over
    ``scan_matcher.make_step_fn``, and its backend's keyframe rasters,
    closure matching, fine refinement and optimize as CUDA graphs; phases
@@ -248,13 +256,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 K1_SOURCE = "lidar_slam_tpu_torch/csrc/edt.cu"
 K2_SOURCE = "lidar_slam_tpu_torch/csrc/corr_volume.cu"
 K3_SOURCE = "lidar_slam_tpu_torch/csrc/scan_match.cu"
+K4_SOURCE = "lidar_slam_tpu_torch/csrc/vol_lookup.cu"
 K1_REPLACES = "lidar_slam_tpu/ops/pallas_edt.py:119"
 K2_REPLACES = "lidar_slam_tpu/ops/pallas_match.py:120"
 K3_REPLACES = "none: ops/matching.fast_match's plain tensor code"
+K4_REPLACES = "none: ops/correlative's plain lookups (lookup_cascade, ...)"
 # substrings of the kernels' names in a profiler trace
 K1_KERNEL = "edt_"
 K2_KERNEL = "corr_volume"
 K3_KERNEL = "scan_match"
+K4_KERNEL = "vol_"
 
 PF_ATE_MAX = 0.15          # m, the pin of tests/test_fastslam.py
 CPU_CUDA_MAX_DIFF = 1e-3   # max |pose difference|, injected draws
@@ -351,7 +362,8 @@ def _wedging_pf_worker(run_dir, ranges, cfg, seed, ckpt_every, device,
     ``launches_<attempt>.json`` in the run directory (the first just before
     it wedges). Module-level, so a spawned child can import it."""
     from lidar_slam_tpu_torch.models import fastslam
-    from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match, cuda_scan_match
+    from lidar_slam_tpu_torch.ops import (cuda_edt, cuda_match,
+                                          cuda_scan_match, cuda_vol_lookup)
     from lidar_slam_tpu_torch.utils import watchdog
 
     attempt = 1 + sum(f.startswith("attempt_") for f in os.listdir(run_dir))
@@ -362,7 +374,8 @@ def _wedging_pf_worker(run_dir, ranges, cfg, seed, ckpt_every, device,
             json.dump({key: [[list(k), v] for k, v in
                              mod.launches_by_shape.items()]
                        for key, mod in (("K1", cuda_edt), ("K2", cuda_match),
-                                        ("K3", cuda_scan_match))},
+                                        ("K3", cuda_scan_match),
+                                        ("K4", cuda_vol_lookup))},
                       f)
 
     if attempt == 1:
@@ -1133,6 +1146,102 @@ def k3_shape_row(label, metric, grid, scan, pose, step_t, step_r,
              "adds": n_adds, "bytes": n_bytes}, err)
 
 
+def k4_diff(got, want) -> float:
+    """max |kernel - plain| over K4's float outputs, NaN-aware: the NaN
+    masks must be equal, and the NaNs count 0."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        if not g.is_floating_point():
+            continue
+        nan = torch.isnan(w)
+        require(torch.equal(torch.isnan(g), nan), "K4's NaNs differ from "
+                "the plain version's")
+        if g.numel():
+            err = max(err, float(torch.where(nan, 0.0, g - w).abs().max()))
+    return err
+
+
+def k4_shape_row(label, vols, poses, mode, offs=None, tag="7"
+                 ) -> tuple[dict, float]:
+    """The row for K4 at one shape, and its max |kernel - plain| over dist
+    or the refined pose (``k4_diff``): its result ``torch.equal`` to the
+    plain version's (``mode`` "cascade": dist and escape mask; "distance":
+    one level's dist; "refine": three passes over ``poses`` (3,) +
+    ``offs``); its device time (a CUDA graph of raw launches), the profiler's kernel
+    row, the wrapper's and the plain version's times (plain, kernel,
+    kernel, plain) and the bound: the poses, every level's two volumes and
+    bases, and the outputs once, at 3.35 TB/s."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops import correlative, cuda_vol_lookup
+
+    dev = poses.device
+    b = vols[0].scores.shape[0] if vols[0].scores.dim() == 4 else 1
+    if mode == "refine":
+        plain = lambda: correlative.refine_estimate_plain(  # noqa: E731
+            vols, poses, offs)
+        wrap = lambda: correlative.refine_estimate(  # noqa: E731
+            vols, poses, offs)
+        out = (torch.empty(3, device=dev),)
+        raw = lambda: cuda_vol_lookup.launch_refine(  # noqa: E731
+            vols, poses, offs, out[0])
+        k = offs.shape[0]
+    else:
+        if mode == "cascade":
+            plain = lambda: correlative.lookup_cascade_plain(  # noqa: E731
+                vols, poses)
+            wrap = lambda: correlative.lookup_cascade(  # noqa: E731
+                vols, poses)
+        else:
+            plain = lambda: (  # noqa: E731
+                correlative.lookup_avg_distance_plain(vols[0], poses),)
+            wrap = lambda: (  # noqa: E731
+                correlative.lookup_avg_distance(vols[0], poses),)
+        n = poses.numel() // 3
+        k = n // b
+        out = (torch.empty(n, device=dev),) + (
+            (torch.empty(n, dtype=torch.bool, device=dev),)
+            if mode == "cascade" else ())
+        raw = lambda: cuda_vol_lookup.launch(  # noqa: E731
+            vols, poses.reshape(n, 3), k, out[0],
+            out[1] if len(out) > 1 else None)
+    want = plain()
+    want = want if isinstance(want, tuple) else (want,)
+    got = wrap()
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    err = k4_diff(got, want)
+    for g, w in zip(got, want):
+        require(torch.equal(g, w), f"K4 differs from plain at {label} (max "
+                f"|difference| {err})")
+    device_ms = graph_time_ms(raw)
+    for o, w in zip(out, want):
+        require(torch.equal(o.view(w.shape), w), f"raw K4 differs at {label}")
+    prof_ms = profiler_kernel_ms(raw, K4_KERNEL)
+    p1, w1, w2, p2 = (cuda_time_ms(f, iters=50, warmup=5)
+                      for f in (plain, wrap, wrap, plain))
+    n_bytes = (poses.numel() * 4 + sum(
+        v.scores.numel() * 8 + v.base_pose.numel() * 4 for v in vols)
+        + sum(o.numel() * o.element_size() for o in out)
+        + (offs.numel() * 4 if offs is not None else 0))
+    bnd, by = bound_ms(n_bytes, 0)
+    t, w = vols[0].scores.shape[-3], vols[0].scores.shape[-1]
+    key = (b, k, t, w, len(vols), mode)
+    print(f"[{tag}] K4 {label}: device {device_ms * 1e3:.2f} us (CUDA graph "
+          f"of {GRAPH_LAUNCHES}; profiler kernel row "
+          f"{'n/a' if prof_ms is None else f'{prof_ms * 1e3:.2f}'} us); "
+          f"wrapper {w1 * 1e3:.1f} / {w2 * 1e3:.1f} us; plain "
+          f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us; bound {bnd * 1e3:.4f} us "
+          f"({by}: {n_bytes} B), {bnd / device_ms:.2%} of it reached; "
+          f"max |kernel - plain| {err}; library: none", flush=True)
+    return ({"shape": label, "key": key, "device_ms": device_ms,
+             "profiler_ms": prof_ms, "wrapper_ms": min(w1, w2),
+             "plain_ms": min(p1, p2), "bound_ms": bnd, "bound_by": by,
+             "library_ms": None, "bytes": n_bytes}, err)
+
+
 def parallel_phases(ctx) -> None:
     """Phases 19-23: the parallel layer on an NCCL world of one (one card:
     NCCL takes one rank a GPU, so every collective runs through the group
@@ -1611,7 +1720,8 @@ def main() -> int:
     from lidar_slam_tpu_torch.models.submap_graph_slam import SubmapGraphSlam
     from lidar_slam_tpu_torch.utils import paging
     from lidar_slam_tpu_torch.ops import (correlative, cuda_edt, cuda_match,
-                                          cuda_scan_match, landmarks)
+                                          cuda_scan_match, cuda_vol_lookup,
+                                          landmarks)
     from lidar_slam_tpu_torch.ops import edt as edt_ops
     from lidar_slam_tpu_torch.ops import scan_odometry
 
@@ -1774,7 +1884,8 @@ def main() -> int:
     phase_done("4b")
 
     # ---- 5. fidelity, museum-1000 (main path; counters start here)
-    counted = (("K1", cuda_edt), ("K2", cuda_match), ("K3", cuda_scan_match))
+    counted = (("K1", cuda_edt), ("K2", cuda_match), ("K3", cuda_scan_match),
+               ("K4", cuda_vol_lookup))
 
     def reset_counts():
         for _, mod in counted:
@@ -1793,8 +1904,16 @@ def main() -> int:
                     for k in used),
                 f"{title}: launches by shape do not add up")
         print(f"    launches by shape (K1: B,H,W; K2: B,T,half,S; K3: "
-              f"C,N,S): {path_counts[title]}", flush=True)
+              f"C,N,S; K4: B,K,T,W,levels,mode): {path_counts[title]}",
+              flush=True)
         return used
+
+    def require_k4_two_a_scan(title, used, n_scans):
+        """A PF run launches K4 twice a scan after scan 0: its particles'
+        lookup and its estimate's refinement."""
+        require(used["K4"] == 2 * (n_scans - 1),
+                f"{title} launched K4 {used['K4']} times, not two a scan "
+                f"after scan 0 ({n_scans} scans)")
 
     reset_counts()
     torch.cuda.synchronize()
@@ -1835,6 +1954,7 @@ def main() -> int:
     final_states["PF-1024 museum-1000"] = pstate
     require(used["K1"] > 0, "PF run launched K1 no time")
     require(used["K2"] > 0, "PF run launched K2 no time")
+    require_k4_two_a_scan("PF-1024 museum-1000", used, len(ppath))
     for k in used:
         launches[k] += used[k]
     require(np.isfinite(ppath).all(), "PF path has non-finite poses")
@@ -1878,6 +1998,7 @@ def main() -> int:
     final_states[title] = xstate
     require(used["K1"] > 0 and used["K2"] > 0,
             f"{title} launched K1 {used['K1']} / K2 {used['K2']} times")
+    require_k4_two_a_scan(title, used, len(xpath))
     require(np.isfinite(xpath).all(), f"{title} path is not finite")
     x_ate = ate(xpath, gt)
     require(x_ate < PF_ATE_MAX, f"{title} ATE {x_ate:.4f} m >= {PF_ATE_MAX}")
@@ -1911,6 +2032,9 @@ def main() -> int:
         require(eager_counts == path_counts[title],
                 f"{title}: launches by shape, eager {eager_counts} against "
                 f"captured {path_counts[title]}")
+        if title.startswith("PF"):
+            require_k4_two_a_scan(f"{title} eager", {
+                "K4": sum(eager_counts["K4"].values())}, len(epath))
         drivers[title] = {"eager": len(epath) / dt,
                           "graph": len(graph_path) / graph_seconds}
     reset_counts()
@@ -2029,9 +2153,9 @@ def main() -> int:
          (m512, cx13, cy13, scan.valid, 512, 512, half)),
         (f"B=8 T={lc.n_theta} half={lc.window_half} S={lc.raster_size} "
          f"(closures)", k2b_args)]
-    shape_rows = {"K1": [], "K2": [], "K3": []}
+    shape_rows = {"K1": [], "K2": [], "K3": [], "K4": []}
     # device time of one launch by the shape key of launches_by_shape
-    device_by_shape = {"K1": {}, "K2": {}, "K3": {}}
+    device_by_shape = {"K1": {}, "K2": {}, "K3": {}, "K4": {}}
     for label, occ in k1_cases:
         row, err = k1_shape_row(label, occ)
         k1_err = max(k1_err, err)
@@ -2110,6 +2234,119 @@ def main() -> int:
             device_by_shape["K3"][row["key"]] = row["device_ms"]
 
     k3_rows("7", cfg, state, scan, "")
+    # K4 at the lookups the main paths make: the PF's particles (1024 and
+    # 10240) and its estimate's refinement on cascades of 1-3 levels of the
+    # museum field (scan 120 around the keyframe's pose), on the building's
+    # 13 bins and on the dry run's 5 bins and 9^2 window (8 particles), and
+    # the closure match's batched passes and inlier lookup at B = 1..8
+    k4_err = 0.0
+    pc = pcfg.particles
+    rng4 = np.random.default_rng(4)
+    sig = np.asarray([pc.sigma_xy, pc.sigma_xy, pc.sigma_theta], np.float32)
+
+    def spread(base, n, scale):
+        return base + torch.as_tensor(
+            rng4.normal(0, 1, (n, 3)).astype(np.float32) * sig
+            * np.float32(scale), device=dev)
+
+    offs27 = torch.as_tensor(fastslam._OFFS27 * np.asarray(
+        [cfg.matcher.fine_t, cfg.matcher.fine_t, cfg.matcher.fine_r],
+        np.float32), device=dev)
+    k4_cases = []
+    for levels in (1, 2, 3):
+        vols4 = correlative.build_cascade(
+            fine_metric, fine_grid, scan.x, scan.y, scan.valid, state.pose,
+            n_theta=pc.vol_theta_bins, theta_step=cfg.matcher.fine_r,
+            half=half, levels=levels)
+        k4_cases.append((f"{pc.n_particles} particles T="
+                         f"{pc.vol_theta_bins} W={2 * half + 1} {levels} "
+                         f"level(s) (PF museum)", vols4,
+                         spread(state.pose, pc.n_particles, 3 * levels),
+                         "cascade", None))
+        k4_cases.append((f"refine 3 x 27 candidates, {levels} level(s) "
+                         f"(PF museum)", vols4, state.pose, "refine", offs27))
+    vol13 = [correlative.ScoreVolume(
+        scores=cuda_match.score_volume_cuda(m512, cx13, cy13, scan.valid,
+                                            512, 512, half),
+        counts=correlative.count_volume(cx13, cy13, scan.valid, 512, 512,
+                                        half),
+        base_pose=state.pose, theta_step=float(cfg.matcher.fine_r),
+        ipixel=float(np.float32(1.0 / cfg.grid.fine_pixel)), half=half)]
+    k4_cases.insert(1, (f"10240 particles T={pc.vol_theta_bins} W="
+                        f"{2 * half + 1} 1 level(s) (PF-10240 museum)",
+                        k4_cases[0][1], spread(state.pose, 10240, 3),
+                        "cascade", None))
+    vol5 = correlative.build_cascade(
+        fine_metric, fine_grid, scan.x, scan.y, scan.valid, state.pose,
+        n_theta=5, theta_step=cfg.matcher.fine_r, half=4, levels=1)
+    k4_cases += [
+        ("8 particles T=5 W=9 1 level (dry run)", vol5,
+         spread(state.pose, 8, 1), "cascade", None),
+        ("refine 3 x 27 candidates T=5 W=9 (dry run)", vol5, state.pose,
+         "refine", offs27),
+        (f"{pc.n_particles} particles T=13 W={2 * half + 1} 1 level "
+         f"(PF building)", vol13, spread(state.pose, pc.n_particles, 3),
+         "cascade", None),
+        ("refine 3 x 27 candidates T=13 (PF building)", vol13, state.pose,
+         "refine", offs27)]
+    volc = correlative.ScoreVolume(
+        scores=cuda_match.score_volume_cuda(*k2b_args),
+        counts=correlative.count_volume(ccx, ccy, cval, cgrid.n_rows,
+                                        cgrid.n_cols, lc.window_half),
+        base_pose=guesses, theta_step=float(lc.theta_step),
+        ipixel=float(np.float32(1.0 / lc.raster_pixel)),
+        half=lc.window_half)
+    steps0 = torch.as_tensor(np.asarray(
+        [lc.raster_pixel, lc.raster_pixel, lc.theta_step], np.float32),
+        device=dev)
+    cands = guesses[:, None, :] + torch.as_tensor(
+        graph_slam._OFFS27, device=dev) * steps0
+    wc = 2 * lc.window_half + 1
+    k4_cases += [
+        (f"B=8 x 27 candidates T={lc.n_theta} W={wc} (closure passes)",
+         [volc], cands, "distance", None),
+        (f"B=8 x 1 T={lc.n_theta} W={wc} counts as scores (closure inliers)",
+         [volc._replace(scores=volc.counts,
+                        counts=torch.ones_like(volc.counts))],
+         guesses[:, None, :].contiguous(), "distance", None)]
+    for label, vols4, poses4, mode, offs4 in k4_cases:
+        row, err = k4_shape_row(label, vols4, poses4, mode, offs4)
+        k4_err = max(k4_err, err)
+        shape_rows["K4"].append(row)
+        device_by_shape["K4"][row["key"]] = row["device_ms"]
+    # the closure match's partial batches (B < 8): its passes over (B, 27)
+    # candidates and its inlier lookup over (B, 1), each held to the plain
+    # version through the wrapper and as a raw launch
+    for what, vol_b, poses_b in (
+            ("closure passes", volc, cands),
+            ("closure inliers", volc._replace(
+                scores=volc.counts, counts=torch.ones_like(volc.counts)),
+             guesses[:, None, :].contiguous())):
+        sweep = {}
+        for b in range(1, 8):
+            vb = vol_b._replace(scores=vol_b.scores[:b].contiguous(),
+                                counts=vol_b.counts[:b].contiguous(),
+                                base_pose=vol_b.base_pose[:b].contiguous())
+            pb = poses_b[:b].contiguous()
+            kb = pb.shape[1]
+            want = correlative.lookup_avg_distance_plain(vb, pb)
+            got = correlative.lookup_avg_distance(vb, pb)
+            torch.cuda.synchronize()
+            err = k4_diff((got,), (want,))
+            k4_err = max(k4_err, err)
+            require(torch.equal(got, want), f"K4 differs from plain at "
+                    f"{what} B={b} (max |difference| {err})")
+            out = torch.empty(b * kb, device=dev)
+            sweep[b] = graph_time_ms(lambda: cuda_vol_lookup.launch(  # noqa: B023
+                [vb], pb.view(b * kb, 3), kb, out, None))
+            require(torch.equal(out.view(b, kb), want),
+                    f"raw K4 differs at {what} B={b}")
+            device_by_shape["K4"][(b, kb, lc.n_theta, wc, 1, "distance")] = \
+                sweep[b]
+        print(f"[7] K4 {what} (B,{poses_b.shape[1]},{lc.n_theta},{wc},1,"
+              f"distance) == plain at B=1..7; device us by B: " + ", ".join(
+                  f"{b}: {t * 1e3:.2f}" for b, t in sweep.items()),
+              flush=True)
     print("[7] order of each wrapper/plain pair: plain, kernel, kernel, "
           "plain; device time and bound are per launch", flush=True)
     # the partial batches the closure and refine passes end on (B < 8):
@@ -2976,7 +3213,7 @@ def main() -> int:
     require(np.array_equal(spf, ppath),
             f"{title}: resumed path differs from phase 6's run_pf: max "
             f"{np.abs(spf - ppath).max()}")
-    counts = {"K1": {}, "K2": {}, "K3": {}}
+    counts = {"K1": {}, "K2": {}, "K3": {}, "K4": {}}
     for attempt in (1, 2):
         with open(os.path.join(run_dir, f"launches_{attempt}.json")) as f:
             for key, rows in json.load(f).items():
@@ -3172,7 +3409,8 @@ def main() -> int:
             ("K1", "K1 clamped EDT", K1_SOURCE, K1_REPLACES, k1_err),
             ("K2", "K2 correlation volume", K2_SOURCE, K2_REPLACES, k2_err),
             ("K3", "K3 correlative matcher", K3_SOURCE, K3_REPLACES,
-             k3_err)):
+             k3_err),
+            ("K4", "K4 volume lookups", K4_SOURCE, K4_REPLACES, k4_err)):
         head = shape_rows[key][1 if key == "K1" else 0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -3189,7 +3427,7 @@ def main() -> int:
     # launches by shape times phase 7's device time of that shape
     for p, counts in path_counts.items():
         parts = []
-        for key in ("K1", "K2", "K3"):
+        for key in ("K1", "K2", "K3", "K4"):
             known = device_by_shape[key]
             ms = sum(n * known[k] for k, n in counts[key].items() if k in known)
             unmeasured = sum(n for k, n in counts[key].items()

@@ -36,6 +36,8 @@ _kernels: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)   # a C array of pointers
+_PF = ctypes.POINTER(ctypes.c_float)    # a C array of floats
 # name -> argtypes of every exported launcher; each returns cudaError_t
 _SIGNATURES = {
     # occ u8 (B,H,W), out f32 (B,H,W), B, H, W, R, band rows, stream
@@ -51,6 +53,16 @@ _SIGNATURES = {
     # f32*, best count i32*, last hits f32 (N), last mask u8 (N), stream
     "slam_scan_match": (_P, _I, _P, _P, _P, _F, _P, _P, _P, _I, _P, _F, _F,
                         _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    # per cascade level (arrays, finest first): scores, counts f32
+    # (B,T,W,W), base f32 (B,3), 1/pixel, theta step; levels, T, W, half;
+    # poses f32 (n,3), n, poses a volume row, dist f32 (n), escape u8 (n)
+    # or null, stream
+    "slam_vol_lookup": (_PP, _PP, _PP, _PF, _PF, _I, _I, _I, _I, _P, _I, _I,
+                        _P, _P, _P),
+    # the same cascade (B = 1); est f32 (3), offs f32 (k,3), k, out f32
+    # (3), stream
+    "slam_vol_refine": (_PP, _PP, _PP, _PF, _PF, _I, _I, _I, _I, _P, _P, _I,
+                        _P, _P),
     # graph_cond.cu: capture stream, child stream, pred bool*; child stream
     "slam_if_begin": (_P, _P, _P),
     "slam_if_end": (_P,),

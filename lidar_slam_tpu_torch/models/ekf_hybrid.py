@@ -10,10 +10,11 @@ adds the grid likelihood of the particle filter to every weight:
 Per scan: one correlation volume around the odometry-predicted mean pose
 (kernel K2 on CUDA, B=1 T=7 half=6 on the 400^2 fine field with the
 default config), the ML-association EKF step with the volume's lookups as
-its extra log-likelihood, the weighted mean refined by three argmin passes
-over 27 candidates, and on keyframe steps (the reference's mini-update
-rule) novel points appended to the shared map and the fine raster and its
-EDT rebuilt (kernel K1 at (1, 400, 400)). Detections and scan odometry
+its extra log-likelihood (kernel K4 on CUDA), the weighted mean refined by
+three argmin passes over 27 candidates (one K4 launch), and on keyframe
+steps (the reference's mini-update rule) novel points appended to the
+shared map and the fine raster and its EDT rebuilt (kernel K1 at
+(1, 400, 400)). Detections and scan odometry
 come from batched pre-passes over the whole log (``ops/landmarks``;
 ``ops/scan_odometry.pairwise_odometry``, K1 at (50, 448, 448)).
 
@@ -126,10 +127,7 @@ def hybrid_head(state: HybridState, ranges: torch.Tensor, obs: torch.Tensor,
     est_pose = ekf_slam._weighted_mean(ekf2.logw, ekf2.poses)
     steps = np.asarray([mc.fine_t, mc.fine_t, mc.fine_r], np.float32)
     offs = constant(tuple(map(tuple, (_OFFS27 * steps).tolist())), dev)
-    for _ in range(3):
-        cands = est_pose[None, :] + offs
-        d, _ = correlative.lookup_cascade(vols, cands)
-        est_pose = cands[torch.argmin(d).view(1)][0]   # no host sync
+    est_pose = correlative.refine_estimate(vols, est_pose, offs)
 
     # --- the mini-update rule's test
     dp = torch.abs(est_pose - state.pmap.keyframe_pose)

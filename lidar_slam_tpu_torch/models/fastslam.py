@@ -5,9 +5,10 @@ Particles are a leading batch axis. Each step propagates them with constant
 velocity plus Gaussian proposal noise, builds the correlation volume(s)
 around their mean (kernel K2 on CUDA), optionally lets every particle descend
 the interpolated volume (autograd through the lookup), weights every
-particle by trilinear lookups, resamples systematically under an ESS gate
-without a host branch, refines the weighted-mean estimate with three argmin
-passes over 27 candidates, and on keyframe steps appends novel points and
+particle by trilinear lookups (one launch of kernel K4 on CUDA), resamples
+systematically under an ESS gate without a host branch, refines the
+weighted-mean estimate with three argmin passes over 27 candidates (one K4
+launch for all three), and on keyframe steps appends novel points and
 rebuilds the fine raster and its EDT (kernel K1 on CUDA). In the eager
 ``pf_step`` the keyframe test is the step's one device->host sync:
 ``pf_step`` is ``pf_head`` up to it and ``pf_refresh`` after it.
@@ -28,8 +29,8 @@ packages the same proposal noise and resampling offset.
 
 While a profiler runs, ``run_pf`` is one ``session`` span, each captured
 step's draws and their copies into its static buffers are a ``pf.draw``
-span, and the counter ``pf.refreshes`` gets the run's keyframe refreshes
-(``PfStepFn.refreshes``).
+span, the counter ``pf.refreshes`` gets the run's keyframe refreshes
+(``PfStepFn.refreshes``) and the counter ``k4.launches`` its K4 launches.
 
 A step may hold only a block of the particles (``parallel/sharded.py``):
 its ``rows`` hook gathers a per-particle tensor from every block and slices
@@ -53,7 +54,7 @@ from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap
 from lidar_slam_tpu_torch.device import constant, resolve_device
 from lidar_slam_tpu_torch.models.scan_matcher import (angles_tensor,
                                                       pose_and_test)
-from lidar_slam_tpu_torch.ops import correlative
+from lidar_slam_tpu_torch.ops import correlative, cuda_vol_lookup
 from lidar_slam_tpu_torch.ops import edt as edt_ops
 from lidar_slam_tpu_torch.ops import matching
 from lidar_slam_tpu_torch.utils import graphs
@@ -222,10 +223,7 @@ def pf_head(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
                          dim=0).to(torch.float32)
     steps = np.asarray([mc.fine_t, mc.fine_t, mc.fine_r], np.float32)
     offs = constant(tuple(map(tuple, (_OFFS27 * steps).tolist())), dev)
-    for _ in range(3):
-        cands = est_pose[None, :] + offs
-        d, _ = correlative.lookup_cascade(vols, cands)
-        est_pose = cands[torch.argmin(d).view(1)][0]   # no host sync
+    est_pose = correlative.refine_estimate(vols, est_pose, offs)
 
     # --- the mini-update rule's test
     dp = torch.abs(est_pose - state.pmap.keyframe_pose)
@@ -480,8 +478,10 @@ def run_pf(ranges_all: np.ndarray, cfg: SlamConfig, seed: int = 0,
     2.. with no host sync and one read at the end. ``draws``, if given, is
     a sequence of per-step ``(noise, u0)`` pairs for steps 1..T-1. Returns
     (path (T, 3) on ``device``, final state). The call is one ``session``
-    span; its keyframe refreshes go to the counter ``pf.refreshes``."""
+    span; its keyframe refreshes go to the counter ``pf.refreshes``, its K4
+    launches (two a scan on the card, none on the CPU) to ``k4.launches``."""
     with session("run_pf", device):
+        k4_before = cuda_vol_lookup.launches
         ranges = torch.as_tensor(np.asarray(ranges_all, np.float32),
                                  device=resolve_device(device))
         step = make_pf_step(cfg, ranges.device)
@@ -494,4 +494,5 @@ def run_pf(ranges_all: np.ndarray, cfg: SlamConfig, seed: int = 0,
             path[t] = step.pose
         state = graphs.clone_tree(step.finish(state))
         SPANS.count("pf.refreshes", step.refreshes())
+        SPANS.count("k4.launches", cuda_vol_lookup.launches - k4_before)
         return path, state

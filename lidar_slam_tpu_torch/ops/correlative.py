@@ -19,7 +19,11 @@ lookup. A GPU gathers well, so the port computes the semantics directly:
   K2 (``ops/cuda_match.py``), which stages the field as integer codes of
   its 2^-10 lattice (2^-(10+l) at cascade level l), CPU tensors to
   ``score_volume_plain``.
-- ``lookup_avg_distance``: a direct gather of the 8 trilinear corners.
+- ``lookup_avg_distance``, ``lookup_cascade`` and ``refine_estimate``:
+  a direct gather of the 8 trilinear corners. CUDA tensors go to kernel K4
+  (``ops/cuda_vol_lookup.py``), one launch a call, unless autograd is to
+  record the call; CPU tensors, and poses that record a gradient, to the
+  plain versions (``*_plain``).
 
 Loop closure matches a scan against several old keyframes at once: the
 volume, the counts and the lookups then carry a leading batch axis, and the
@@ -49,6 +53,10 @@ class ScoreVolume(NamedTuple):
     # A batch of volumes (loop closure's candidates) puts a leading axis B
     # on scores/counts (B, T, W, W) and base_pose (B, 3).
 
+
+# argmin passes of refine_estimate over its candidates (kernel K4 holds the
+# same number, REFINE_PASSES in csrc/vol_lookup.cu)
+REFINE_PASSES = 3
 
 # values gathered per slice of the plain volume: bounds its temporaries to
 # a few tens of MB whatever the batch, bins and window
@@ -236,7 +244,26 @@ def _window_inside(vol: ScoreVolume, poses: torch.Tensor) -> torch.Tensor:
             & (fdt >= 0) & (fdt <= t - 1))
 
 
+def _on_kernel(poses: torch.Tensor) -> bool:
+    """True where K4 runs a lookup: CUDA poses, unless autograd is to record
+    their gradient (``grad_refine_steps``), whose backward needs the plain
+    version's graph."""
+    return poses.is_cuda and not (torch.is_grad_enabled()
+                                  and poses.requires_grad)
+
+
 def lookup_avg_distance(vol: ScoreVolume, poses: torch.Tensor) -> torch.Tensor:
+    """``lookup_avg_distance_plain``'s result; on CUDA tensors with no
+    gradient to record, one launch of kernel K4."""
+    if _on_kernel(poses):
+        from lidar_slam_tpu_torch.ops import cuda_vol_lookup
+
+        return cuda_vol_lookup.lookup_avg_distance_cuda(vol, poses)
+    return lookup_avg_distance_plain(vol, poses)
+
+
+def lookup_avg_distance_plain(vol: ScoreVolume, poses: torch.Tensor
+                              ) -> torch.Tensor:
     """Average field distance for poses (..., 3) by trilinear interpolation
     of scores and counts (8 direct corner gathers); for a batched volume,
     poses (B, ..., 3) look up volume b.
@@ -288,11 +315,22 @@ def lookup_avg_distance(vol: ScoreVolume, poses: torch.Tensor) -> torch.Tensor:
 
 def lookup_cascade(vols: list[ScoreVolume], poses: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lookup_cascade_plain``'s result; on CUDA tensors with no gradient
+    to record, one launch of kernel K4."""
+    if _on_kernel(poses):
+        from lidar_slam_tpu_torch.ops import cuda_vol_lookup
+
+        return cuda_vol_lookup.lookup_cascade_cuda(vols, poses)
+    return lookup_cascade_plain(vols, poses)
+
+
+def lookup_cascade_plain(vols: list[ScoreVolume], poses: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Average distance (fine-pixel units) from the finest level whose
     window contains the pose, and the fine-window escape mask."""
     dist = chosen = fine_escape = None
     for lvl, vol in enumerate(vols):
-        d = lookup_avg_distance(vol, poses) * (2.0 ** lvl)
+        d = lookup_avg_distance_plain(vol, poses) * (2.0 ** lvl)
         inside = _window_inside(vol, poses)
         if dist is None:
             dist, chosen, fine_escape = d, inside, ~inside
@@ -300,3 +338,26 @@ def lookup_cascade(vols: list[ScoreVolume], poses: torch.Tensor
             dist = torch.where(chosen, dist, d)
             chosen = chosen | inside
     return dist, fine_escape
+
+
+def refine_estimate(vols: list[ScoreVolume], est_pose: torch.Tensor,
+                    offs: torch.Tensor) -> torch.Tensor:
+    """``refine_estimate_plain``'s result; on CUDA tensors with no gradient
+    to record, one launch of kernel K4 for all the passes."""
+    if _on_kernel(est_pose):
+        from lidar_slam_tpu_torch.ops import cuda_vol_lookup
+
+        return cuda_vol_lookup.refine_estimate_cuda(vols, est_pose, offs)
+    return refine_estimate_plain(vols, est_pose, offs)
+
+
+def refine_estimate_plain(vols: list[ScoreVolume], est_pose: torch.Tensor,
+                          offs: torch.Tensor) -> torch.Tensor:
+    """The estimate (3,) moved ``REFINE_PASSES`` times to the first minimum
+    of the cascade distance over the candidates ``est_pose + offs`` (offs
+    (K, 3)), with no host sync."""
+    for _ in range(REFINE_PASSES):
+        cands = est_pose[None, :] + offs
+        d, _ = lookup_cascade_plain(vols, cands)
+        est_pose = cands[torch.argmin(d).view(1)][0]
+    return est_pose

@@ -79,12 +79,13 @@ import numpy as np
 import torch
 
 from lidar_slam_tpu_torch import _build
-from lidar_slam_tpu_torch.ops import cuda_edt, cuda_match, cuda_scan_match
+from lidar_slam_tpu_torch.ops import (cuda_edt, cuda_match, cuda_scan_match,
+                                      cuda_vol_lookup)
 from lidar_slam_tpu_torch.utils.profiling import span
 from lidar_slam_tpu_torch.utils.tree import map_with_path
 
 # modules with launches, launches_by_shape
-COUNTED = (cuda_edt, cuda_match, cuda_scan_match)
+COUNTED = (cuda_edt, cuda_match, cuda_scan_match, cuda_vol_lookup)
 # the capture's cudaStreamCaptureMode: "thread_local" lets another thread
 # (c10d's NCCL watchdog, which polls the events of earlier collectives)
 # make CUDA calls while a graph that holds collectives is captured

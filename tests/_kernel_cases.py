@@ -224,3 +224,101 @@ def grid_to(grid, device):
     """An ``OccGrid`` with its tensors on ``device``."""
     return grid._replace(**{f: getattr(grid, f).to(device)
                             for f in ("occ", "n_rows", "n_cols", "origin")})
+
+
+# K4 (the volume lookups): id -> (B, poses a row, T, half, levels, pixel m,
+# theta step, spread, volume, mode). B None: an unbatched cascade. spread:
+# the poses' offsets from the base pose, uniform within spread x the fine
+# window's half-width in x, y and theta (1: all inside it; far beyond it,
+# every pose clamps to an edge). volume: "random" (scores and counts, a
+# tenth of the counts 0), "zero" (every distance 0: every candidate ties),
+# "counts" (the closure's inlier lookup: the counts as scores, ones as
+# counts). mode: "cascade" (lookup_cascade) or "distance"
+# (lookup_avg_distance, the first level alone). "nan" puts a NaN in a
+# tenth of the poses
+K4_CASES = {
+    "pf-1024": (None, 1024, 7, 6, 1, 0.1, 0.004363, 1.3, "random", "cascade"),
+    "building-1024": (None, 1024, 13, 6, 1, 0.1, 0.004363, 1.3, "random",
+                      "cascade"),
+    "levels-2": (None, 1024, 7, 6, 2, 0.1, 0.004363, 2.6, "random",
+                 "cascade"),
+    "levels-3": (None, 1024, 7, 6, 3, 0.1, 0.004363, 5.0, "random",
+                 "cascade"),
+    "closure-8x27": (8, 27, 21, 14, 1, 0.2, 0.008727, 1.3, "random",
+                     "distance"),
+    "closure-counts-8x1": (8, 1, 21, 14, 1, 0.2, 0.008727, 1.0, "counts",
+                           "distance"),
+    "far-outside": (None, 256, 7, 6, 1, 0.1, 0.004363, 40.0, "random",
+                    "cascade"),
+    "far-outside-3": (None, 256, 7, 6, 3, 0.1, 0.004363, 40.0, "random",
+                      "cascade"),
+    "zero": (None, 64, 7, 6, 1, 0.1, 0.004363, 1.3, "zero", "cascade"),
+    "nan": (None, 256, 7, 6, 2, 0.1, 0.004363, 2.6, "random", "cascade"),
+}
+# the refinement (refine_estimate): the case's volumes, its first pose as
+# the estimate, the PF's 27 offsets (fine_t, fine_t, fine_r)
+K4_REFINE_CASES = ("pf-1024", "building-1024", "levels-2", "levels-3",
+                   "far-outside", "far-outside-3", "zero", "nan")
+K4_OFFS27 = np.stack(np.meshgrid(*([np.asarray([-1.0, 0.0, 1.0],
+                                               np.float32)] * 3),
+                                 indexing="ij"), axis=-1).reshape(27, 3)
+
+
+def k4_case(name: str):
+    """(vols, poses) of a K4 case on the CPU: the cascade's ScoreVolumes,
+    finest first, and the poses, (K, 3) or (B, K, 3)."""
+    from lidar_slam_tpu_torch.ops.correlative import ScoreVolume
+
+    b, k, t, half, levels, pixel, step, spread, kind, _ = K4_CASES[name]
+    rng = _rng(name)
+    lead = () if b is None else (b,)
+    w = 2 * half + 1
+    base = np.stack([rng.uniform(-20, 20, lead), rng.uniform(-20, 20, lead),
+                     rng.uniform(-np.pi, np.pi, lead)], -1).astype(np.float32)
+    vols = []
+    for lvl in range(levels):
+        f = 2 ** lvl
+        counts = rng.integers(0, 1080, lead + (t, w, w)).astype(np.float32)
+        counts[rng.random(counts.shape) < 0.1] = 0.0
+        scores = np.round(rng.uniform(0, 8, counts.shape) * counts * 1024
+                          ) / np.float32(1024)
+        if kind == "zero":
+            scores, counts = np.zeros_like(scores), np.ones_like(counts)
+        if kind == "counts":
+            scores, counts = counts, np.ones_like(counts)
+        vols.append(ScoreVolume(
+            scores=torch.as_tensor(scores.astype(np.float32)),
+            counts=torch.as_tensor(counts), base_pose=torch.as_tensor(base),
+            theta_step=float(step * f),
+            ipixel=float(np.float32(1.0 / (pixel * f))), half=half))
+    reach = np.asarray([half * pixel, half * pixel, (t // 2) * step],
+                       np.float32) * np.float32(spread)
+    offs = rng.uniform(-1, 1, lead + (k, 3)).astype(np.float32) * reach
+    poses = (base[..., None, :] + offs).astype(np.float32)
+    if name == "nan":
+        poses[rng.random(poses.shape[:-1]) < 0.1, rng.integers(0, 3)] = np.nan
+    return vols, torch.as_tensor(poses)
+
+
+def k4_refine_case(name: str):
+    """(vols, est_pose, offs) of a K4 refinement case on the CPU; "nan"
+    starts from a NaN heading, so every candidate's distance is NaN."""
+    vols, poses = k4_case(name)
+    est = poses[0].clone()
+    if name == "nan":
+        est[2] = float("nan")
+    offs = torch.as_tensor(K4_OFFS27 * np.asarray([0.025, 0.025, 0.004363],
+                                                  np.float32))
+    return vols, est, offs
+
+
+def vols_to(vols, device):
+    """A cascade's ScoreVolumes with their tensors on ``device``."""
+    return [v._replace(scores=v.scores.to(device), counts=v.counts.to(device),
+                       base_pose=v.base_pose.to(device)) for v in vols]
+
+
+def vols_prefix(vols, b: int):
+    """A batched cascade cut to its first ``b`` rows."""
+    return [v._replace(scores=v.scores[:b], counts=v.counts[:b],
+                       base_pose=v.base_pose[:b]) for v in vols]

@@ -1,5 +1,5 @@
-"""CPU twins of kernels K1 (``csrc/edt.cu``), K2 (``csrc/corr_volume.cu``)
-and K3 (``csrc/scan_match.cu``).
+"""CPU twins of kernels K1 (``csrc/edt.cu``), K2 (``csrc/corr_volume.cu``),
+K3 (``csrc/scan_match.cu``) and K4 (``csrc/vol_lookup.cu``).
 
 A CUDA kernel cannot run without a card, so each kernel has a twin here in
 plain PyTorch or numpy that repeats its index math step by step: bit-packed
@@ -7,13 +7,16 @@ rows, bit-scan distances and row bands for K1; beam chunks, live-beam
 compaction, bounding-box tiles and their halving, lattice codes with the
 bounds test folded in, and window origins for K2; gather tables with the
 bounds test folded in, integer code sums, the penalty after the sum and
-compaction by prefix count for K3. ``test_torch_kernel_twins.py`` holds
+compaction by prefix count for K3; one pose a thread through the
+cascade's levels, stopping at the first window that holds it, and the
+refinement's serial first minimum for K4. ``test_torch_kernel_twins.py`` holds
 them to the plain versions; they are slow and only the tests use them.
 """
 
 import numpy as np
 import torch
 
+from lidar_slam_tpu_torch.ops import correlative
 from lidar_slam_tpu_torch.ops.cuda_edt import plan_band
 from lidar_slam_tpu_torch.ops.cuda_match import (LATTICE_BITS, plan,
                                                  tile_pitch, window_cells)
@@ -275,3 +278,100 @@ def scan_match_twin(metric, grid, scan_x, scan_y, valid, pose, step_t,
                        best_count=torch.as_tensor(counts[best]),
                        last_hits=torch.as_tensor(last_hits),
                        last_inb=torch.as_tensor(last))
+
+
+def _clamp_keep_nan(v: np.ndarray, lo: float, hi: float) -> np.ndarray:
+    return np.where(np.isnan(v), v, np.minimum(np.maximum(v, _F(lo)), _F(hi)))
+
+
+def _corner(floored: np.ndarray) -> np.ndarray:
+    return np.where(np.isnan(floored), 0, floored).astype(np.int64)
+
+
+def _vol_level_twin(vol, lvl: int, rows: np.ndarray, p: np.ndarray):
+    """K4's ``lookup`` at level ``lvl`` for poses p (n, 3) of volume rows
+    ``rows`` (n,): each float32 operation in the kernel's order. Returns
+    (distance times 2^lvl, inside the level's window)."""
+    t, w = vol.scores.shape[-3], vol.scores.shape[-1]
+    half = vol.half
+    scores = vol.scores.numpy().reshape(-1, t * w * w)[rows]
+    counts = vol.counts.numpy().reshape(-1, t * w * w)[rows]
+    base = vol.base_pose.numpy().reshape(-1, 3)[rows]
+    ipix, step = _F(vol.ipixel), _F(vol.theta_step)
+    fdx = (p[:, 0] - base[:, 0]) * ipix + _F(half)
+    fdy = (p[:, 1] - base[:, 1]) * ipix + _F(half)
+    fdt = (p[:, 2] - base[:, 2]) / step + _F(t // 2)
+    inside = ((fdx >= 0) & (fdx <= 2 * half) & (fdy >= 0) & (fdy <= 2 * half)
+              & (fdt >= 0) & (fdt <= t - 1))
+    ft = _clamp_keep_nan(fdt, 0.0, t - 1)
+    fy = _clamp_keep_nan(fdy, 0.0, w - 1)
+    fx = _clamp_keep_nan(fdx, 0.0, w - 1)
+    t0, y0, x0 = np.floor(ft), np.floor(fy), np.floor(fx)
+    at, ay, ax = ft - t0, fy - y0, fx - x0
+    wt, wy, wx = (_F(1) - at, at), (_F(1) - ay, ay), (_F(1) - ax, ax)
+    it, iy, ix = _corner(t0), _corner(y0), _corner(x0)
+    num = np.zeros(p.shape[0], _F)
+    den = np.zeros(p.shape[0], _F)
+    cell = np.arange(p.shape[0])
+    for dt in (0, 1):
+        ti = np.minimum(it + dt, t - 1)
+        for dy in (0, 1):
+            yi = np.minimum(iy + dy, w - 1)
+            for dx in (0, 1):
+                xi = np.minimum(ix + dx, w - 1)
+                idx = (ti * w + yi) * w + xi
+                wgt = (wt[dt] * wy[dy]) * wx[dx]
+                num = num + wgt * scores[cell, idx]
+                den = den + wgt * counts[cell, idx]
+    d = num / np.where(np.isnan(den), den, np.maximum(den, _F(1)))
+    return (d if lvl == 0 else d * _F(2 ** lvl)), inside
+
+
+def _cascade_twin(vols, rows: np.ndarray, p: np.ndarray):
+    """K4's ``cascade``: the first level whose window holds the pose (the
+    coarsest where none does); the fine window's escape mask."""
+    dist, inside = _vol_level_twin(vols[0], 0, rows, p)
+    escape, chosen = ~inside, inside
+    for lvl in range(1, len(vols)):
+        d, inside = _vol_level_twin(vols[lvl], lvl, rows, p)
+        dist = np.where(chosen, dist, d)
+        chosen = chosen | inside
+    return dist, escape
+
+
+def vol_lookup_twin(vols, poses: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's lookup in numpy: one pose at a time in effect (every operation
+    elementwise), pose i of (B, K, 3) looking up volume row i // K. The
+    same (dist, escape) as ``lookup_cascade_cuda``; its dist alone is
+    ``lookup_avg_distance_cuda``'s for one level."""
+    lead = tuple(poses.shape[:-1])
+    p = poses.numpy().reshape(-1, 3).astype(_F)
+    b = vols[0].scores.shape[0] if vols[0].scores.dim() == 4 else 1
+    rows = np.arange(p.shape[0]) // max(1, p.shape[0] // b)
+    with np.errstate(invalid="ignore"):
+        dist, escape = _cascade_twin(vols, rows, p)
+    return (torch.as_tensor(dist.astype(_F)).reshape(lead),
+            torch.as_tensor(escape).reshape(lead))
+
+
+def vol_refine_twin(vols, est_pose: torch.Tensor, offs: torch.Tensor
+                    ) -> torch.Tensor:
+    """K4's refinement in numpy: ``correlative.REFINE_PASSES`` times the
+    candidates est + offs, their cascade distances and thread 0's serial
+    first minimum (the first NaN where there is one). The same estimate as
+    ``refine_estimate_cuda``."""
+    est, o = est_pose.numpy().astype(_F), offs.numpy().astype(_F)
+    rows = np.zeros(o.shape[0], np.int64)
+    for _ in range(correlative.REFINE_PASSES):
+        cands = est[None, :] + o
+        with np.errstate(invalid="ignore"):
+            d, _ = _cascade_twin(vols, rows, cands)
+        best, v = 0, d[0]
+        for j in range(1, len(d)):
+            if np.isnan(v):
+                break
+            if np.isnan(d[j]) or d[j] < v:
+                best, v = j, d[j]
+        est = cands[best]
+    return torch.as_tensor(est.astype(_F))

@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from _kernel_cases import (K1_CASES, K2_CASES, K3_CASES, batch_prefix,
-                           grid_to, k1_case, k2_case, k3_case,
-                           sparse_chunk_case, to_device)
-from _kernel_twins import edt_twin, scan_match_twin
+from _kernel_cases import (K1_CASES, K2_CASES, K3_CASES, K4_CASES,
+                           K4_REFINE_CASES, batch_prefix, grid_to, k1_case,
+                           k2_case, k3_case, k4_case, k4_refine_case,
+                           sparse_chunk_case, to_device, vols_prefix, vols_to)
+from _kernel_twins import (edt_twin, scan_match_twin, vol_lookup_twin,
+                           vol_refine_twin)
 
 pytestmark = pytest.mark.cuda
 
@@ -1825,7 +1827,8 @@ def test_fresh_run_pf_records_its_session_draws_and_refreshes(cuda):
     ``run_pf``: it captures its step once and replays it once a scan after
     scan 1, each replay after a ``pf.draw`` span, and counts its keyframe
     refreshes in ``pf.refreshes``, as many as the K1 launches it books (scan
-    1's and the refresh arm's, read back at ``finish``); unprofiled, the
+    1's and the refresh arm's, read back at ``finish``), and its K4 launches
+    in ``k4.launches``, two a scan from scan 1 on; unprofiled, the
     same run gives the same path bit for bit."""
     from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
     from lidar_slam_tpu_torch.io import simulate
@@ -1843,6 +1846,7 @@ def test_fresh_run_pf_records_its_session_draws_and_refreshes(cuda):
     assert len([s for s in spans if s.name == "graphs.replay"]) == n - 2
     assert len([s for s in spans if s.name == "pf.draw"]) == n - 2
     assert counters["pf.refreshes"] == cuda_edt.launches - before >= 3
+    assert counters["k4.launches"] == 2 * (n - 1)
     assert counters["alloc.segments"] >= 0
     again, _ = fastslam.run_pf(ranges, DEFAULT_CONFIG, device=cuda)
     assert torch.equal(out["gpu"][0], again)
@@ -1863,3 +1867,295 @@ def test_pf_cell_equals_its_reference_on_the_card(cuda):
     checks = system.compare(cell.config, [out], ref)
     assert all(v <= lim for _, v, lim in checks), checks
     assert ref["refreshes"] >= 3 and ref["resamples"] >= 1
+
+
+# -- K4, the volume lookups: one launch a lookup call --------------------------
+def _same(got, want):
+    """``torch.equal`` on the CPU, with a NaN equal to a NaN in the same
+    place."""
+    got, want = got.cpu(), want.cpu()
+    return (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.nan_to_num(nan=-1.0),
+                            want.nan_to_num(nan=-1.0)))
+
+
+def _k4_lookup(name, vols, poses, plain: bool):
+    """A K4 case's lookup through ``correlative``'s dispatcher, or its
+    plain version: (dist, escape or None)."""
+    from lidar_slam_tpu_torch.ops import correlative
+
+    cascade = K4_CASES[name][-1] == "cascade"
+    if plain:
+        return (correlative.lookup_cascade_plain(vols, poses) if cascade
+                else (correlative.lookup_avg_distance_plain(vols[0], poses),
+                      None))
+    return (correlative.lookup_cascade(vols, poses) if cascade
+            else (correlative.lookup_avg_distance(vols[0], poses), None))
+
+
+@pytest.mark.parametrize("name", list(K4_CASES))
+def test_k4_cases_equal_plain(cuda, name):
+    """K4 == the plain version on the card and on the CPU, and == its twin,
+    dist and escape mask with ``torch.equal`` (a NaN where the plain version
+    has one): the PF's 1024 particles at 7 and 13 bins, cascades of 2 and 3
+    levels, the closures' batched volumes and their counts-as-scores
+    lookup, poses far beyond every window, a zero volume, NaN poses; one
+    launch a call."""
+    from lidar_slam_tpu_torch.ops import cuda_vol_lookup
+
+    vols, poses = k4_case(name)
+    dvols, dposes = vols_to(vols, cuda), poses.to(cuda)
+    before = cuda_vol_lookup.launches
+    got, escape = _k4_lookup(name, dvols, dposes, plain=False)
+    torch.cuda.synchronize()
+    assert cuda_vol_lookup.launches == before + 1
+    twin = vol_lookup_twin(vols, poses)
+    for want, want_escape in (_k4_lookup(name, dvols, dposes, plain=True),
+                              _k4_lookup(name, vols, poses, plain=True),
+                              twin):
+        assert _same(got, want)
+        if escape is not None:
+            assert torch.equal(escape.cpu(), want_escape.cpu())
+
+
+@pytest.mark.parametrize("name", ["closure-8x27", "closure-counts-8x1"])
+def test_k4_partial_batches_equal_plain(cuda, name):
+    """The backend's batches of B = 1..8 volume rows, each pose looking up
+    its own row, booked under its own B."""
+    from lidar_slam_tpu_torch.ops import cuda_vol_lookup
+
+    vols, poses = k4_case(name)
+    for b in range(1, 9):
+        dvols, dposes = vols_to(vols_prefix(vols, b), cuda), poses[:b].to(cuda)
+        shapes = collections.Counter(cuda_vol_lookup.launches_by_shape)
+        got, _ = _k4_lookup(name, dvols, dposes, plain=False)
+        assert _same(got, _k4_lookup(name, dvols, dposes, plain=True)[0]), b
+        added = cuda_vol_lookup.launches_by_shape - shapes
+        assert list(added) == [(b, poses.shape[1], 21, 29, 1, "distance")]
+
+
+@pytest.mark.parametrize("name", K4_REFINE_CASES)
+def test_k4_refine_cases_equal_plain(cuda, name):
+    """K4's three refinement passes in one launch == ``refine_estimate_plain``
+    on the card and on the CPU, and == the twin: edge ties far outside the
+    windows and a zero volume (the first candidate wins), NaN distances (the
+    first NaN wins, as ``torch.argmin`` takes it)."""
+    from lidar_slam_tpu_torch.ops import correlative, cuda_vol_lookup
+
+    vols, est, offs = k4_refine_case(name)
+    dvols, dest, doffs = vols_to(vols, cuda), est.to(cuda), offs.to(cuda)
+    before = cuda_vol_lookup.launches
+    got = correlative.refine_estimate(dvols, dest, doffs)
+    torch.cuda.synchronize()
+    assert cuda_vol_lookup.launches == before + 1
+    assert _same(got, correlative.refine_estimate_plain(dvols, dest, doffs))
+    assert _same(got, correlative.refine_estimate_plain(vols, est, offs))
+    assert _same(got, vol_refine_twin(vols, est, offs))
+
+
+# the kernels a K4 lookup and refinement run, profiled in a process of their
+# own: kineto can lose a later session's device events, depending on what
+# the process profiled and ran before
+_K4_PROFILE = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from _kernel_cases import k4_case, k4_refine_case, vols_to
+from lidar_slam_tpu_torch.ops import correlative
+
+cuda = torch.device("cuda")
+vols, est, offs = k4_refine_case("levels-2")
+vols, est, offs = vols_to(vols, cuda), est.to(cuda), offs.to(cuda)
+poses = k4_case("levels-2")[1].to(cuda)
+
+
+def calls():
+    correlative.lookup_cascade(vols, poses)
+    correlative.refine_estimate(vols, est, offs)
+
+
+calls()   # built and loaded
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    calls()
+    torch.cuda.synchronize()
+print(json.dumps([ev.name() for ev in sorted(
+    prof.profiler.kineto_results.events(), key=lambda ev: ev.start_ns())
+    if ev.device_type() == DeviceType.CUDA]))
+"""
+
+
+def test_lookups_are_one_kernel_on_the_card(cuda):
+    """A ``lookup_cascade`` call on the card runs one kernel, K4's lookup,
+    and a ``refine_estimate`` call one, K4's refinement: no PyTorch kernel,
+    copy or memset."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here, os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", _K4_PROFILE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    device = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(device) == 2, device
+    assert "vol_lookup_kernel" in device[0], device
+    assert "vol_refine_kernel" in device[1], device
+
+
+def test_k4_equals_plain_over_pf_steps(cuda, monkeypatch):
+    """80 eager PF-1024 museum steps on the card: every lookup and
+    refinement the steps make (the particles' cascade, the estimate's three
+    passes) gives K4's result == the plain version's on the same inputs,
+    two K4 launches a step."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import fastslam
+    from lidar_slam_tpu_torch.ops import correlative, cuda_vol_lookup
+
+    real_lookup, real_refine = (correlative.lookup_cascade,
+                                correlative.refine_estimate)
+    calls = collections.Counter()
+
+    def lookup(vols, poses):
+        got = real_lookup(vols, poses)
+        want = correlative.lookup_cascade_plain(vols, poses)
+        assert _same(got[0], want[0]) and torch.equal(got[1], want[1])
+        calls["lookup"] += 1
+        return got
+
+    def refine(vols, est, offs):
+        got = real_refine(vols, est, offs)
+        assert _same(got, correlative.refine_estimate_plain(vols, est, offs))
+        calls["refine"] += 1
+        return got
+
+    monkeypatch.setattr(correlative, "lookup_cascade", lookup)
+    monkeypatch.setattr(correlative, "refine_estimate", refine)
+    n = 81
+    ranges, _ = simulate.generate_dataset(n, seed=5)
+    cfg = DEFAULT_CONFIG
+    angles = fastslam.angles_tensor(cfg, cuda)
+    state = fastslam.init_particles(torch.as_tensor(ranges[0], device=cuda),
+                                    cfg, 0)
+    before = cuda_vol_lookup.launches
+    for t in range(1, n):
+        state, _ = fastslam.pf_step(state, torch.as_tensor(ranges[t],
+                                                           device=cuda),
+                                    cfg, angles)
+    assert calls == {"lookup": n - 1, "refine": n - 1}
+    assert cuda_vol_lookup.launches - before == 2 * (n - 1)
+
+
+def test_k4_batched_closure_match_equals_plain(cuda, monkeypatch):
+    """The backend's closure match (``_match_keyframes_batch``) at every
+    width B = 1..8: K4 for its refinement passes and its inlier lookup
+    gives the same bits as the plain lookups on the card, 9 launches a call
+    (8 passes of (B, 27) poses, one of (B, 1))."""
+    import _backend_cases as cases
+    from lidar_slam_tpu_torch.models import graph_slam
+    from lidar_slam_tpu_torch.ops import correlative, cuda_vol_lookup
+
+    lc = graph_slam.LoopClosureConfig()
+    x, y, v, gt = cases.keyframes(cuda)
+    metric = graph_slam._raster_edt_batch(x, y, v, lc.raster_size,
+                                          lc.raster_pixel)
+    w = 2 * lc.window_half + 1
+    for b in cases.WIDTHS:
+        for seed, (olds, curs) in enumerate(cases.batches(b)):
+            g = torch.as_tensor(cases.guesses(gt, olds, curs, seed),
+                                device=cuda)
+            args = (metric[olds], x[curs], y[curs], v[curs], g, lc)
+            shapes = collections.Counter(cuda_vol_lookup.launches_by_shape)
+            got = graph_slam._match_keyframes_batch(*args)
+            added = cuda_vol_lookup.launches_by_shape - shapes
+            assert added == {(b, 27, lc.n_theta, w, 1, "distance"):
+                             lc.refine_iters,
+                             (b, 1, lc.n_theta, w, 1, "distance"): 1}, b
+            with monkeypatch.context() as m:
+                m.setattr(correlative, "_on_kernel", lambda *_: False)
+                want = graph_slam._match_keyframes_batch(*args)
+            assert torch.equal(got, want), b
+
+
+def test_k4_leaves_the_gradient_path_to_the_plain_lookup(cuda, monkeypatch):
+    """With ``grad_refine_steps = 2`` on the card the particles' descent
+    records its gradient through the plain lookup (poses that require a
+    gradient never reach K4), the weighting and the refinement go to K4, and
+    the step's result is the same bits as with every lookup plain."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import fastslam
+    from lidar_slam_tpu_torch.ops import correlative, cuda_vol_lookup
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, particles=dataclasses.replace(
+        DEFAULT_CONFIG.particles, grad_refine_steps=2))
+    ranges, _ = simulate.generate_dataset(30, seed=6)
+    angles = fastslam.angles_tensor(cfg, cuda)
+    real_plain = correlative.lookup_avg_distance_plain
+    graded = []
+
+    def plain(vol, poses):
+        graded.append(poses.requires_grad)
+        return real_plain(vol, poses)
+
+    def run(on_kernel: bool):
+        state = fastslam.init_particles(
+            torch.as_tensor(ranges[0], device=cuda), cfg, 0)
+        path = []
+        with monkeypatch.context() as m:
+            m.setattr(correlative, "lookup_avg_distance_plain", plain)
+            if not on_kernel:
+                m.setattr(correlative, "_on_kernel", lambda *_: False)
+            for t in range(1, len(ranges)):
+                state, pose = fastslam.pf_step(
+                    state, torch.as_tensor(ranges[t], device=cuda), cfg,
+                    angles)
+                path.append(pose)
+        return torch.stack(path), state
+
+    before = cuda_vol_lookup.launches
+    got, gstate = run(True)
+    steps = len(ranges) - 1
+    assert cuda_vol_lookup.launches - before == 2 * steps
+    assert graded == [True] * (2 * steps)
+    want, wstate = run(False)
+    assert cuda_vol_lookup.launches - before == 2 * steps
+    assert torch.equal(got, want)
+    for f in ("poses", "prev_poses", "logw", "fine_metric"):
+        assert torch.equal(getattr(gstate, f), getattr(wstate, f)), f
+
+
+def test_pf_step_replay_books_two_k4_launches(cuda):
+    """A captured ``PfStepFn`` replay books exactly two K4 launches, the
+    particles' cascade and the estimate's refinement, at the PF's shapes;
+    the eager scan 1 makes the same two."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import fastslam
+    from lidar_slam_tpu_torch.ops import cuda_vol_lookup
+
+    cfg = DEFAULT_CONFIG
+    pc = cfg.particles
+    w = 2 * pc.vol_half + 1
+    ranges, _ = simulate.generate_dataset(6, seed=3)
+    r = torch.as_tensor(ranges, device=cuda)
+    step = fastslam.make_pf_step(cfg, cuda)
+    state = fastslam.init_particles(r[0], cfg, 0)
+    want = collections.Counter({
+        (1, pc.n_particles, pc.vol_theta_bins, w, pc.cascade_levels,
+         "cascade"): 1,
+        (1, 27, pc.vol_theta_bins, w, pc.cascade_levels, "refine"): 1})
+    for t in range(1, 6):
+        shapes = collections.Counter(cuda_vol_lookup.launches_by_shape)
+        before = cuda_vol_lookup.launches
+        state = step.advance(state, r[t])
+        assert cuda_vol_lookup.launches - before == 2, t
+        assert cuda_vol_lookup.launches_by_shape - shapes == want, t
+    assert len(step.graphs) == 1

@@ -1,27 +1,36 @@
-"""The index math of kernels K1, K2 and K3, held to their plain versions on
-the CPU.
+"""The index math of kernels K1, K2, K3 and K4, held to their plain
+versions on the CPU.
 
 A CUDA kernel cannot run here, so each kernel has a twin that repeats its
 index math step by step (``_kernel_twins.edt_twin``,
-``_kernel_twins.score_volume_twin``, ``_kernel_twins.scan_match_twin``):
+``_kernel_twins.score_volume_twin``, ``_kernel_twins.scan_match_twin``,
+``_kernel_twins.vol_lookup_twin`` and ``vol_refine_twin``):
 bit-packed rows, bit-scan distances and row bands for K1; beam chunks,
 live-beam compaction, bounding-box tiles and their halving, lattice codes
 with the bounds test folded in, and window origins for K2; gather tables,
 integer code sums, the penalty after the sum, the first minimum and the
-prefix-count compaction for K3. The twins must equal the plain versions
+prefix-count compaction for K3; the cascade's float32 operations in order,
+a pose at a time, and the refinement's serial first minimum for K4. The
+twins must equal the plain versions
 exactly at the main paths' shapes and at the edges; ``test_torch_cuda.py``
 holds the kernels themselves to the same cases on the card.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from _kernel_cases import (K1_CASES, K2_CASES, K3_CASES, batch_prefix,
-                           k1_case, k2_case, k3_case, sparse_chunk_case)
-from _kernel_twins import edt_twin, scan_match_twin, score_volume_twin
+from _kernel_cases import (K1_CASES, K2_CASES, K3_CASES, K4_CASES,
+                           K4_REFINE_CASES, batch_prefix, k1_case, k2_case,
+                           k3_case, k4_case, k4_refine_case, sparse_chunk_case,
+                           vols_prefix)
+from _kernel_twins import (edt_twin, scan_match_twin, score_volume_twin,
+                           vol_lookup_twin, vol_refine_twin)
 from lidar_slam_tpu_torch.ops import (correlative, cuda_edt, cuda_match,
-                                      cuda_scan_match, matching)
+                                      cuda_scan_match, cuda_vol_lookup,
+                                      matching)
 from lidar_slam_tpu_torch.ops.edt import edt_clamped
 
 torch.set_num_threads(2)
@@ -297,3 +306,171 @@ def test_k3_smem_fits_the_main_paths():
         cuda_scan_match.fast_match_cuda(*args[:8], 20, 3, 4.0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_scan_match.fast_match_cuda(*args)
+
+
+# -- K4, the volume lookups ----------------------------------------------------
+def same(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """``torch.equal``, with a NaN equal to a NaN in the same place."""
+    return (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.nan_to_num(nan=-1.0),
+                            want.nan_to_num(nan=-1.0)))
+
+
+def k4_plain(name, vols, poses):
+    """The plain version a K4 case's mode calls: (dist, escape or None)."""
+    if K4_CASES[name][-1] == "cascade":
+        return correlative.lookup_cascade_plain(vols, poses)
+    return correlative.lookup_avg_distance_plain(vols[0], poses), None
+
+
+@pytest.mark.parametrize("name", list(K4_CASES))
+def test_k4_twin_equals_plain(name):
+    """K4's order of operations (a pose's levels in turn, stopping at the
+    first window that holds it; clamps that keep a NaN; weights, sums and
+    the division in the plain version's order) == the plain lookups, with
+    ``torch.equal``: the PF's 1024 particles at 7 and 13 bins, cascades of
+    2 and 3 levels, the closures' batched volumes and their counts-as-scores
+    lookup, poses far beyond every window, a zero volume and NaN poses."""
+    vols, poses = k4_case(name)
+    want, want_escape = k4_plain(name, vols, poses)
+    got, escape = vol_lookup_twin(vols, poses)
+    assert same(got, want)
+    assert torch.isnan(want).any() == (name == "nan")
+    if want_escape is not None:
+        assert torch.equal(escape, want_escape)
+        assert want_escape.any() and (name.startswith("far")
+                                      or not want_escape.all())
+
+
+@pytest.mark.parametrize("b", range(1, 9))
+@pytest.mark.parametrize("name", ["closure-8x27", "closure-counts-8x1"])
+def test_k4_twin_partial_batches(name, b):
+    """The backend's batches of B = 1..8 volume rows, each pose looking up
+    its own row."""
+    vols, poses = k4_case(name)
+    vols, poses = vols_prefix(vols, b), poses[:b]
+    want, _ = k4_plain(name, vols, poses)
+    assert same(vol_lookup_twin(vols, poses)[0], want)
+
+
+@pytest.mark.parametrize("name", K4_REFINE_CASES)
+def test_k4_refine_twin_equals_plain(name):
+    """K4's refinement (27 candidates a pass, thread 0's serial first
+    minimum, the first NaN where there is one) == ``refine_estimate_plain``
+    over three passes: edge ties far outside the windows and a zero volume
+    (every candidate ties: the first wins), NaN distances."""
+    vols, est, offs = k4_refine_case(name)
+    want = correlative.refine_estimate_plain(vols, est, offs)
+    assert same(vol_refine_twin(vols, est, offs), want)
+    if name == "zero":
+        assert torch.equal(want, ((est + offs[0]) + offs[0]) + offs[0])
+
+
+def _former_loop(vols, est_pose, offs):
+    """The estimate's refinement as ``pf_head`` and ``hybrid_head`` wrote it
+    inline before ``refine_estimate``."""
+    for _ in range(3):
+        cands = est_pose[None, :] + offs
+        d, _ = correlative.lookup_cascade(vols, cands)
+        est_pose = cands[torch.argmin(d).view(1)][0]   # no host sync
+    return est_pose
+
+
+@pytest.mark.parametrize("caller", ["pf_head", "hybrid_head"])
+def test_refine_estimate_equals_the_former_loop(caller, monkeypatch):
+    """Every ``refine_estimate`` call that a CPU run of each caller makes
+    (the PF's and the hybrid filter's) gives what the former inline loop
+    gives on the same volumes, estimate and offsets."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import ekf_hybrid, ekf_slam, fastslam
+
+    calls = []
+    real = correlative.refine_estimate
+
+    def record(vols, est_pose, offs):
+        out = real(vols, est_pose, offs)
+        calls.append((vols, est_pose.clone(), offs, out.clone()))
+        return out
+
+    monkeypatch.setattr(correlative, "refine_estimate", record)
+    ranges, _ = simulate.generate_dataset(8, seed=2)
+    if caller == "pf_head":
+        cfg = dataclasses.replace(DEFAULT_CONFIG, particles=dataclasses.replace(
+            DEFAULT_CONFIG.particles, n_particles=32))
+        fastslam.run_pf(ranges, cfg, device="cpu")
+    else:
+        ekf_cfg = ekf_slam.long_tour_config(16)
+        ekf_hybrid.run_ekf_hybrid(ranges, ekf_cfg, DEFAULT_CONFIG,
+                                  device="cpu")
+    assert len(calls) == 7
+    for vols, est, offs, out in calls:
+        assert torch.equal(out, _former_loop(vols, est, offs))
+
+
+def test_lookups_on_the_cpu_never_reach_the_kernel(monkeypatch):
+    """CPU tensors take the plain versions: neither K4's wrapper nor the
+    kernel library is touched and no launch is counted, in the three
+    lookups and in a CPU ``run_pf``, whose ``k4.launches`` counter reads
+    0 under a profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidar_slam_tpu_torch import _build
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import fastslam
+    from lidar_slam_tpu_torch.utils.profiling import SPANS
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the CPU path reached the kernel")
+
+    for fn in ("lookup_cascade_cuda", "lookup_avg_distance_cuda",
+               "refine_estimate_cuda", "launch", "launch_refine"):
+        monkeypatch.setattr(cuda_vol_lookup, fn, refuse)
+    monkeypatch.setattr(_build, "load_kernels", refuse)
+    before = (cuda_vol_lookup.launches,
+              dict(cuda_vol_lookup.launches_by_shape))
+    vols, est, offs = k4_refine_case("levels-3")
+    _, poses = k4_case("levels-3")
+    assert same(correlative.lookup_cascade(vols, poses)[0],
+                correlative.lookup_cascade_plain(vols, poses)[0])
+    assert same(correlative.lookup_avg_distance(vols[0], poses),
+                correlative.lookup_avg_distance_plain(vols[0], poses))
+    assert same(correlative.refine_estimate(vols, est, offs),
+                correlative.refine_estimate_plain(vols, est, offs))
+    ranges, _ = simulate.generate_dataset(6, seed=1)
+    SPANS.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        path, _ = fastslam.run_pf(ranges, DEFAULT_CONFIG, device="cpu")
+    counters = dict(SPANS.counters)
+    SPANS.clear()
+    assert path.shape == (6, 3) and counters["k4.launches"] == 0
+    assert (cuda_vol_lookup.launches,
+            dict(cuda_vol_lookup.launches_by_shape)) == before
+
+
+def test_k4_wrapper_refuses_what_the_kernel_does_not_take():
+    """The wrapper's checks: 1 to 3 levels of one shape, float32, W =
+    2 half + 1, every tensor on the poses' device; CPU poses go to the
+    plain versions, never to the kernel."""
+    cpu = torch.device("cpu")
+    vols, poses = k4_case("levels-3")
+    assert cuda_vol_lookup._cascade(vols, cpu) == (0, 7, 13, 6)
+    assert cuda_vol_lookup._cascade(k4_case("closure-8x27")[0], cpu) == (
+        8, 21, 29, 14)
+    bad = {
+        "1 to 3": vols + vols[:1],
+        "float32": [vols[0]._replace(counts=vols[0].counts.double())],
+        "2 \\* half": [vols[0]._replace(half=5)],
+        "level 1": [vols[0], vols[1]._replace(scores=vols[1].scores[:6])],
+        "base_pose": [vols[0]._replace(base_pose=torch.zeros(2, 3))],
+        "is on meta": [vols[0]._replace(scores=vols[0].scores.to("meta"))],
+    }
+    for match, v in bad.items():
+        with pytest.raises(ValueError, match=match):
+            cuda_vol_lookup._cascade(v, cpu)
+    for call in (lambda: cuda_vol_lookup.lookup_cascade_cuda(vols, poses),
+                 lambda: cuda_vol_lookup.refine_estimate_cuda(
+                     vols, poses[0], poses[:27])):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()

@@ -6,8 +6,8 @@ every number ``compare`` holds it to, over a run with refreshes and
 resamples; the bfloat16 control fails the same comparison; a whole run of
 the cell is correct, and comes out not correct with the timed path broken
 underneath; under the profiler ``run_pf`` records one ``session``, a
-``pf.draw`` span a replayed scan and the ``pf.refreshes`` counter; the cell's
-two new readers read a hand-made log."""
+``pf.draw`` span a replayed scan and the ``pf.refreshes`` and
+``k4.launches`` counters; the cell's readers read a hand-made log."""
 
 import ast
 import pathlib
@@ -162,7 +162,8 @@ def test_run_pf_records_session_draws_and_refreshes(session):
     assert len(draws) == len(ranges) - 2       # scan 1 runs eagerly
     assert all(s.parent == sessions[0] and s.end_ns >= s.start_ns
                for s in draws)
-    assert counters == {"pf.refreshes": ref["refreshes"]}
+    # the CPU runs no K4 launch
+    assert counters == {"pf.refreshes": ref["refreshes"], "k4.launches": 0}
     # no span opens inside the captured body
     bodies = {i for i, s in enumerate(spans) if s.name == "graphs.replay"}
     assert len(bodies) == len(ranges) - 2
@@ -180,8 +181,8 @@ def test_unprofiled_run_pf_records_nothing():
 
 
 def _log() -> SpanLog:
-    """A session (0-10 ms) with three draws of 20, 40 and 60 µs and 4
-    refreshes counted."""
+    """A session (0-10 ms) with three draws of 20, 40 and 60 µs, 4
+    refreshes and 80 K4 launches counted."""
     log = SpanLog()
     log.spans.append(Span("session", "run_pf", None, 0, 10_000_000, None, 1))
     for k, us in enumerate((20, 40, 60)):
@@ -190,11 +191,13 @@ def _log() -> SpanLog:
                               start + us * 1000, 0, 1))
     log.spans.append(Span("pf.draw", None, None, 9_000_000, None, 0, 1))
     log.counters["pf.refreshes"] = 4
+    log.counters["k4.launches"] = 80
     return log
 
 
 @pytest.mark.parametrize("metric,value", [("pf.draw_us_per_step", 40.0),
-                                          ("pf.refreshes_per_scan", 0.1)])
+                                          ("pf.refreshes_per_scan", 0.1),
+                                          ("k4.launches_per_scan", 2.0)])
 def test_pf_readers_read_a_hand_made_log(metric, value, monkeypatch):
     read = harness.metric_reader(metric)
     data = {"scans_traced": 40}
