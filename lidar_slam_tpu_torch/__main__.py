@@ -94,7 +94,7 @@ def cmd_simulate(args) -> int:
 def _run_pf(args, ranges, cfg, device):
     """The pf mode: plain, resumed from ``--resume``, or supervised.
     Returns (path numpy, final state, scan the ATE starts at)."""
-    from lidar_slam_tpu_torch.models import fastslam
+    from lidar_slam_tpu_torch.models import fastslam, scan_matcher
     from lidar_slam_tpu_torch.utils import checkpoint, graphs
 
     def template():
@@ -123,14 +123,11 @@ def _run_pf(args, ranges, cfg, device):
         state = checkpoint.load_state(args.resume, template())
         start = state.step
         print(f"resumed from {args.resume} at scan {start}")
-        scans = torch.as_tensor(np.asarray(ranges, np.float32),
-                                device=device)
-        step = fastslam.make_pf_step(cfg, device)
-        poses = [np.zeros(3, np.float32)] * start
-        for t in range(start, len(scans)):
-            state, pose = step(state, scans[t])
-            poses.append(pose)
-        return np.stack(poses), graphs.clone_tree(step.finish(state)), start
+        scans = scan_matcher.as_ranges(ranges, device)
+        path, state = graphs.host_loop(fastslam.make_pf_step(cfg, device),
+                                       state, len(scans),
+                                       lambda t: (scans[t],), start)
+        return path, state, start
     path, state = fastslam.run_pf(ranges, cfg, seed=args.seed, device=device)
     return path.cpu().numpy(), state, 0
 

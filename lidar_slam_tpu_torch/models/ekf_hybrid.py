@@ -21,7 +21,8 @@ come from batched pre-passes over the whole log (``ops/landmarks``;
 In the eager ``hybrid_step`` JAX's ``lax.cond`` on the keyframe test
 becomes one host branch a scan (the step's one device->host sync); ``step``
 and ``mini_updated`` are host values. ``hybrid_step`` is ``hybrid_head``
-(up to the test), that sync, and ``hybrid_refresh`` when the test passed.
+(up to the test), that sync, and the particle filter's ``pf_refresh`` of
+the shared map when the test passed.
 ``HybridStepFn`` (JAX's jitted ``_run_hybrid_jit``, driven by
 ``run_ekf_hybrid``) captures both as one CUDA graph for every detection
 count over static buffers (``utils/graphs``): the association loop is a
@@ -41,18 +42,19 @@ import torch
 from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, SlamConfig
 from lidar_slam_tpu_torch.core import gridmap, se2, sensor
 from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap
-from lidar_slam_tpu_torch.device import constant, resolve_device
+from lidar_slam_tpu_torch.device import resolve_device
 from lidar_slam_tpu_torch.models import ekf_slam
 from lidar_slam_tpu_torch.models.ekf_slam import (EkfSlamConfig, EkfSlamState,
                                                   ekf_slam_step_ml,
                                                   init_ekf_slam)
-from lidar_slam_tpu_torch.models.fastslam import _OFFS27, draw
+from lidar_slam_tpu_torch.models.fastslam import (PfHead, pf_refresh,
+                                                  refined_estimate,
+                                                  stage_draws)
 from lidar_slam_tpu_torch.models.scan_matcher import (angles_tensor,
+                                                      keyframe_test,
                                                       pose_and_test)
 from lidar_slam_tpu_torch.ops import correlative
-from lidar_slam_tpu_torch.ops import edt as edt_ops
 from lidar_slam_tpu_torch.ops import landmarks as lm_ops
-from lidar_slam_tpu_torch.ops import matching
 from lidar_slam_tpu_torch.ops.scan_odometry import pairwise_odometry
 from lidar_slam_tpu_torch.utils import graphs
 
@@ -85,23 +87,14 @@ def init_hybrid(ranges0: torch.Tensor, ekf_cfg: EkfSlamConfig,
         step=1, mini_updated=True)
 
 
-class HybridHead(NamedTuple):
-    """A hybrid step up to its keyframe test (``hybrid_head``)."""
-    state: HybridState        # the next state if the test fails
-    scan: sensor.Scan
-    est_pose: torch.Tensor    # (3,) the step's estimate
-    test: torch.Tensor        # () bool, the mini-update rule's test
-
-
 def hybrid_head(state: HybridState, ranges: torch.Tensor, obs: torch.Tensor,
                 obs_valid: torch.Tensor, odo: torch.Tensor,
                 ekf_cfg: EkfSlamConfig, cfg: SlamConfig,
-                angles: torch.Tensor, draws=None, n_det=None) -> HybridHead:
+                angles: torch.Tensor, draws=None, n_det=None) -> PfHead:
     """A step up to its keyframe test: the volume, the ML step with the grid
     term, the estimate and the test. No host sync. Arguments as
     ``hybrid_step``."""
-    pc, m, mc = cfg.particles, cfg.map, cfg.matcher
-    dev = ranges.device
+    pc, mc = cfg.particles, cfg.matcher
     scan = sensor.read_scan(ranges, angles, cfg.lidar)
 
     # --- correlation volume(s) around the odometry-predicted mean pose
@@ -124,43 +117,11 @@ def hybrid_head(state: HybridState, ranges: torch.Tensor, obs: torch.Tensor,
                                n_det=n_det)
 
     # --- estimate: weighted mean + three 27-candidate argmin refinements
-    est_pose = ekf_slam._weighted_mean(ekf2.logw, ekf2.poses)
-    steps = np.asarray([mc.fine_t, mc.fine_t, mc.fine_r], np.float32)
-    offs = constant(tuple(map(tuple, (_OFFS27 * steps).tolist())), dev)
-    est_pose = correlative.refine_estimate(vols, est_pose, offs)
-
-    # --- the mini-update rule's test
-    dp = torch.abs(est_pose - state.pmap.keyframe_pose)
-    test = ((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
-            | (dp[2] > m.mini_update_dr))
+    est_pose = refined_estimate(
+        vols, ekf_slam._weighted_mean(ekf2.logw, ekf2.poses), mc)
+    test = keyframe_test(est_pose, state.pmap.keyframe_pose, cfg.map)
     kept = state._replace(ekf=ekf2, step=state.step + 1, mini_updated=False)
-    return HybridHead(state=kept, scan=scan, est_pose=est_pose, test=test)
-
-
-def hybrid_refresh(head: HybridHead, first: bool, cfg: SlamConfig
-                   ) -> HybridState:
-    """The keyframe refresh of the shared map when the test passed (or on
-    the first step, ``first``, whose field is still empty): append the
-    novel points, crop, raster and the field (K1 on CUDA)."""
-    g, m = cfg.grid, cfg.map
-    st, scan, est_pose = head.state, head.scan, head.est_pose
-    wx, wy = se2.transform_ref(scan.x, scan.y, est_pose)
-    if first:
-        novel = scan.valid   # the field is still empty: seed from all
-    else:
-        _, hits, inb = matching.score_candidates(
-            st.fine_metric, st.fine, scan.x, scan.y, scan.valid,
-            est_pose[None])
-        novel = (hits[0] > m.new_point_threshold) & inb[0]
-    pmap = gridmap.append_points(st.pmap, wx, wy, novel, est_pose)
-    local = gridmap.extract_local_map(pmap, wx, wy, scan.valid,
-                                      g.border_size)
-    min_xy, max_xy = gridmap.local_bounds(local)
-    fine = gridmap.rasterize(local, g.fine_pixel, g.fine_size, min_xy,
-                             max_xy, g.margin_pixels)
-    fine_metric = edt_ops.edt(fine.occ, int(g.max_dist_px))
-    return st._replace(pmap=pmap, fine=fine, fine_metric=fine_metric,
-                       mini_updated=True)
+    return PfHead(state=kept, scan=scan, est_pose=est_pose, test=test)
 
 
 def hybrid_step(state: HybridState, ranges: torch.Tensor, obs: torch.Tensor,
@@ -172,12 +133,12 @@ def hybrid_step(state: HybridState, ranges: torch.Tensor, obs: torch.Tensor,
     first ``n_det`` valid), odo (3,) its scan-odometry delta. Returns
     (state, estimated pose): ``hybrid_head``, the keyframe test on the host
     (the step's one sync; none on the first step, which always refreshes),
-    ``hybrid_refresh`` if it passed."""
+    the shared map's refresh (``fastslam.pf_refresh``) if it passed."""
     head = hybrid_head(state, ranges, obs, obs_valid, odo, ekf_cfg, cfg,
                        angles, draws, n_det)
     first = state.step == 1
     if first or bool(head.test.item()):
-        return hybrid_refresh(head, first, cfg), head.est_pose
+        return pf_refresh(head, first, cfg), head.est_pose
     return head.state, head.est_pose
 
 
@@ -189,113 +150,69 @@ class _Static(NamedTuple):
     odo: torch.Tensor      # (3,)
     noise: torch.Tensor    # (P, 3) the step's proposal noise
     u0: torch.Tensor       # () the step's resampling offset
-    head: HybridHead       # head.state is the step's state
+    head: PfHead           # head.state is the step's state
     out: torch.Tensor      # (4,) the estimate and the test
 
 
-class HybridStepFn:
+class HybridStepFn(graphs.CapturedStep):
     """``step(state, ranges, obs, valid, odo, n_det=None, draws=None) ->
-    (state, pose)``: ``hybrid_step`` as one captured CUDA graph
-    (``utils/graphs``) for every detection count, JAX's jitted step with
-    its state donated (``scan_matcher.StepFn`` has the conventions): the
+    (state, pose)``: ``hybrid_step`` as one captured CUDA graph for every
+    detection count (``graphs.CapturedStep`` has the conventions): the
     head, whose association loop is a WHILE node over the valid rows of
     ``valid`` (``ekf_slam.DEVICE_LOOP``), and an IF node on the device test
     holding the refresh. A step draws with ``draw`` from the filter's
     generator (or uploads ``draws``) into static buffers and replays the
-    graph; ``advance(...)`` reads nothing on the host (the state's
-    ``mini_updated`` is the device test, read back by ``finish`` with the
-    conditional bodies' launch counts), ``step(...)`` also reads the
-    estimate and the test in one 16-byte device->host copy. Scan 1
-    (``state.step == 1``, the seed arm) runs eagerly: the only step that
-    takes ``n_det``, its detection count (None: its valid rows are found on
-    the host). ``self.pose`` is the step's estimate on the device, valid
-    until the next call."""
+    graph; ``advance`` returns the device test as the state's
+    ``mini_updated``, read back by ``finish`` with the conditional bodies'
+    launch counts. Scan 1 (``state.step == 1``, the seed arm) runs eagerly:
+    the only step that takes ``n_det``, its detection count (None: its
+    valid rows are found on the host)."""
+
+    key = None
 
     def __init__(self, ekf_cfg: EkfSlamConfig, cfg: SlamConfig,
                  device: str | torch.device = "cuda"):
+        super().__init__(device)
         self.ekf_cfg, self.cfg = ekf_cfg, cfg
-        self.device = resolve_device(device)
         self.angles = angles_tensor(cfg, self.device)
-        self.graphs = graphs.Graphs(self.device)
-        self.bufs: _Static | None = None
-        self.state: HybridState | None = None   # the state last returned
-        self.pose: torch.Tensor | None = None
 
-    def __call__(self, state: HybridState, ranges: torch.Tensor,
-                 obs: torch.Tensor, valid: torch.Tensor, odo: torch.Tensor,
-                 n_det=None, draws=None) -> tuple[HybridState, np.ndarray]:
-        if state.step == 1:
-            state = self.advance(state, ranges, obs, valid, odo, n_det, draws)
-            return state, self.pose.cpu().numpy()
-        self._replay(state, ranges, obs, valid, odo, draws)
-        host = self.bufs.out.to("cpu", copy=True)   # a copy on the CPU too
-        self.state = self.state._replace(mini_updated=bool(host[3]))
-        return self.state, host[:3].numpy()
+    def _eager(self, state: HybridState, ranges, obs, valid, odo,
+               n_det=None, draws=None):
+        state, self.pose = hybrid_step(state, ranges, obs, valid, odo,
+                                       self.ekf_cfg, self.cfg, self.angles,
+                                       draws, n_det)
+        return state, self.pose
 
-    def advance(self, state: HybridState, ranges: torch.Tensor,
-                obs: torch.Tensor, valid: torch.Tensor, odo: torch.Tensor,
-                n_det=None, draws=None) -> HybridState:
-        """One step with no host read after scan 1 (it runs under the sync
-        debug mode "error" on the card): the returned state's
-        ``mini_updated`` is the step's device test."""
-        if state.step == 1:
-            state, self.pose = hybrid_step(state, ranges, obs, valid, odo,
-                                           self.ekf_cfg, self.cfg,
-                                           self.angles, draws, n_det)
-            return state
-        with graphs.no_host_sync(self.device):
-            self._replay(state, ranges, obs, valid, odo, draws)
-        return self.state
+    def _alloc(self, state: HybridState, ranges, obs, *rest, **kw
+               ) -> _Static:
+        n, p = self.cfg.lidar.n_beams, self.ekf_cfg.n_particles
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return _Static(
+            ranges=torch.zeros(n, **f32), obs=torch.zeros(obs.shape, **f32),
+            valid=torch.zeros(obs.shape[:1], dtype=torch.bool,
+                              device=self.device),
+            odo=torch.zeros(3, **f32), noise=torch.zeros((p, 3), **f32),
+            u0=torch.zeros((), **f32),
+            head=PfHead(state=state, scan=sensor.empty_scan(n, self.device),
+                        est_pose=torch.zeros(3, **f32),
+                        test=torch.zeros((), dtype=torch.bool,
+                                         device=self.device)),
+            out=torch.zeros(4, **f32))
 
-    def finish(self, state: HybridState) -> HybridState:
-        """``state`` with its ``mini_updated`` read back to a host bool,
-        and the step's conditional launches and loop iterations counted:
-        the run's one host read (``graphs.finish``)."""
-        return graphs.finish(self, state)
-
-    def _replay(self, state: HybridState, ranges, obs, valid, odo,
-                draws) -> None:
-        if state is not self.state:
-            self._load(state, obs)
+    def _stage(self, state: HybridState, ranges, obs, valid, odo,
+               n_det=None, draws=None) -> None:
         b = self.bufs
         for buf, x in ((b.ranges, ranges), (b.obs, obs), (b.valid, valid),
                        (b.odo, odo)):
             buf.copy_(x, non_blocking=True)
-        if draws is None:
-            noise, u0 = draw(state.ekf, self.ekf_cfg.n_particles)
-            b.noise.copy_(noise)
-            b.u0.copy_(u0)
-        else:
-            graphs.upload(b.noise, np.asarray(draws[0], np.float32))
-            graphs.upload(b.u0, np.asarray(draws[1], np.float32))
-        self.graphs.run(None, self._body, b)
-        st = b.head.state
-        self.state = st._replace(ekf=st.ekf._replace(rng=state.ekf.rng),
-                                 step=state.step + 1,
-                                 mini_updated=b.head.test)
-        self.pose = b.head.est_pose
+        stage_draws(b, state.ekf, draws)
 
-    def _load(self, state: HybridState, obs: torch.Tensor) -> None:
-        if self.bufs is None:
-            n, p = self.cfg.lidar.n_beams, self.ekf_cfg.n_particles
-            f32 = dict(dtype=torch.float32, device=self.device)
-            self.bufs = _Static(
-                ranges=torch.zeros(n, **f32),
-                obs=torch.zeros(obs.shape, **f32),
-                valid=torch.zeros(obs.shape[:1], dtype=torch.bool,
-                                  device=self.device),
-                odo=torch.zeros(3, **f32),
-                noise=torch.zeros((p, 3), **f32),
-                u0=torch.zeros((), **f32),
-                head=HybridHead(
-                    state=graphs.clone_tree(state),
-                    scan=sensor.empty_scan(n, self.device),
-                    est_pose=torch.zeros(3, **f32),
-                    test=torch.zeros((), dtype=torch.bool,
-                                     device=self.device)),
-                out=torch.zeros(4, **f32))
-        else:
-            graphs.copy_into(self.bufs.head.state, state)
+    def _returned(self, state: HybridState):
+        b = self.bufs
+        st = b.head.state
+        return (st._replace(ekf=st.ekf._replace(rng=state.ekf.rng),
+                            step=state.step + 1, mini_updated=b.head.test),
+                b.head.est_pose, b.head.scan)
 
     def _body(self, b: _Static) -> None:
         head = hybrid_head(b.head.state, b.ranges, b.obs, b.valid, b.odo,
@@ -303,7 +220,7 @@ class HybridStepFn:
                            draws=(b.noise, b.u0), n_det=ekf_slam.DEVICE_LOOP)
         graphs.copy_into(b.head, head)
         graphs.cond(b.head.test, lambda: graphs.copy_into(
-            b.head.state, hybrid_refresh(b.head, False, self.cfg)))
+            b.head.state, pf_refresh(b.head, False, self.cfg)))
         b.out.copy_(pose_and_test(b.head.est_pose, b.head.test))
 
 
@@ -345,16 +262,11 @@ def run_hybrid_inputs(inputs: HybridInputs, ekf_cfg: EkfSlamConfig,
     Returns (path (T, 3) on the inputs' device, final state)."""
     cfg = cfg or DEFAULT_CONFIG
     ranges, det, odo_all = inputs.ranges, inputs.det, inputs.odo
-    dev = ranges.device
     state = init_hybrid(ranges[0], ekf_cfg, cfg, seed)
-    step = HybridStepFn(ekf_cfg, cfg, dev)
-    path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32, device=dev)
-    for t in range(1, ranges.shape[0]):
-        state = step.advance(state, ranges[t], det.rb[t], det.valid[t],
-                             odo_all[t - 1], inputs.seed_count,
-                             None if draws is None else draws[t - 1])
-        path[t] = step.pose
-    return path, graphs.clone_tree(step.finish(state))
+    return graphs.drive(
+        HybridStepFn(ekf_cfg, cfg, ranges.device), state, ranges.shape[0],
+        lambda t: (ranges[t], det.rb[t], det.valid[t], odo_all[t - 1],
+                   inputs.seed_count, None if draws is None else draws[t - 1]))
 
 
 def run_ekf_hybrid(ranges_all: np.ndarray, ekf_cfg: EkfSlamConfig,

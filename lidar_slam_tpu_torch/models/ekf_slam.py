@@ -57,8 +57,9 @@ import torch
 from lidar_slam_tpu_torch.core import se2
 from lidar_slam_tpu_torch.device import constant, resolve_device, rounded64
 from lidar_slam_tpu_torch.models.fastslam import (ALL_ROWS, AllRows,
-                                                  _softmax64, draw,
+                                                  _softmax64,
                                                   effective_sample_size,
+                                                  stage_draws, step_draws,
                                                   systematic_resample)
 from lidar_slam_tpu_torch.utils import graphs
 
@@ -238,17 +239,6 @@ def _init_landmark(poses_xy, pth, zr, zb, meas_cov):
     return mean, _mm2(_mm2(jac, meas_cov), _t(jac))
 
 
-def _step_draws(state: EkfSlamState, draws, cfg: EkfSlamConfig,
-                rows: AllRows = ALL_ROWS):
-    """This block's rows of the step's proposal noise, and u0: the full
-    (P, 3) is drawn (or given) whatever the block."""
-    noise, u0 = draw(state, cfg.n_particles) if draws is None else draws
-    dev = state.poses.device
-    return (rows.rows(torch.as_tensor(noise, dtype=torch.float32,
-                                      device=dev)),
-            torch.as_tensor(u0, dtype=torch.float32, device=dev))
-
-
 def _resample(state: EkfSlamState, poses, logw, u0, cfg: EkfSlamConfig,
               banks, rows: AllRows = ALL_ROWS):
     """The ESS-gated systematic resampling shared by both steps: ancestors
@@ -273,7 +263,7 @@ def ekf_slam_step(state: EkfSlamState, odo: torch.Tensor, obs: torch.Tensor,
     (particle, landmark) pair with ``obs`` (L, 2) where ``vis`` (L,), then
     resample. Returns (state, estimated pose)."""
     dev = state.poses.device
-    noise, u0 = _step_draws(state, draws, cfg)
+    noise, u0 = step_draws(state, draws, cfg.n_particles)
     sigma = constant((cfg.odo_xy_noise, cfg.odo_xy_noise, cfg.odo_th_noise),
                      dev)
     poses = _compose_ref(state.poses, odo[None, :] + noise * sigma)
@@ -476,7 +466,7 @@ def ekf_slam_step_ml(state: EkfSlamState, obs: torch.Tensor,
     mean then run over every particle's gathered rows, so a sharded step
     equals the unsharded one."""
     dev = state.poses.device
-    noise, u0 = _step_draws(state, draws, cfg, rows)
+    noise, u0 = step_draws(state, draws, cfg.n_particles, rows)
     sigma = constant((cfg.odo_xy_noise, cfg.odo_xy_noise, cfg.odo_th_noise),
                      dev)
     noise = noise * sigma
@@ -539,79 +529,68 @@ class _Static(NamedTuple):
     pose: torch.Tensor    # (3,) the step's estimate
 
 
-class EkfStepFn:
+class EkfStepFn(graphs.CapturedStep):
     """``step(state, obs, valid, odo, draws=None) -> (state, pose)``:
-    ``ekf_slam_step_ml`` as one captured CUDA graph (``utils/graphs``) for
-    every detection count: the association loop over the valid rows of
-    ``valid`` is a WHILE node (``DEVICE_LOOP``); with ``known`` one graph of
-    ``ekf_slam_step`` (``obs`` the (L, 2) observations, ``valid`` their
-    visibility). JAX's jitted scans with the state donated
-    (``scan_matcher.StepFn`` has the conventions).
+    ``ekf_slam_step_ml`` as one captured CUDA graph for every detection
+    count (``graphs.CapturedStep`` has the conventions): the association
+    loop over the valid rows of ``valid`` is a WHILE node
+    (``DEVICE_LOOP``); with ``known`` one graph of ``ekf_slam_step``
+    (``obs`` the (L, 2) observations, ``valid`` their visibility).
 
     A step draws its noise and offset with ``draw`` from the state's
     generator (or uploads ``draws``) into static buffers, as the eager step
-    does, and replays its graph; nothing comes back to the host. The
-    returned state's tensors and the estimate ``pose`` are the step's
-    buffers, valid until the next call (``self.pose`` is the same tensor).
-    ``graphs.finish(step, state)`` (the run's one read) books the
+    does, and replays its graph; every step is captured (there is no eager
+    scan 1), and ``step`` reads nothing on the host: it returns the
+    estimate ``pose`` on the device, the step's buffer (``self.pose`` is
+    the same tensor). ``finish`` (the run's one read) books the
     association loop's iterations.
 
-    ``rows`` is ``ekf_slam_step_ml``'s: a sharded step
-    (``parallel/sharded_ekf.py``) holds a block of the particles, and its
-    collectives (the weights' gather, the resampling's) are captured in
-    the main graph, none in the WHILE body, and a mesh axis as ``rows``
-    books them once a replay. The noise buffer holds the full (P, 3); the
-    body keeps its rows."""
+    ``rows`` is ``ekf_slam_step_ml``'s (``parallel/sharded_ekf.py``): a
+    sharded step's collectives are captured in the main graph, none in the
+    WHILE body, and booked once a replay."""
+
+    key = None
+    eager_first = False
 
     def __init__(self, cfg: EkfSlamConfig, device: str | torch.device = "cuda",
                  known: bool = False, rows: AllRows = ALL_ROWS):
         if known and rows is not ALL_ROWS:
             raise ValueError("the known-association step is not sharded")
+        super().__init__(device, graphs.COUNTED + (
+            () if rows is ALL_ROWS else (rows,)))
         self.cfg = cfg
         self.known = known
         self.rows = rows
-        self.device = resolve_device(device)
-        self.graphs = graphs.Graphs(self.device, counters=graphs.COUNTED + (
-            () if rows is ALL_ROWS else (rows,)))
-        self.bufs: _Static | None = None
-        self.state: EkfSlamState | None = None   # the state last returned
-        self.pose: torch.Tensor | None = None
 
     def __call__(self, state: EkfSlamState, obs: torch.Tensor,
                  valid: torch.Tensor, odo: torch.Tensor, draws=None
                  ) -> tuple[EkfSlamState, torch.Tensor]:
-        if state is not self.state:
-            self._load(state, obs, valid)
-        b = self.bufs
-        b.obs.copy_(obs, non_blocking=True)
-        b.valid.copy_(valid, non_blocking=True)
-        b.odo.copy_(odo, non_blocking=True)
-        if draws is None:
-            noise, u0 = draw(state, self.cfg.n_particles)
-            b.noise.copy_(noise)
-            b.u0.copy_(u0)
-        else:
-            graphs.upload(b.noise, np.asarray(draws[0], np.float32))
-            graphs.upload(b.u0, np.asarray(draws[1], np.float32))
-        self.graphs.run(None, self._body, b)
-        self.state = b.state._replace(rng=state.rng)
-        self.pose = b.pose
-        return self.state, b.pose
+        return self._replay(state, obs, valid, odo, draws), self.pose
 
-    def _load(self, state: EkfSlamState, obs: torch.Tensor,
-              valid: torch.Tensor) -> None:
-        if self.bufs is None:
-            f32 = dict(dtype=torch.float32, device=self.device)
-            self.bufs = _Static(
-                obs=torch.zeros(obs.shape, **f32),
-                valid=torch.zeros(valid.shape, dtype=torch.bool,
-                                  device=self.device),
-                odo=torch.zeros(3, **f32),
-                noise=torch.zeros((self.cfg.n_particles, 3), **f32),
-                u0=torch.zeros((), **f32),
-                state=graphs.clone_tree(state), pose=torch.zeros(3, **f32))
-        else:
-            graphs.copy_into(self.bufs.state, state)
+    def _alloc(self, state: EkfSlamState, obs, valid, *rest, **kw
+               ) -> _Static:
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return _Static(
+            obs=torch.zeros(obs.shape, **f32),
+            valid=torch.zeros(valid.shape, dtype=torch.bool,
+                              device=self.device),
+            odo=torch.zeros(3, **f32),
+            noise=torch.zeros((self.cfg.n_particles, 3), **f32),
+            u0=torch.zeros((), **f32), state=state,
+            pose=torch.zeros(3, **f32))
+
+    def _held(self) -> EkfSlamState:
+        return self.bufs.state
+
+    def _stage(self, state: EkfSlamState, obs, valid, odo,
+               draws=None) -> None:
+        b = self.bufs
+        for buf, x in ((b.obs, obs), (b.valid, valid), (b.odo, odo)):
+            buf.copy_(x, non_blocking=True)
+        stage_draws(b, state, draws)
+
+    def _returned(self, state: EkfSlamState):
+        return self.bufs.state._replace(rng=state.rng), self.bufs.pose, None
 
     def _body(self, b: _Static) -> None:
         if self.known:
@@ -649,25 +628,23 @@ def run_ml(obs_all, valid_all, odo_all, cfg: EkfSlamConfig, seed: int = 0,
     state = state._replace(**{f: rows.rows(getattr(state, f))
                               for f in PARTICLE_LEAVES})
     n = obs_all.shape[0]
+    if not eager:
+        return graphs.drive(
+            EkfStepFn(cfg, dev, rows=rows), state, n + 1,
+            lambda t: (obs_all[t - 1], valid_all[t - 1], odo_all[t - 1],
+                       None if draws is None else draws[t - 1]))
     path = torch.zeros((n + 1, 3), dtype=torch.float32, device=dev)
-    if eager:
-        if counts is None:
-            dets = [tuple(np.flatnonzero(v).tolist())
-                    for v in valid_all.cpu().numpy()]
-        else:
-            dets = torch.as_tensor(counts).tolist()
-        for t in range(n):
-            state, path[t + 1] = ekf_slam_step_ml(
-                state, obs_all[t], valid_all[t], cfg, odo=odo_all[t],
-                draws=None if draws is None else draws[t], n_det=dets[t],
-                rows=rows)
-        return path, state
-    step = EkfStepFn(cfg, dev, rows=rows)
+    if counts is None:
+        dets = [tuple(np.flatnonzero(v).tolist())
+                for v in valid_all.cpu().numpy()]
+    else:
+        dets = torch.as_tensor(counts).tolist()
     for t in range(n):
-        state, _ = step(state, obs_all[t], valid_all[t], odo_all[t],
-                        None if draws is None else draws[t])
-        path[t + 1] = step.pose
-    return path, graphs.clone_tree(graphs.finish(step, state))
+        state, path[t + 1] = ekf_slam_step_ml(
+            state, obs_all[t], valid_all[t], cfg, odo=odo_all[t],
+            draws=None if draws is None else draws[t], n_det=dets[t],
+            rows=rows)
+    return path, state
 
 
 def scan_inputs(ranges_all: np.ndarray, cfg: EkfSlamConfig, lidar_cfg=None,
@@ -743,14 +720,10 @@ def run_ekf_slam(odom: np.ndarray, obs: np.ndarray, vis: np.ndarray,
     obs = torch.as_tensor(np.asarray(obs, np.float32), device=dev)
     vis = torch.as_tensor(np.asarray(vis, bool), device=dev)
     state = init_ekf_slam(cfg, seed, dev)
-    step = EkfStepFn(cfg, dev, known=True)
-    path = torch.zeros((odom.shape[0] + 1, 3), dtype=torch.float32,
-                       device=dev)
-    for t in range(odom.shape[0]):
-        state, _ = step(state, obs[t + 1], vis[t + 1], odom[t],
-                        draws=None if draws is None else draws[t])
-        path[t + 1] = step.pose
-    return path, graphs.clone_tree(state)
+    return graphs.drive(
+        EkfStepFn(cfg, dev, known=True), state, odom.shape[0] + 1,
+        lambda t: (obs[t], vis[t], odom[t - 1],
+                   None if draws is None else draws[t - 1]))
 
 
 def landmark_estimates(state: EkfSlamState) -> np.ndarray:

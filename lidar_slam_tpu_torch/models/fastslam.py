@@ -51,8 +51,10 @@ import torch
 from lidar_slam_tpu_torch.config import SlamConfig
 from lidar_slam_tpu_torch.core import gridmap, se2, sensor
 from lidar_slam_tpu_torch.core.gridmap import OccGrid, PointMap
-from lidar_slam_tpu_torch.device import constant, resolve_device
+from lidar_slam_tpu_torch.device import constant
 from lidar_slam_tpu_torch.models.scan_matcher import (angles_tensor,
+                                                      as_ranges,
+                                                      keyframe_test,
                                                       pose_and_test)
 from lidar_slam_tpu_torch.ops import correlative, cuda_vol_lookup
 from lidar_slam_tpu_torch.ops import edt as edt_ops
@@ -150,12 +152,49 @@ def draw(state: ParticleState, p: int | None = None
     return noise, u0
 
 
+def step_draws(state: ParticleState, draws, p: int,
+               rows: AllRows = ALL_ROWS) -> tuple[torch.Tensor, torch.Tensor]:
+    """A step's proposal noise (this block's rows of the (P, 3), drawn or
+    given whatever the block) and resampling offset, on the state's
+    device: ``draws``, or with None ``draw(state, p)``."""
+    noise, u0 = draw(state, p) if draws is None else draws
+    dev = state.poses.device
+    return (rows.rows(torch.as_tensor(noise, dtype=torch.float32,
+                                      device=dev)),
+            torch.as_tensor(u0, dtype=torch.float32, device=dev))
+
+
+def stage_draws(bufs, state, draws) -> None:
+    """A captured filter step's draws into its static buffers ``bufs.noise``
+    (P, 3) and ``bufs.u0``: drawn from ``state``'s generator (``draw``, the
+    eager step's calls in the same order), or the injected ``draws``
+    uploaded."""
+    if draws is None:
+        noise, u0 = draw(state, bufs.noise.shape[0])
+        bufs.noise.copy_(noise)
+        bufs.u0.copy_(u0)
+    else:
+        graphs.upload(bufs.noise, np.asarray(draws[0], np.float32))
+        graphs.upload(bufs.u0, np.asarray(draws[1], np.float32))
+
+
 _OFFS27 = np.stack(np.meshgrid(*([np.asarray([-1.0, 0.0, 1.0], np.float32)] * 3),
                                indexing="ij"), axis=-1).reshape(27, 3)
 
 
+def refined_estimate(vols, est_pose: torch.Tensor, mc) -> torch.Tensor:
+    """A filter's weighted-mean estimate refined by three argmin passes
+    over 27 candidates one fine step of the matcher config ``mc`` apart
+    (``correlative.refine_estimate``: one K4 launch on CUDA)."""
+    steps = np.asarray([mc.fine_t, mc.fine_t, mc.fine_r], np.float32)
+    offs = constant(tuple(map(tuple, (_OFFS27 * steps).tolist())),
+                    est_pose.device)
+    return correlative.refine_estimate(vols, est_pose, offs)
+
+
 class PfHead(NamedTuple):
-    """A particle-filter step up to its keyframe test (``pf_head``)."""
+    """A filter step up to its keyframe test (``pf_head``, and
+    ``ekf_hybrid.hybrid_head`` with its ``HybridState``)."""
     state: ParticleState      # the next state if the test fails
     scan: sensor.Scan
     est_pose: torch.Tensor    # (3,) the step's estimate
@@ -167,13 +206,11 @@ def pf_head(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
             rows: AllRows = ALL_ROWS) -> PfHead:
     """A step up to its keyframe test: propagate, build the volumes, look
     up, resample, estimate, test. No host sync. Arguments as ``pf_step``."""
-    pc, m, mc = cfg.particles, cfg.map, cfg.matcher
+    pc, mc = cfg.particles, cfg.matcher
     dev = state.poses.device
     p = pc.n_particles
     scan = sensor.read_scan(ranges, angles, cfg.lidar)
-    noise, u0 = draw(state, p) if draws is None else draws
-    noise = rows.rows(torch.as_tensor(noise, dtype=torch.float32, device=dev))
-    u0 = torch.as_tensor(u0, dtype=torch.float32, device=dev)
+    noise, u0 = step_draws(state, draws, p, rows)
 
     # --- propagate: per-particle constant velocity + Gaussian proposal noise
     vel = state.poses - state.prev_poses
@@ -221,14 +258,8 @@ def pf_head(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
     w_norm = _softmax64(logw)
     est_pose = torch.sum(w_norm[:, None] * resampled_poses.to(torch.float64),
                          dim=0).to(torch.float32)
-    steps = np.asarray([mc.fine_t, mc.fine_t, mc.fine_r], np.float32)
-    offs = constant(tuple(map(tuple, (_OFFS27 * steps).tolist())), dev)
-    est_pose = correlative.refine_estimate(vols, est_pose, offs)
-
-    # --- the mini-update rule's test
-    dp = torch.abs(est_pose - state.pmap.keyframe_pose)
-    test = ((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
-            | (dp[2] > m.mini_update_dr))
+    est_pose = refined_estimate(vols, est_pose, mc)
+    test = keyframe_test(est_pose, state.pmap.keyframe_pose, cfg.map)
     kept = state._replace(
         poses=rows.rows(resampled_poses), prev_poses=rows.rows(prev_for_vel),
         logw=rows.rows(logw), step=state.step + 1, mini_updated=False,
@@ -236,7 +267,7 @@ def pf_head(state: ParticleState, ranges: torch.Tensor, cfg: SlamConfig,
     return PfHead(state=kept, scan=scan, est_pose=est_pose, test=test)
 
 
-def pf_raster(head: PfHead, first: bool, cfg: SlamConfig) -> ParticleState:
+def pf_raster(head: PfHead, first: bool, cfg: SlamConfig):
     """``pf_refresh`` up to its field: append the novel points, crop and
     raster; the state keeps its current ``fine_metric``."""
     g, m = cfg.grid, cfg.map
@@ -259,12 +290,12 @@ def pf_raster(head: PfHead, first: bool, cfg: SlamConfig) -> ParticleState:
     return st._replace(mini_updated=True, pmap=pmap, fine=fine)
 
 
-def pf_refresh(head: PfHead, first: bool, cfg: SlamConfig, edt_fn=None
-               ) -> ParticleState:
-    """The keyframe refresh when the test passed (or on the first step,
+def pf_refresh(head: PfHead, first: bool, cfg: SlamConfig, edt_fn=None):
+    """The keyframe refresh of a filter's shared map (the particle
+    filter's, the hybrid's) when the test passed (or on the first step,
     ``first``, whose field is still empty): append the novel points, crop,
     raster (``pf_raster``), and the keyframe field (``edt_fn``, as
-    ``pf_step``)."""
+    ``pf_step``). Returns the head's state refreshed."""
     edt_fn = edt_ops.edt if edt_fn is None else edt_fn
     st = pf_raster(head, first, cfg)
     return st._replace(fine_metric=edt_fn(st.fine.occ,
@@ -304,55 +335,34 @@ class _PfStatic(NamedTuple):
     #                              edt_fn's; None otherwise)
 
 
-class PfStepFn:
+class PfStepFn(graphs.CapturedStep):
     """``step(state, ranges, draws=None) -> (state, pose)``: ``pf_step`` as
-    one captured CUDA graph (``utils/graphs``), JAX's jitted step with its
-    state donated: the head, then an IF node on the device test holding
-    ``pf_refresh``. A step draws its noise and offset with ``draw`` from
-    the state's generator (or uploads ``draws``) into static buffers, the
-    eager step's stream: the same generator calls in the same order.
-    ``advance(state, ranges, draws=None)`` replays the graph and reads
-    nothing on the host (the state's ``mini_updated`` is the device test;
-    ``finish`` reads it back with the arm's launch count); ``step(...)``
-    also reads the estimate and the test in one 16-byte device->host copy.
-    Scan 1 (``state.step == 1``) runs eagerly. ``refreshes()`` counts the
-    keyframe refreshes the step has run.
+    one captured CUDA graph (``graphs.CapturedStep`` has the conventions):
+    the head, then an IF node on the device test holding ``pf_refresh``. A
+    step draws its noise and offset with ``draw`` from the state's
+    generator (or uploads ``draws``) into static buffers, the eager step's
+    stream: the same generator calls in the same order. ``advance``
+    returns the device test as the state's ``mini_updated``; ``step``
+    reads the estimate and the test in one 16-byte copy. ``refreshes()``
+    counts the keyframe refreshes the step has run.
 
-    The returned state's tensors are the step's static buffers, valid until
-    the next call, which takes the state back; a state the step did not
-    return is copied in first (``scan_matcher.StepFn`` has the details).
-    ``self.pose`` is the step's estimate on the device and ``self.scan``
-    its gated scan (None after the eager scan 1), valid until the next
-    call.
-
-    ``rows`` and ``edt_fn`` are ``pf_step``'s: a sharded step
-    (``parallel/sharded.py``) holds a block of the particles, and its
-    collectives are captured in the main graph with its kernels, none
-    inside the IF node (the card's NCCL refuses a collective of two or
-    more ranks in a conditional body). An ``edt_fn`` that gathers comes
-    with its halves (``sharded_edt.ReplicatedField``: ``local``,
-    ``assemble``, ``block``): the arm then runs ``pf_raster`` and writes
-    this rank's block of the field into a static buffer, and after the IF
-    node the main graph all-gathers that buffer into the state's
-    ``fine_metric`` on every scan (after a scan with no keyframe, the same
-    blocks again). The noise buffer holds the full (P, 3), drawn from the
-    replicated generator; the body keeps its rows. ``axes``: the mesh axes
-    whose collectives the step runs, booked once a replay as the kernels'
-    launches are."""
+    ``rows`` and ``edt_fn`` are ``pf_step``'s (``parallel/sharded.py``):
+    a sharded step's collectives are captured in the main graph, none in
+    the IF node. An ``edt_fn`` that gathers comes with its halves
+    (``sharded_edt.ReplicatedField``: ``local``, ``assemble``, ``block``):
+    the arm then runs ``pf_raster`` and writes this rank's block of the
+    field into a static buffer, which the main graph all-gathers into the
+    state's ``fine_metric`` after the IF node on every scan. ``axes``: the
+    mesh axes whose collectives the step runs, booked once a replay."""
 
     def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda",
-                 rows: AllRows = ALL_ROWS, edt_fn=None, axes=()):
+                 rows: AllRows = ALL_ROWS, edt_fn=None, axes=(),
+                 draws_from=None):
+        super().__init__(device, graphs.COUNTED + tuple(axes), draws_from)
         self.cfg = cfg
-        self.device = resolve_device(device)
         self.rows, self.edt_fn = rows, edt_fn
         self.split = hasattr(edt_fn, "assemble")   # the field's two halves
         self.angles = angles_tensor(cfg, self.device)
-        self.graphs = graphs.Graphs(self.device,
-                                    counters=graphs.COUNTED + tuple(axes))
-        self.bufs: _PfStatic | None = None
-        self.state: ParticleState | None = None   # the state last returned
-        self.pose: torch.Tensor | None = None
-        self.scan: sensor.Scan | None = None
         # refreshes that no captured arm counts: scan 1's, which runs
         # eagerly, and on the CPU, where nothing is captured, the arm's
         self._host_refreshes = 0
@@ -364,86 +374,48 @@ class PfStepFn:
         return self._host_refreshes + sum(arm.settled
                                           for arm in self.graphs.arms)
 
-    def __call__(self, state: ParticleState, ranges: torch.Tensor,
-                 draws=None) -> tuple[ParticleState, np.ndarray]:
-        if state.step == 1:
-            state = self._first(state, ranges, draws)
-            return state, self.pose.cpu().numpy()
-        self._replay(state, ranges, draws)
-        host = self.bufs.out.to("cpu", copy=True)   # a copy on the CPU too
-        self.state = self.state._replace(mini_updated=bool(host[3]))
-        return self.state, host[:3].numpy()
-
-    def advance(self, state: ParticleState, ranges: torch.Tensor,
-                draws=None) -> ParticleState:
-        """One step with no host read after scan 1 (it runs under the sync
-        debug mode "error" on the card): the returned state's
-        ``mini_updated`` is the step's device test."""
-        if state.step == 1:
-            return self._first(state, ranges, draws)
-        with graphs.no_host_sync(self.device):
-            self._replay(state, ranges, draws)
-        return self.state
-
-    def finish(self, state: ParticleState) -> ParticleState:
-        """``state`` with its ``mini_updated`` read back to a host bool,
-        and the step's conditional launches counted: the run's one host
-        read (``graphs.finish``)."""
-        return graphs.finish(self, state)
-
-    def _first(self, state: ParticleState, ranges: torch.Tensor, draws):
+    def _eager(self, state: ParticleState, ranges: torch.Tensor,
+               draws=None):
         ranges = ranges.to(self.device, non_blocking=True)
         state, self.pose = pf_step(state, ranges, self.cfg, self.angles,
                                    draws, self.edt_fn, self.rows)
-        self.scan = None
         self._host_refreshes += 1     # scan 1 always refreshes
-        return state
+        return state, self.pose
 
-    def _replay(self, state: ParticleState, ranges: torch.Tensor,
-                draws) -> None:
-        if state is not self.state:
-            self._load(state)
-        b = self.bufs
-        b.ranges.copy_(ranges, non_blocking=True)
+    def _alloc(self, state: ParticleState, ranges, draws=None) -> _PfStatic:
+        n, p = self.cfg.lidar.n_beams, self.cfg.particles.n_particles
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return _PfStatic(
+            ranges=torch.zeros(n, **f32), noise=torch.zeros((p, 3), **f32),
+            u0=torch.zeros((), **f32),
+            head=PfHead(state=state, scan=sensor.empty_scan(n, self.device),
+                        est_pose=torch.zeros(3, **f32),
+                        test=torch.zeros((), dtype=torch.bool,
+                                         device=self.device)),
+            out=torch.zeros(4, **f32),
+            block=(torch.empty_like(self.edt_fn.block(state.fine_metric))
+                   if self.split else None))
+
+    def _load_fields(self, state: ParticleState) -> None:
+        if self.split:
+            self.bufs.block.copy_(self.edt_fn.block(state.fine_metric))
+
+    def _stage(self, state: ParticleState, ranges: torch.Tensor,
+               draws=None) -> None:
+        self.bufs.ranges.copy_(ranges, non_blocking=True)
         # eager launches outside the graph: a span that encloses device
         # work, so not in kineto's trace
         with span("pf.draw"):
-            if draws is None:
-                noise, u0 = draw(state, self.cfg.particles.n_particles)
-                b.noise.copy_(noise)
-                b.u0.copy_(u0)
-            else:
-                graphs.upload(b.noise, np.asarray(draws[0], np.float32))
-                graphs.upload(b.u0, np.asarray(draws[1], np.float32))
-        self.graphs.run("step", self._body, b)
+            stage_draws(self.bufs, state, draws)
+
+    def _returned(self, state: ParticleState):
+        b = self.bufs
         if not self.graphs.capturing:     # the CPU ran the arm if it held
             self._host_refreshes += int(bool(b.head.test))
-        self.state = b.head.state._replace(step=state.step + 1,
-                                           mini_updated=b.head.test,
-                                           rng=state.rng)
-        self.pose, self.scan = b.head.est_pose, b.head.scan
-
-    def _load(self, state: ParticleState) -> None:
-        if self.bufs is None:
-            n, p = self.cfg.lidar.n_beams, self.cfg.particles.n_particles
-            f32 = dict(dtype=torch.float32, device=self.device)
-            self.bufs = _PfStatic(
-                ranges=torch.zeros(n, **f32),
-                noise=torch.zeros((p, 3), **f32),
-                u0=torch.zeros((), **f32),
-                head=PfHead(
-                    state=graphs.clone_tree(state),
-                    scan=sensor.empty_scan(n, self.device),
-                    est_pose=torch.zeros(3, **f32),
-                    test=torch.zeros((), dtype=torch.bool,
-                                     device=self.device)),
-                out=torch.zeros(4, **f32),
-                block=(self.edt_fn.block(state.fine_metric).clone()
-                       if self.split else None))
-        else:
-            graphs.copy_into(self.bufs.head.state, state)
-            if self.split:
-                self.bufs.block.copy_(self.edt_fn.block(state.fine_metric))
+        return (b.head.state._replace(step=state.step + 1,
+                                      mini_updated=b.head.test,
+                                      rng=state.rng),
+                b.head.est_pose, b.head.scan)
 
     def _body(self, b: _PfStatic) -> None:
         head = pf_head(b.head.state, b.ranges, self.cfg, self.angles,
@@ -474,25 +446,20 @@ def make_pf_step(cfg: SlamConfig, device: str | torch.device = "cuda"
 def run_pf(ranges_all: np.ndarray, cfg: SlamConfig, seed: int = 0,
            device: str | torch.device = "cuda", draws=None
            ) -> tuple[torch.Tensor, ParticleState]:
-    """Whole-dataset particle-filter run through ``make_pf_step``, scans
-    2.. with no host sync and one read at the end. ``draws``, if given, is
-    a sequence of per-step ``(noise, u0)`` pairs for steps 1..T-1. Returns
-    (path (T, 3) on ``device``, final state). The call is one ``session``
-    span; its keyframe refreshes go to the counter ``pf.refreshes``, its K4
-    launches (two a scan on the card, none on the CPU) to ``k4.launches``."""
+    """Whole-dataset particle-filter run through ``make_pf_step``
+    (``graphs.drive``), scans 2.. with no host sync and one read at the
+    end. ``draws``, if given, is a sequence of per-step ``(noise, u0)``
+    pairs for steps 1..T-1. Returns (path (T, 3) on ``device``, final
+    state). The call is one ``session`` span; its keyframe refreshes go to
+    the counter ``pf.refreshes``, its K4 launches (two a scan on the card,
+    none on the CPU) to ``k4.launches``."""
     with session("run_pf", device):
         k4_before = cuda_vol_lookup.launches
-        ranges = torch.as_tensor(np.asarray(ranges_all, np.float32),
-                                 device=resolve_device(device))
+        ranges = as_ranges(ranges_all, device)
         step = make_pf_step(cfg, ranges.device)
-        state = init_particles(ranges[0], cfg, seed)
-        path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32,
-                           device=ranges.device)
-        for t in range(1, ranges.shape[0]):
-            state = step.advance(state, ranges[t],
-                                 None if draws is None else draws[t - 1])
-            path[t] = step.pose
-        state = graphs.clone_tree(step.finish(state))
+        path, state = graphs.drive(
+            step, init_particles(ranges[0], cfg, seed), ranges.shape[0],
+            lambda t: (ranges[t], None if draws is None else draws[t - 1]))
         SPANS.count("pf.refreshes", step.refreshes())
         SPANS.count("k4.launches", cuda_vol_lookup.launches - k4_before)
         return path, state

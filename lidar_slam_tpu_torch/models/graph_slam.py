@@ -812,8 +812,7 @@ class GraphSlam:
         if chunk_size is None:
             chunk_size = 256 if dev.type == "cuda" else 64
         cfg = self.cfg
-        ranges = torch.as_tensor(np.asarray(ranges_all, np.float32),
-                                 device=dev)
+        ranges = scan_matcher.as_ranges(ranges_all, dev)
         state = self.frontend.init_state(ranges[0], cfg)
         scan0 = sensor.read_scan(ranges[0], self.angles, cfg.lidar)
         s0 = torch.stack([scan0.x, scan0.y, scan0.valid.to(torch.float32)])
@@ -841,15 +840,7 @@ class GraphSlam:
                     r = ranges[t + i]
                     state = step.advance(state, r)
                     rows[i, :3] = step.pose
-                    flag = state.mini_updated
-                    if isinstance(flag, torch.Tensor):
-                        # the device bool of a step that read nothing on
-                        # the host
-                        rows[i, 3] = flag
-                    else:
-                        # a host bool: fill_, as an assignment would copy
-                        # it from pageable memory and synchronize
-                        rows[i, 3].fill_(flag)
+                    graphs.load_value(rows[i, 3], state.mini_updated)
                     q = getattr(state, "clamp_frac", None)
                     if q is not None:
                         rows[i, 4] = q

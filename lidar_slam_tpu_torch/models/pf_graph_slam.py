@@ -61,39 +61,8 @@ class _PFFrontend:
                                 draws=self.next_draws())
 
     def make_step_fn(self, cfg: SlamConfig, device):
-        return _PFStep(self, fastslam.make_pf_step(cfg, device))
-
-
-class _PFStep:
-    """``fastslam.PfStepFn`` fed the frontend's draws: ``advance(state,
-    ranges) -> state`` (no host read after scan 1), with its ``pose``,
-    ``scan``, ``graphs`` and ``state``."""
-
-    def __init__(self, frontend: _PFFrontend, step: fastslam.PfStepFn):
-        self.frontend, self.step = frontend, step
-
-    def advance(self, state, ranges: torch.Tensor):
-        return self.step.advance(state, ranges, self.frontend.next_draws())
-
-    @property
-    def pose(self) -> torch.Tensor:
-        return self.step.pose
-
-    @property
-    def scan(self):
-        return self.step.scan
-
-    @property
-    def graphs(self):
-        return self.step.graphs
-
-    @property
-    def state(self):
-        return self.step.state
-
-    @state.setter
-    def state(self, state) -> None:
-        self.step.state = state
+        """``fastslam.PfStepFn`` fed the frontend's draws."""
+        return fastslam.PfStepFn(cfg, device, draws_from=self.next_draws)
 
 
 def _np_correct_cloud(poses: np.ndarray, old_last: np.ndarray,

@@ -111,8 +111,9 @@ def _keyframe_maps(state: SlamState, scan: sensor.Scan, cfg: SlamConfig):
     return coarse, fine, coarse_metric, fine_metric, scan_wx, scan_wy
 
 
-def _maps(state: SlamState):
-    """The state's six map leaves, as ``_keyframe_maps`` returns them."""
+def map_leaves(state: SlamState):
+    """The state's six map leaves, as ``_keyframe_maps`` returns them (a
+    submap state's too)."""
     return (state.coarse, state.fine, state.coarse_metric,
             state.fine_metric, state.scan_wx, state.scan_wy)
 
@@ -139,9 +140,7 @@ def _head_end(state: SlamState, scan: sensor.Scan, maps,
                              m1_pose, mc.fine_t, mc.fine_r, int(mc.window_t),
                              int(mc.window_r), float(mc.window_penalty_px))
     new_pose = m2.pose
-    dp = torch.abs(new_pose - state.pmap.keyframe_pose)
-    test = ((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
-            | (dp[2] > m.mini_update_dr))
+    test = keyframe_test(new_pose, state.pmap.keyframe_pose, m)
     kept = SlamState(
         pose=new_pose, prev_pose=state.pose, step=state.step + 1,
         mini_updated=False, pmap=state.pmap, coarse=coarse, fine=fine,
@@ -157,7 +156,7 @@ def slam_head(state: SlamState, ranges: torch.Tensor, cfg: SlamConfig,
     mini_updated``, the two-stage match and the test. No host sync."""
     scan = sensor.read_scan(ranges, angles, cfg.lidar)
     maps = (_keyframe_maps(state, scan, cfg) if state.mini_updated
-            else _maps(state))
+            else map_leaves(state))
     # constant-velocity prediction (main.c:875-898)
     guess = (state.pose + (state.pose - state.prev_pose) if state.step > 1
              else state.pose)
@@ -211,12 +210,23 @@ def slam_step(state: SlamState, ranges: torch.Tensor, cfg: SlamConfig,
     return new_state, out_pose
 
 
+def keyframe_test(pose: torch.Tensor, keyframe_pose: torch.Tensor,
+                  map_cfg) -> torch.Tensor:
+    """() bool, the mini-update rule's test (main.c:928-931): ``pose`` is
+    further than ``map_cfg``'s ``mini_update_dt`` from ``keyframe_pose`` in
+    x or in y, or further than ``mini_update_dr`` in heading."""
+    dp = torch.abs(pose - keyframe_pose)
+    dt, dr = map_cfg.mini_update_dt, map_cfg.mini_update_dr
+    return (dp[0] > dt) | (dp[1] > dt) | (dp[2] > dr)
+
+
 def pose_and_test(pose: torch.Tensor, test: torch.Tensor) -> torch.Tensor:
     """(4,) f32: the pose and the keyframe test, for one device->host copy."""
     return torch.cat([pose, test.to(pose.dtype)[None]])
 
 
-def _as_ranges(ranges_all, device) -> torch.Tensor:
+def as_ranges(ranges_all, device) -> torch.Tensor:
+    """A log of ranges (T, N) as an f32 tensor on ``device``."""
     return torch.as_tensor(np.asarray(ranges_all, np.float32),
                            device=resolve_device(device))
 
@@ -230,10 +240,9 @@ class _Static(NamedTuple):
     out: torch.Tensor      # (4,) pose_and_test
 
 
-class StepFn:
+class StepFn(graphs.CapturedStep):
     """``step(state, ranges) -> (state, pose)``: ``slam_step`` as one
-    captured CUDA graph (``utils/graphs``), JAX's jitted step with its
-    state donated.
+    captured CUDA graph (``graphs.CapturedStep`` has the conventions).
 
     The graph is the whole step, JAX's ``slam_step`` arm by arm: an IF node
     on the device bool ``mini_updated`` holds the keyframe arm (extract,
@@ -241,100 +250,47 @@ class StepFn:
     hold the first match on the coarse or the fine field; the second match
     and the test follow; IF(``test & mini_updated``) and IF(``test &
     ~mini_updated``) hold ``slam_moved`` with and without the refresh; and
-    ``mini_updated := test`` on the device. ``advance(state, ranges)``
-    replays it and reads nothing on the host: the state it returns carries
-    the device bool as its ``mini_updated``, and ``finish`` reads it back
-    (with the arms' launch counts) in one copy. ``step(state, ranges)``
-    replays it and reads the pose and the test in one 16-byte device->host
-    copy, for a caller that needs each pose on the host. Scan 1
-    (``state.step == 1``, whose guess differs) runs eagerly.
-
-    The returned state's tensors are the step's static buffers: they hold
-    that state until the next call, which takes it back (JAX's
-    ``donate_argnums``); ``graphs.clone_tree`` keeps a copy. A state the
-    step did not return is copied into the buffers first. ``self.pose`` is
-    the step's pose on the state's device and ``self.scan`` its gated scan
-    (None after the eager scan 1), valid until the next call. On the CPU
-    the same body runs uncaptured on the same buffers."""
+    ``mini_updated := test`` on the device. ``advance`` returns the device
+    bool as the state's ``mini_updated``; ``step`` reads the pose and the
+    test in one 16-byte copy."""
 
     def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda"):
+        super().__init__(device)
         self.cfg = cfg
-        self.device = resolve_device(device)
         self.angles = angles_tensor(cfg, self.device)
-        self.graphs = graphs.Graphs(self.device)
-        self.bufs: _Static | None = None
-        self.state: SlamState | None = None   # the state last returned
-        self.pose: torch.Tensor | None = None
-        self.scan: sensor.Scan | None = None
 
-    def __call__(self, state: SlamState, ranges: torch.Tensor
-                 ) -> tuple[SlamState, np.ndarray]:
-        if state.step == 1:
-            return self._first(state, ranges)
-        self._replay(state, ranges)
-        with span("sync", tag="step", req=state.step):
-            # a copy on the CPU too
-            host = self.bufs.out.to("cpu", copy=True)
-        self.state = self.state._replace(mini_updated=bool(host[3]))
-        return self.state, host[:3].numpy()
-
-    def advance(self, state: SlamState, ranges: torch.Tensor) -> SlamState:
-        """One step with no host read after scan 1 (it runs under the sync
-        debug mode "error" on the card): the returned state's
-        ``mini_updated`` is the step's device bool."""
-        if state.step == 1:
-            return self._first(state, ranges)[0]
-        with graphs.no_host_sync(self.device):
-            self._replay(state, ranges)
-        return self.state
-
-    def finish(self, state: SlamState) -> SlamState:
-        """``state`` with its ``mini_updated`` read back to a host bool,
-        and the step's conditional launches counted: the run's one host
-        read (``graphs.finish``)."""
-        return graphs.finish(self, state)
-
-    def _first(self, state: SlamState, ranges: torch.Tensor):
+    def _eager(self, state: SlamState, ranges: torch.Tensor):
         ranges = ranges.to(self.device, non_blocking=True)
         state, pose = slam_step(state, ranges, self.cfg, self.angles,
                                 pose_to_host=True)
-        self.pose, self.scan = state.pose, None
+        self.pose = state.pose
         return state, pose
 
-    def _replay(self, state: SlamState, ranges: torch.Tensor) -> None:
-        if state is not self.state:
-            self._load(state)
-        b = self.bufs
-        b.ranges.copy_(ranges, non_blocking=True)
-        self.graphs.run("step", self._body, b)
-        self.state = b.head.state._replace(step=state.step + 1,
-                                           mini_updated=b.mini)
-        self.pose, self.scan = b.head.state.pose, b.head.scan
+    def _alloc(self, state: SlamState, ranges) -> _Static:
+        n = self.cfg.lidar.n_beams
+        f32 = dict(dtype=torch.float32, device=self.device)
+        flag = dict(dtype=torch.bool, device=self.device)
+        return _Static(
+            ranges=torch.zeros(n, **f32), mini=torch.zeros((), **flag),
+            m1=torch.zeros(3, **f32),
+            head=StepHead(state=state, scan=sensor.empty_scan(n, self.device),
+                          best_count=torch.zeros((), dtype=torch.int32,
+                                                 device=self.device),
+                          last_hits=torch.zeros(n, **f32),
+                          test=torch.zeros((), **flag)),
+            out=torch.zeros(4, **f32))
 
-    def _load(self, state: SlamState) -> None:
-        if self.bufs is None:
-            n = self.cfg.lidar.n_beams
-            f32 = dict(dtype=torch.float32, device=self.device)
-            flag = dict(dtype=torch.bool, device=self.device)
-            self.bufs = _Static(
-                ranges=torch.zeros(n, **f32),
-                mini=torch.zeros((), **flag),
-                m1=torch.zeros(3, **f32),
-                head=StepHead(
-                    state=graphs.clone_tree(state),
-                    scan=sensor.empty_scan(n, self.device),
-                    best_count=torch.zeros((), dtype=torch.int32,
-                                           device=self.device),
-                    last_hits=torch.zeros(n, **f32),
-                    test=torch.zeros((), **flag)),
-                out=torch.zeros(4, **f32))
-        else:
-            graphs.copy_into(self.bufs.head.state, state)
-        flag = state.mini_updated   # a host bool, or another step's device one
-        if isinstance(flag, torch.Tensor):
-            self.bufs.mini.copy_(flag)
-        else:
-            self.bufs.mini.fill_(flag)
+    def _load_fields(self, state: SlamState) -> None:
+        graphs.load_value(self.bufs.mini, state.mini_updated)
+
+    def _stage(self, state: SlamState, ranges: torch.Tensor) -> None:
+        self.bufs.ranges.copy_(ranges, non_blocking=True)
+
+    def _returned(self, state: SlamState):
+        b = self.bufs
+        return (b.head.state._replace(step=state.step + 1,
+                                      mini_updated=b.mini),
+                b.head.state.pose, b.head.scan)
 
     def _body(self, b: _Static) -> None:
         """The step on the buffers; the state's host fields are those of a
@@ -342,7 +298,7 @@ class StepFn:
         cfg = self.cfg
         st = b.head.state._replace(step=2)
         scan = sensor.read_scan(b.ranges, self.angles, cfg.lidar)
-        maps = _maps(st)
+        maps = map_leaves(st)
         graphs.cond(b.mini, lambda: graphs.copy_into(
             maps, _keyframe_maps(st, scan, cfg)))
         guess = st.pose + (st.pose - st.prev_pose)
@@ -369,38 +325,32 @@ def make_step_fn(cfg: SlamConfig, device: str | torch.device = "cuda"
     return StepFn(cfg, device)
 
 
+def over_scans(ranges_all: np.ndarray, cfg: SlamConfig, device,
+               make_step=make_step_fn, init=init_state):
+    """``graphs.drive``'s arguments for a log of ranges (T, N): a new
+    step of ``make_step``, the state ``init`` makes from scan 0, T, and
+    scan t's ranges on the device."""
+    ranges = as_ranges(ranges_all, device)
+    return (make_step(cfg, ranges.device), init(ranges[0], cfg),
+            ranges.shape[0], lambda t: (ranges[t],))
+
+
 def run_host_loop(ranges_all: np.ndarray, cfg: SlamConfig,
                   device: str | torch.device = "cuda"
                   ) -> tuple[np.ndarray, SlamState]:
     """Streaming driver: one scan at a time through ``make_step_fn``, each
     pose copied to the host as it is produced (JAX's ``run_host_loop``).
     Returns (path (T, 3) numpy, final state)."""
-    ranges = _as_ranges(ranges_all, device)
-    step = make_step_fn(cfg, ranges.device)
-    state = init_state(ranges[0], cfg)
-    poses = [np.zeros(3, np.float32)]
-    for t in range(1, ranges.shape[0]):
-        state, pose = step(state, ranges[t])
-        poses.append(pose)
-    return np.stack(poses), graphs.clone_tree(step.finish(state))
+    return graphs.host_loop(*over_scans(ranges_all, cfg, device))
 
 
 def run_scan(ranges_all: np.ndarray, cfg: SlamConfig,
              device: str | torch.device = "cuda"
              ) -> tuple[torch.Tensor, SlamState]:
     """Whole-dataset driver through ``make_step_fn`` (JAX's ``lax.scan``
-    over the tour): each pose is written into a (T, 3) tensor on the
-    device, scans 2.. with no host sync (``StepFn.advance``), and the final
-    state's host fields come back in one read at the end. Returns (that
-    path, final state). The call is one ``session`` span."""
+    over the tour; ``graphs.drive``): scans 2.. with no host sync, the
+    poses in a (T, 3) tensor on the device, the final state's host fields
+    read back in one read at the end. Returns (that path, final state).
+    The call is one ``session`` span."""
     with session("run_scan", device):
-        ranges = _as_ranges(ranges_all, device)
-        step = make_step_fn(cfg, ranges.device)
-        state = init_state(ranges[0], cfg)
-        path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32,
-                           device=ranges.device)
-        path[0] = state.pose
-        for t in range(1, ranges.shape[0]):
-            state = step.advance(state, ranges[t])
-            path[t] = step.pose
-        return path, graphs.clone_tree(step.finish(state))
+        return graphs.drive(*over_scans(ranges_all, cfg, device))

@@ -36,8 +36,11 @@ from lidar_slam_tpu_torch.config import SlamConfig
 from lidar_slam_tpu_torch.core import gridmap, se2, sensor, submap
 from lidar_slam_tpu_torch.core.gridmap import OccGrid
 from lidar_slam_tpu_torch.core.submap import SubmapAtlas
-from lidar_slam_tpu_torch.device import resolve_device, rounded64
-from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor
+from lidar_slam_tpu_torch.device import rounded64
+from lidar_slam_tpu_torch.models import scan_matcher
+from lidar_slam_tpu_torch.models.scan_matcher import (angles_tensor,
+                                                      keyframe_test,
+                                                      map_leaves)
 from lidar_slam_tpu_torch.ops import edt as edt_ops
 from lidar_slam_tpu_torch.ops import matching
 from lidar_slam_tpu_torch.utils import graphs
@@ -107,12 +110,6 @@ def _keyframe_maps(state: SubmapSlamState, scan: sensor.Scan,
     return coarse, fine, coarse_metric, fine_metric, scan_wx, scan_wy
 
 
-def _maps(state: SubmapSlamState):
-    """The state's six map leaves, as ``_keyframe_maps`` returns them."""
-    return (state.coarse, state.fine, state.coarse_metric,
-            state.fine_metric, state.scan_wx, state.scan_wy)
-
-
 def _first_match(metric: torch.Tensor, grid: OccGrid, scan: sensor.Scan,
                  guess: torch.Tensor, cfg: SlamConfig) -> matching.MatchResult:
     """The first matcher stage, on the coarse grid on a keyframe step and
@@ -134,9 +131,7 @@ def _head_end(state: SubmapSlamState, scan: sensor.Scan, maps,
     new_pose = m2.pose
     atlas = state.atlas
     active = slots[1:2]
-    dp = torch.abs(new_pose - state.keyframe_pose)
-    moved = ((dp[0] > m.mini_update_dt) | (dp[1] > m.mini_update_dt)
-             | (dp[2] > m.mini_update_dr))
+    moved = keyframe_test(new_pose, state.keyframe_pose, m)
     anchor = atlas.anchors.index_select(0, active)[0]
     far = rounded64(torch.hypot, new_pose[0] - anchor[0],
                     new_pose[1] - anchor[1]) > sm.spawn_dist
@@ -162,7 +157,7 @@ def submap_head(state: SubmapSlamState, ranges: torch.Tensor, cfg: SlamConfig,
     slots = submap.device_slots(state.atlas) if slots is None else slots
     scan = sensor.read_scan(ranges, angles, cfg.lidar)
     maps = (_keyframe_maps(state, scan, cfg, slots) if state.mini_updated
-            else _maps(state))
+            else map_leaves(state))
     guess = (state.pose + (state.pose - state.prev_pose) if state.step > 1
              else state.pose)
     coarse, fine, coarse_metric, fine_metric = maps[:4]
@@ -224,10 +219,9 @@ class _Static(NamedTuple):
     #                        active
 
 
-class SubmapStepFn:
+class SubmapStepFn(scan_matcher.StepFn):
     """``step(state, ranges) -> (state, pose)``: ``slam_step`` as one
-    captured CUDA graph (``utils/graphs``), JAX's jitted step with its
-    state donated (``scan_matcher.StepFn`` has the conventions).
+    captured CUDA graph (``graphs.CapturedStep`` has the conventions).
 
     The graph is JAX's ``slam_step`` arm by arm, each arm an IF node on a
     device bool: IF(``mini_updated``) the keyframe arm (the atlas's local
@@ -240,116 +234,52 @@ class SubmapStepFn:
     ``moved & mini_updated``) and IF(``moved & ~mini_updated``) the insert
     with and without the refresh; and ``mini_updated := moved``.
 
-    ``advance(state, ranges)`` replays it and reads nothing on the host:
-    the state it returns carries the step's device bool as its
+    ``advance`` returns the step's device bool as the state's
     ``mini_updated`` and () int64 views of the slot buffer as its atlas's
-    ``n_submaps`` and ``active``; ``finish`` reads the three back (with the
-    arms' launch counts) in one copy. ``step(state, ranges)`` replays it
-    and reads the pose and the three in one 24-byte copy, for a caller that
-    needs each pose on the host. Scan 1 (``state.step == 1``) runs
-    eagerly. A state the step did not return (another step's, one the
-    paging or a feedback rewrote) is copied into the buffers first, its
-    slot ints included. ``self.pose`` and ``self.scan`` are the step's pose
-    and gated scan on the device (``scan`` None after an eager step), valid
-    until the next call. On the CPU the same body runs uncaptured on the
-    same buffers."""
+    ``n_submaps`` and ``active``; ``step`` reads the pose and the three in
+    one 24-byte copy. A state the step did not return (the paging's, a
+    feedback's) is loaded with its slot ints."""
 
-    def __init__(self, cfg: SlamConfig, device: str | torch.device = "cuda"):
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        self.angles = angles_tensor(cfg, self.device)
-        self.graphs = graphs.Graphs(self.device)
-        self.bufs: _Static | None = None
-        self.state: SubmapSlamState | None = None   # the state last returned
-        self.pose: torch.Tensor | None = None
-        self.scan: sensor.Scan | None = None
-
-    def __call__(self, state: SubmapSlamState, ranges: torch.Tensor
-                 ) -> tuple[SubmapSlamState, np.ndarray]:
-        if state.step == 1:
-            state = self._first(state, ranges)
-            return state, self.pose.cpu().numpy()
-        self._replay(state, ranges)
-        host = self.bufs.out.to("cpu", copy=True)   # a copy on the CPU too
-        st = self.state
-        self.state = st._replace(
-            mini_updated=bool(host[3]),
-            atlas=st.atlas._replace(n_submaps=int(host[4]),
-                                    active=int(host[5])))
-        return self.state, host[:3].numpy()
-
-    def advance(self, state: SubmapSlamState, ranges: torch.Tensor
-                ) -> SubmapSlamState:
-        """One step with no host read after scan 1 (it runs under the sync
-        debug mode "error" on the card): the returned state's host fields
-        are the step's device values."""
-        if state.step == 1:
-            return self._first(state, ranges)
-        with graphs.no_host_sync(self.device):
-            self._replay(state, ranges)
-        return self.state
-
-    def finish(self, state: SubmapSlamState) -> SubmapSlamState:
-        """``state`` with its ``mini_updated``, ``n_submaps`` and
-        ``active`` read back to host values, and the step's conditional
-        launches counted: the run's one host read (``graphs.finish``)."""
-        return graphs.finish(self, state)
-
-    def _first(self, state: SubmapSlamState, ranges: torch.Tensor
-               ) -> SubmapSlamState:
+    def _eager(self, state: SubmapSlamState, ranges: torch.Tensor):
         """Scan 1, eagerly (its one host read: the tests)."""
         ranges = ranges.to(self.device, non_blocking=True)
         state, self.pose = slam_step(state, ranges, self.cfg, self.angles)
-        self.scan = None
-        return state
+        return state, self.pose
 
-    def _replay(self, state: SubmapSlamState, ranges: torch.Tensor) -> None:
-        if state is not self.state:
-            self._load(state)
-        b = self.bufs
-        b.ranges.copy_(ranges, non_blocking=True)
-        self.graphs.run("step", self._body, b)
-        st = b.head.state
-        self.state = st._replace(
-            step=state.step + 1, mini_updated=b.mini,
-            atlas=st.atlas._replace(n_submaps=b.slots[0],
-                                    active=b.slots[1]))
-        self.pose, self.scan = st.pose, b.head.scan
+    def _alloc(self, state: SubmapSlamState, ranges) -> _Static:
+        n = self.cfg.lidar.n_beams
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return _Static(
+            ranges=torch.zeros(n, **f32),
+            mini=torch.zeros((), dtype=torch.bool, device=self.device),
+            slots=torch.zeros(2, dtype=torch.int64, device=self.device),
+            m1=torch.zeros(3, **f32),
+            head=SubmapHead(
+                state=state, scan=sensor.empty_scan(n, self.device),
+                best_count=torch.zeros((), dtype=torch.int32,
+                                       device=self.device),
+                last_hits=torch.zeros(n, **f32),
+                tests=torch.zeros(3, dtype=torch.bool, device=self.device)),
+            out=torch.zeros(6, **f32))
 
-    def _load(self, state: SubmapSlamState) -> None:
-        # the slot ints live in ``slots``, the flag in ``mini``: each a host
-        # value, or another step's device one
+    def _load_fields(self, state: SubmapSlamState) -> None:
+        super()._load_fields(state)
         ints = (state.atlas.n_submaps, state.atlas.active)
-        flag = state.mini_updated
-        state = state._replace(mini_updated=False, atlas=state.atlas._replace(
-            n_submaps=0, active=0))
-        if self.bufs is None:
-            n = self.cfg.lidar.n_beams
-            f32 = dict(dtype=torch.float32, device=self.device)
-            self.bufs = _Static(
-                ranges=torch.zeros(n, **f32),
-                mini=torch.zeros((), dtype=torch.bool, device=self.device),
-                slots=torch.zeros(2, dtype=torch.int64, device=self.device),
-                m1=torch.zeros(3, **f32),
-                head=SubmapHead(
-                    state=graphs.clone_tree(state),
-                    scan=sensor.empty_scan(n, self.device),
-                    best_count=torch.zeros((), dtype=torch.int32,
-                                           device=self.device),
-                    last_hits=torch.zeros(n, **f32),
-                    tests=torch.zeros(3, dtype=torch.bool,
-                                      device=self.device)),
-                out=torch.zeros(6, **f32))
-        else:
-            graphs.copy_into(self.bufs.head.state, state)
         if isinstance(ints[0], torch.Tensor):
             self.bufs.slots.copy_(torch.stack(ints))
         else:
             graphs.upload(self.bufs.slots, np.asarray(ints, np.int64))
-        if isinstance(flag, torch.Tensor):
-            self.bufs.mini.copy_(flag)
-        else:
-            self.bufs.mini.fill_(flag)
+
+    def _returned(self, state: SubmapSlamState):
+        new, pose, scan = super()._returned(state)
+        slots = self.bufs.slots
+        return new._replace(atlas=new.atlas._replace(
+            n_submaps=slots[0], active=slots[1])), pose, scan
+
+    def _decode(self, state: SubmapSlamState, host: torch.Tensor):
+        state = super()._decode(state, host)
+        return state._replace(atlas=state.atlas._replace(
+            n_submaps=int(host[4]), active=int(host[5])))
 
     def _body(self, b: _Static) -> None:
         """The step on the buffers; the state's host fields are those of a
@@ -357,7 +287,7 @@ class SubmapStepFn:
         cfg = self.cfg
         st = b.head.state._replace(step=2)
         scan = sensor.read_scan(b.ranges, self.angles, cfg.lidar)
-        maps = _maps(st)
+        maps = map_leaves(st)
         graphs.cond(b.mini, lambda: graphs.copy_into(
             maps, _keyframe_maps(st, scan, cfg, b.slots)))
         guess = st.pose + (st.pose - st.prev_pose)
@@ -389,42 +319,21 @@ def make_step_fn(cfg: SlamConfig, device: str | torch.device = "cuda"
     return SubmapStepFn(cfg, device)
 
 
-def _as_ranges(ranges_all, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(ranges_all, np.float32),
-                           device=resolve_device(device))
-
-
 def run_host_loop(ranges_all: np.ndarray, cfg: SlamConfig,
                   device: str | torch.device = "cuda"
                   ) -> tuple[np.ndarray, SubmapSlamState]:
     """Streaming run through ``make_step_fn``: each pose copied to the host
     as it is produced, one read a scan (JAX's ``run_host_loop``). Returns
     (path (T, 3) numpy, final state)."""
-    ranges = _as_ranges(ranges_all, device)
-    step = make_step_fn(cfg, ranges.device)
-    state = init_state(ranges[0], cfg)
-    poses = [np.zeros(3, np.float32)]
-    for t in range(1, ranges.shape[0]):
-        state, pose = step(state, ranges[t])
-        poses.append(pose)
-    return np.stack(poses), graphs.clone_tree(step.finish(state))
+    return graphs.host_loop(*scan_matcher.over_scans(
+        ranges_all, cfg, device, make_step_fn, init_state))
 
 
 def run_scan(ranges_all: np.ndarray, cfg: SlamConfig,
              device: str | torch.device = "cuda"
              ) -> tuple[torch.Tensor, SubmapSlamState]:
     """Whole-log run through ``make_step_fn`` (JAX's ``lax.scan`` over the
-    tour): each pose is written into a (T, 3) tensor on the device, scans
-    2.. with no host sync (``SubmapStepFn.advance``), and the final state's
-    host fields come back in one read at the end. Returns (that path, final
-    state)."""
-    ranges = _as_ranges(ranges_all, device)
-    step = make_step_fn(cfg, ranges.device)
-    state = init_state(ranges[0], cfg)
-    path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32,
-                       device=ranges.device)
-    path[0] = state.pose
-    for t in range(1, ranges.shape[0]):
-        state = step.advance(state, ranges[t])
-        path[t] = step.pose
-    return path, graphs.clone_tree(step.finish(state))
+    tour; ``graphs.drive``): scans 2.. with no host sync, one read at the
+    end. Returns (path (T, 3) on the device, final state)."""
+    return graphs.drive(*scan_matcher.over_scans(
+        ranges_all, cfg, device, make_step_fn, init_state))

@@ -39,7 +39,7 @@ import torch
 
 from lidar_slam_tpu_torch.config import SlamConfig
 from lidar_slam_tpu_torch.models import fastslam
-from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor
+from lidar_slam_tpu_torch.models.scan_matcher import angles_tensor, as_ranges
 from lidar_slam_tpu_torch.parallel import mesh as mesh_lib
 from lidar_slam_tpu_torch.parallel import sharded_edt
 from lidar_slam_tpu_torch.utils import graphs
@@ -79,27 +79,25 @@ def run_sharded_pf(ranges_all: np.ndarray, cfg: SlamConfig,
                    edt_fn=None, eager: bool = False
                    ) -> tuple[torch.Tensor, fastslam.ParticleState]:
     """Whole-dataset sharded run on the mesh's device type, every rank of
-    the world calling it: scans 2.. through the captured step's
-    ``advance`` with no host read, the path in a device buffer, one read
-    at the end (``run_pf``'s loop); with ``eager``, the eager step a scan.
+    the world calling it: scans 2.. through the captured step with no host
+    read, the path in a device buffer, one read at the end (``run_pf``'s
+    loop, ``graphs.drive``); with ``eager``, the eager step a scan.
     ``draws``: per-step whole-P ``(noise, u0)``, as ``fastslam.run_pf``.
     Returns (path (T, 3), this rank's final state)."""
     step, place = make_sharded_pf_step(cfg, mesh, edt_fn, eager)
-    ranges = torch.as_tensor(np.asarray(ranges_all, np.float32),
-                             device=mesh.device_type)
+    ranges = as_ranges(ranges_all, mesh.device_type)
     state = place(fastslam.init_particles(ranges[0], cfg, seed))
+
+    def inputs_at(t):
+        return ranges[t], None if draws is None else draws[t - 1]
+
+    if not eager:
+        return graphs.drive(step, state, ranges.shape[0], inputs_at)
     path = torch.zeros((ranges.shape[0], 3), dtype=torch.float32,
                        device=ranges.device)
     for t in range(1, ranges.shape[0]):
-        d = None if draws is None else draws[t - 1]
-        if eager:
-            state, path[t] = step(state, ranges[t], d)
-        else:
-            state = step.advance(state, ranges[t], d)
-            path[t] = step.pose
-    if eager:
-        return path, state
-    return path, graphs.clone_tree(step.finish(state))
+        state, path[t] = step(state, *inputs_at(t))
+    return path, state
 
 
 def run_job(ranges_all: np.ndarray, cfg: SlamConfig, n_map_shards: int = 1,

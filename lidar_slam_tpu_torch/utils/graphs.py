@@ -56,6 +56,11 @@ run's one host read, brings the arm counters back with the run's results
 and adds each arm's delta times the runs since the last fetch. The
 warm-up's launches, on the clone, are not counted.
 
+The models' step objects are ``CapturedStep``s: one protocol for loading
+a state into the buffers, staging a step's inputs, replaying, rebuilding
+the returned state and reading it back (``advance``, ``step(...)``,
+``finish``); ``drive`` and ``host_loop`` are their driver loops.
+
 A body may run the parallel layer's collectives (``parallel/mesh.Axis``)
 in its main graph: NCCL's kernels are captured with the body's
 (``CAPTURE_MODE``), and an ``Axis`` among a ``Graphs``'s ``counters`` has
@@ -79,6 +84,7 @@ import numpy as np
 import torch
 
 from lidar_slam_tpu_torch import _build
+from lidar_slam_tpu_torch.device import resolve_device
 from lidar_slam_tpu_torch.ops import (cuda_edt, cuda_match, cuda_scan_match,
                                       cuda_vol_lookup)
 from lidar_slam_tpu_torch.utils.profiling import span
@@ -329,8 +335,10 @@ def fetch(*tensors: torch.Tensor, runners=()) -> list[np.ndarray]:
 
 # The fields of a state that are host values in the eager steps and that a
 # captured step which read nothing on the host returns as device tensors:
-# its keyframe flag and, for the submap step, the atlas's slot ints.
-HOST_FIELDS = (("mini_updated",), ("atlas", "n_submaps"), ("atlas", "active"))
+# its keyframe flag and, for the submap step, the atlas's slot ints; each
+# with the host value it has in a step's buffers (``CapturedStep._load``).
+HOST_FIELDS = {("mini_updated",): False, ("atlas", "n_submaps"): 0,
+               ("atlas", "active"): 0}
 
 
 def _field(state, path):
@@ -528,3 +536,138 @@ class Graphs:
         pools = {tuple(self.pool), tuple(self.cond_pool.id)}
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg["segment_pool_id"]) in pools)
+
+
+class CapturedStep:
+    """A model's step captured as one graph over static buffers that the
+    object owns: JAX's jitted step with its state donated (the fidelity,
+    submap, particle-filter, hybrid and EKF steps are subclasses).
+
+    ``advance(state, *inputs)`` reads nothing on the host (on the card it
+    runs under the sync debug mode "error"): the returned state's host
+    fields (``HOST_FIELDS``) are the step's device values, which
+    ``finish(state)`` reads back with the arms' launch counts in one copy.
+    ``step(state, *inputs)`` also reads the pose and those fields (the
+    ``out`` row, ``_decode``) in one copy. With ``eager_first``, scan 1
+    (``state.step == 1``, whose guess differs) runs the eager step; with
+    ``draws_from``, each step takes its ``draws`` from that callable.
+
+    The returned state's tensors are the step's buffers until the next
+    call, which takes them back (``clone_tree`` keeps a copy); a state the
+    step did not return is copied in first. ``pose`` (on the device) and
+    ``scan`` (None after an eager step) are the last step's. On the CPU
+    the same body runs uncaptured on the same buffers.
+
+    A subclass gives ``_eager``, ``_alloc`` (its buffers around a clone of
+    the state), ``_stage`` (its inputs into them), ``_body`` and
+    ``_returned`` (the state, pose and scan a replay returns), and where
+    the defaults do not fit, ``_held``, ``_load_fields`` and ``_decode``."""
+
+    key = "step"          # the graph's key in ``self.graphs``
+    eager_first = True
+
+    def __init__(self, device: str | torch.device, counters=COUNTED,
+                 draws_from=None):
+        self.device = resolve_device(device)
+        self.graphs = Graphs(self.device, counters)
+        self.draws_from = draws_from
+        self.bufs = self.state = self.pose = self.scan = None
+
+    def advance(self, state, *inputs, **kw):
+        if self._eager_now(state, kw):
+            self.scan = None
+            return self._eager(state, *inputs, **kw)[0]
+        with no_host_sync(self.device):
+            return self._replay(state, *inputs, **kw)
+
+    def __call__(self, state, *inputs, **kw):
+        if self._eager_now(state, kw):
+            self.scan = None
+            state, pose = self._eager(state, *inputs, **kw)
+            if isinstance(pose, torch.Tensor):
+                pose = pose.cpu().numpy()
+            return state, pose
+        self._replay(state, *inputs, **kw)
+        with span("sync", tag="step", req=state.step):
+            host = self.bufs.out.to("cpu", copy=True)   # a copy on the CPU too
+        self.state = self._decode(self.state, host)
+        return self.state, host[:3].numpy()
+
+    def finish(self, state):
+        """The run's one host read (``graphs.finish``)."""
+        return finish(self, state)
+
+    def _eager_now(self, state, kw) -> bool:
+        """Whether this step runs eagerly; puts its draws into ``kw``."""
+        if self.draws_from is not None:
+            kw["draws"] = self.draws_from()
+        return self.eager_first and state.step == 1
+
+    def _replay(self, state, *inputs, **kw):
+        if state is not self.state:
+            self._load(state, *inputs, **kw)
+        self._stage(state, *inputs, **kw)
+        self.graphs.run(self.key, self._body, self.bufs)
+        self.state, self.pose, self.scan = self._returned(state)
+        return self.state
+
+    def _load(self, state, *inputs, **kw) -> None:
+        """A state the step did not return into its buffers: its host
+        fields (host values, or another step's device ones) go to
+        ``_load_fields``, the rest into ``_held()``, made at the first load
+        (``_alloc``, around a clone)."""
+        held = state
+        for path, value in HOST_FIELDS.items():
+            if _field(state, path) is not None:
+                held = _with_field(held, path, value)
+        if self.bufs is None:
+            self.bufs = self._alloc(clone_tree(held), *inputs, **kw)
+        else:
+            copy_into(self._held(), held)
+        self._load_fields(state)
+
+    def _held(self):
+        return self.bufs.head.state
+
+    def _load_fields(self, state) -> None:
+        """Write what the buffers hold outside the state from ``state``."""
+
+    def _decode(self, state, host: torch.Tensor):
+        """``state`` with the keyframe flag of the ``out`` row ``host``."""
+        return state._replace(mini_updated=bool(host[3]))
+
+
+def load_value(buf: torch.Tensor, value) -> None:
+    """Write a host field into ``buf``: a device value (a step's that read
+    nothing on the host) by a device copy, a host one by ``fill_`` (an
+    assignment would copy it from pageable memory and synchronize)."""
+    if isinstance(value, torch.Tensor):
+        buf.copy_(value)
+    else:
+        buf.fill_(value)
+
+
+def drive(step: CapturedStep, state, n: int, inputs_at):
+    """The captured driver loop, JAX's ``lax.scan`` over a log: steps
+    t = 1..n-1 through ``step.advance(state, *inputs_at(t))`` with no host
+    read after scan 1, each pose written into a (n, 3) tensor on the
+    device, and the final state's host fields read back in the run's one
+    read. Returns (that path, its row 0 the origin; the final state,
+    cloned out of the step's buffers)."""
+    path = torch.zeros((n, 3), dtype=torch.float32, device=step.device)
+    for t in range(1, n):
+        state = step.advance(state, *inputs_at(t))
+        path[t] = step.pose
+    return path, clone_tree(step.finish(state))
+
+
+def host_loop(step: CapturedStep, state, n: int, inputs_at, start: int = 1):
+    """``drive`` from step ``start`` with each pose copied to the host as
+    it is produced, one read a step (``step(state, *inputs_at(t))``).
+    Returns (path (n, 3) numpy, rows before ``start`` zero; final
+    state)."""
+    poses = [np.zeros(3, np.float32)] * start
+    for t in range(start, n):
+        state, pose = step(state, *inputs_at(t))
+        poses.append(pose)
+    return np.stack(poses), clone_tree(step.finish(state))

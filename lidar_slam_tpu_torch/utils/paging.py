@@ -162,10 +162,10 @@ def run_host_loop_paged(ranges_all: np.ndarray, cfg, paged: PagedAtlas,
     scan, with the state's host fields in the same copy; a paged atlas (its
     slot ints included) enters the step through its next call, which loads
     a state it did not return. Returns (path (T, 3) numpy, final state)."""
-    from lidar_slam_tpu_torch.models import submap_slam
+    from lidar_slam_tpu_torch.models import scan_matcher, submap_slam
     from lidar_slam_tpu_torch.utils import graphs
 
-    ranges = submap_slam._as_ranges(ranges_all, device)
+    ranges = scan_matcher.as_ranges(ranges_all, device)
     step = submap_slam.make_step_fn(cfg, ranges.device)
     state = submap_slam.init_state(ranges[0], cfg)
     poses = [np.zeros(3, np.float32)]

@@ -34,30 +34,21 @@ FIRST, WINDOW = 100, 50   # scans run unprofiled, then measured
 
 
 class PerCount(ekf_slam.EkfStepFn):
-    """``EkfStepFn`` with a graph a detection count ``n``, the association
-    loop unrolled on the host (``ekf_slam_step_ml(..., n_det=n)``)."""
+    """``EkfStepFn`` with a graph a detection count ``n``, its ``key``, the
+    association loop unrolled on the host (``ekf_slam_step_ml(...,
+    n_det=n)``): the same loading, staging and draws (the base's hooks),
+    another body."""
 
     def __call__(self, state, obs, valid, odo, n):
-        if state is not self.state:
-            self._load(state, obs, valid)
-        b = self.bufs
-        for buf, x in ((b.obs, obs), (b.valid, valid), (b.odo, odo)):
-            buf.copy_(x)
-        noise, u0 = ekf_slam.draw(state, self.cfg.n_particles)
-        b.noise.copy_(noise)
-        b.u0.copy_(u0)
+        self.key = n
+        return super().__call__(state, obs, valid, odo)
 
-        def body(b):
-            new, pose = ekf_slam.ekf_slam_step_ml(
-                b.state, b.obs, b.valid, self.cfg, odo=b.odo,
-                draws=(b.noise, b.u0), n_det=n)
-            graphs.copy_into(b.state, new)
-            b.pose.copy_(pose)
-
-        self.graphs.run(n, body, b)
-        self.state = b.state._replace(rng=state.rng)
-        self.pose = b.pose
-        return self.state, b.pose
+    def _body(self, b):
+        new, pose = ekf_slam.ekf_slam_step_ml(
+            b.state, b.obs, b.valid, self.cfg, odo=b.odo,
+            draws=(b.noise, b.u0), n_det=self.key)
+        graphs.copy_into(b.state, new)
+        b.pose.copy_(pose)
 
 
 def device_rows(fn) -> dict:

@@ -13,6 +13,12 @@ donated state) is what the card runs.
   with the port's generator and with JAX's draws injected, and stays within
   1e-3 of JAX's run on those draws (the bar of ``test_torch_fastslam.py``);
 - ``make_pf_step`` resumed from a checkpoint equals the unbroken run;
+- each of the five step objects (fidelity, submap, PF, hybrid, EKF) on
+  the one protocol (``graphs.CapturedStep``): fed states it did not
+  return (eager, its own, another step's) it equals the eager loop, it
+  takes back the state it returned, and ``advance`` ... ``finish``
+  (``graphs.drive``) and ``step`` a scan (``graphs.host_loop``) give the
+  same path and final state;
 - a state cloned out of the runner survives ``checkpoint`` and ``state_io``'s
   conversion to JAX's state (the fidelity state steps on in JAX to the
   port's next pose, bit for bit).
@@ -22,6 +28,7 @@ import collections
 import dataclasses
 import os
 import types
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -35,11 +42,17 @@ from lidar_slam_tpu.config import DEFAULT_CONFIG as JAX_DEFAULT
 from lidar_slam_tpu.config import ParticleConfig as JaxParticleConfig
 from lidar_slam_tpu.models import fastslam as jfs
 from lidar_slam_tpu.models import scan_matcher as jsm
-from lidar_slam_tpu_torch.config import DEFAULT_CONFIG, ParticleConfig
+from lidar_slam_tpu_torch.config import (DEFAULT_CONFIG, ParticleConfig,
+                                         SubmapConfig)
+from lidar_slam_tpu_torch.models import ekf_hybrid as thy
+from lidar_slam_tpu_torch.models import ekf_slam as tek
 from lidar_slam_tpu_torch.models import fastslam as tfs
 from lidar_slam_tpu_torch.models import scan_matcher as tsm
 from lidar_slam_tpu_torch.models import state_io
+from lidar_slam_tpu_torch.models import submap_slam as tss
 from lidar_slam_tpu_torch.utils import checkpoint, graphs
+from lidar_slam_tpu_torch.utils.tree import (is_generator, leaves_with_path,
+                                             map_with_path)
 
 N_FID = 60        # scans of the fidelity runs
 N_PF = 40         # scans of the PF runs with the port's generator
@@ -163,26 +176,6 @@ def test_run_host_loop_equals_the_eager_loop(fidelity):
     assert torch.equal(state.pmap.xy, want_state.pmap.xy)
 
 
-def test_step_takes_a_state_it_did_not_return(fidelity):
-    """A step fed an eager state mid-run, then its own, then a state
-    another step returned, equals the eager loop; and a state it returned
-    is its buffers, taken back by the next call (donated)."""
-    ranges, want, _ = fidelity
-    r = torch.as_tensor(ranges)
-    _, state = _eager_fidelity(ranges[:20])
-    a, b = tsm.make_step_fn(DEFAULT_CONFIG, "cpu"), \
-        tsm.make_step_fn(DEFAULT_CONFIG, "cpu")
-    for t in range(20, N_FID):
-        step = a if (t // 7) % 2 == 0 else b
-        state, pose = step(state, r[t])
-        assert np.array_equal(pose, want[t].numpy()), t
-        assert torch.equal(step.pose, want[t])
-    kept = graphs.clone_tree(state)
-    again, _ = step(state, r[0])
-    assert again.pose is state.pose                 # the same buffers ...
-    assert not torch.equal(state.pose, kept.pose)   # ... taken back
-
-
 # ---- the particle-filter drivers
 
 def _eager_pf(ranges, cfg, seed=0, draws=None):
@@ -273,6 +266,154 @@ def test_pf_step_resumed_from_a_checkpoint_equals_the_unbroken_run(
     assert np.array_equal(np.stack(poses), want.numpy())
     assert_tree_equal(_pf_tree(state), _pf_tree(want_state))
     assert torch.equal(state.rng.get_state(), want_state.rng.get_state())
+
+
+# ---- the five step objects on the one protocol (graphs.CapturedStep)
+
+N_STEP = N_FID    # scans of each step object's runs
+SUBMAP_CFG = dataclasses.replace(DEFAULT_CONFIG, submaps=SubmapConfig(
+    n_submaps=4, submap_capacity=512, k_nearest=2, spawn_dist=0.4,
+    spawn_fill_frac=0.8))
+EKF_CFG = tek.long_tour_config(64)
+STEPS = ("fidelity", "submap", "pf", "hybrid", "ekf")
+
+
+class StepCase(NamedTuple):
+    """A step object's run: ``make()`` a new step, ``init()`` the state
+    before scan 1, ``inputs(t)`` step t's inputs, ``eager(state, t)`` the
+    eager step's (state, pose)."""
+    make: object
+    init: object
+    inputs: object
+    eager: object
+
+
+def _step_case(name, ranges) -> StepCase:
+    r = torch.as_tensor(ranges[:N_STEP])
+    if name in ("fidelity", "submap"):
+        mod, cfg = (tsm, DEFAULT_CONFIG) if name == "fidelity" \
+            else (tss, SUBMAP_CFG)
+        angles = tsm.angles_tensor(cfg, "cpu")
+        return StepCase(lambda: mod.make_step_fn(cfg, "cpu"),
+                        lambda: mod.init_state(r[0], cfg),
+                        lambda t: (r[t],),
+                        lambda s, t: mod.slam_step(s, r[t], cfg, angles))
+    if name == "pf":
+        angles = tsm.angles_tensor(PF_CFG, "cpu")
+        return StepCase(lambda: tfs.make_pf_step(PF_CFG, "cpu"),
+                        lambda: tfs.init_particles(r[0], PF_CFG, 7),
+                        lambda t: (r[t],),
+                        lambda s, t: tfs.pf_step(s, r[t], PF_CFG, angles))
+    if name == "hybrid":
+        pre = thy.hybrid_inputs(r.numpy(), DEFAULT_CONFIG, device="cpu")
+        det, odo = pre.det, pre.odo
+        angles = tsm.angles_tensor(DEFAULT_CONFIG, "cpu")
+        return StepCase(
+            lambda: thy.HybridStepFn(EKF_CFG, DEFAULT_CONFIG, "cpu"),
+            lambda: thy.init_hybrid(r[0], EKF_CFG, DEFAULT_CONFIG, seed=7),
+            lambda t: (r[t], det.rb[t], det.valid[t], odo[t - 1],
+                       pre.seed_count),
+            lambda s, t: thy.hybrid_step(s, r[t], det.rb[t], det.valid[t],
+                                         odo[t - 1], EKF_CFG, DEFAULT_CONFIG,
+                                         angles))
+    obs, valid, odo, _ = tek.scan_inputs(
+        r.numpy(), EKF_CFG, max_range=tek.LONG_TOUR_MAX_RANGE, device="cpu")
+    return StepCase(
+        lambda: tek.EkfStepFn(EKF_CFG, "cpu"),
+        lambda: tek.init_ekf_slam(EKF_CFG, 7, "cpu"),
+        lambda t: (obs[t - 1], valid[t - 1], odo[t - 1]),
+        lambda s, t: tek.ekf_slam_step_ml(s, obs[t - 1], valid[t - 1],
+                                          EKF_CFG, odo=odo[t - 1]))
+
+
+@pytest.fixture(scope="module")
+def step_cases(small_dataset):
+    """Each step object's case and its eager loop's (poses of scans 0..,
+    final state)."""
+    out = {}
+    for name in STEPS:
+        case = _step_case(name, small_dataset[0])
+        state, poses = case.init(), [torch.zeros(3)]
+        for t in range(1, N_STEP):
+            state, pose = case.eager(state, t)
+            poses.append(pose)
+        out[name] = case, torch.stack(poses), state
+    return out
+
+
+def _host_paths():
+    return {"." + ".".join(p) for p in graphs.HOST_FIELDS}
+
+
+def _buffers(state) -> list:
+    """The tensor leaves of a state, its host fields left out."""
+    host = _host_paths()
+    return [x for p, x in leaves_with_path(state)
+            if isinstance(x, torch.Tensor) and p not in host]
+
+
+def _assert_same_state(got, want):
+    """Equal bit for bit, generators by their state; host fields as host
+    values."""
+    def split(state):
+        return map_with_path(lambda _, x: None if is_generator(x) else x,
+                             state), [x.get_state() for _, x in
+                                      leaves_with_path(state)
+                                      if is_generator(x)]
+    (g, g_rng), (w, w_rng) = split(got), split(want)
+    assert_tree_equal(g, w)
+    assert all(torch.equal(a, b) for a, b in zip(g_rng, w_rng, strict=True))
+    for p, x in leaves_with_path(got):
+        if p in _host_paths():
+            assert type(x) in (bool, int), p
+
+
+@pytest.mark.parametrize("name", STEPS)
+def test_step_takes_a_state_it_did_not_return(step_cases, name):
+    """A step fed an eager state mid-run, then its own, then a state
+    another step returned (by ``advance``, its host fields device values,
+    or by ``step``, host values), equals the eager loop; and a state it
+    returned is its buffers, taken back by the next call (donated)."""
+    case, want, want_state = step_cases[name]
+    state = case.init()
+    for t in range(1, 20):
+        state, _ = case.eager(state, t)
+    a, b = case.make(), case.make()
+    for t in range(20, N_STEP):   # b starts from a's state of an advance
+        step = a if (t // 4) % 2 == 0 else b
+        if t % 3 == 0:
+            state, pose = step(state, *case.inputs(t))
+            assert np.array_equal(np.asarray(pose), want[t].numpy()), t
+        else:
+            state = step.advance(state, *case.inputs(t))
+        assert torch.equal(step.pose, want[t]), t
+    _assert_same_state(graphs.clone_tree(step.finish(state)), want_state)
+    kept = graphs.clone_tree(state)
+    again = step.advance(state, *case.inputs(20))
+    assert all(x is y for x, y in zip(_buffers(again), _buffers(state),
+                                      strict=True))      # the same buffers
+    assert not all(torch.equal(x, y) for x, y in zip(
+        _buffers(state), _buffers(kept), strict=True))   # ... taken back
+
+
+@pytest.mark.parametrize("name", STEPS)
+def test_advance_and_step_give_the_same_path_and_host_fields(step_cases,
+                                                              name):
+    """One run through ``advance`` and ``finish`` (no host read until the
+    end) and one through ``step`` (the pose and the host fields read a
+    step): the same path, the eager loop's, and the same final state with
+    its host fields as host values."""
+    case, want, want_state = step_cases[name]
+    path, ran = graphs.drive(case.make(), case.init(), N_STEP, case.inputs)
+    step, called, host = case.make(), case.init(), [np.zeros(3, np.float32)]
+    for t in range(1, N_STEP):
+        called, pose = step(called, *case.inputs(t))
+        host.append(np.array(pose))   # a copy: the EKF's is its buffer
+    called = graphs.clone_tree(step.finish(called))
+    assert torch.equal(path, want)
+    assert np.array_equal(np.stack(host), want.numpy())
+    _assert_same_state(ran, want_state)
+    _assert_same_state(called, want_state)
 
 
 # ---- states out of the runner
