@@ -257,15 +257,18 @@ K1_SOURCE = "lidar_slam_tpu_torch/csrc/edt.cu"
 K2_SOURCE = "lidar_slam_tpu_torch/csrc/corr_volume.cu"
 K3_SOURCE = "lidar_slam_tpu_torch/csrc/scan_match.cu"
 K4_SOURCE = "lidar_slam_tpu_torch/csrc/vol_lookup.cu"
+K5_SOURCE = "lidar_slam_tpu_torch/csrc/scan_intake.cu"
 K1_REPLACES = "lidar_slam_tpu/ops/pallas_edt.py:119"
 K2_REPLACES = "lidar_slam_tpu/ops/pallas_match.py:120"
 K3_REPLACES = "none: ops/matching.fast_match's plain tensor code"
 K4_REPLACES = "none: ops/correlative's plain lookups (lookup_cascade, ...)"
+K5_REPLACES = "none: core/sensor.read_scan's plain tensor code"
 # substrings of the kernels' names in a profiler trace
 K1_KERNEL = "edt_"
 K2_KERNEL = "corr_volume"
 K3_KERNEL = "scan_match"
 K4_KERNEL = "vol_"
+K5_KERNEL = "scan_intake"
 
 PF_ATE_MAX = 0.15          # m, the pin of tests/test_fastslam.py
 CPU_CUDA_MAX_DIFF = 1e-3   # max |pose difference|, injected draws
@@ -363,7 +366,8 @@ def _wedging_pf_worker(run_dir, ranges, cfg, seed, ckpt_every, device,
     it wedges). Module-level, so a spawned child can import it."""
     from lidar_slam_tpu_torch.models import fastslam
     from lidar_slam_tpu_torch.ops import (cuda_edt, cuda_match,
-                                          cuda_scan_match, cuda_vol_lookup)
+                                          cuda_scan_intake, cuda_scan_match,
+                                          cuda_vol_lookup)
     from lidar_slam_tpu_torch.utils import watchdog
 
     attempt = 1 + sum(f.startswith("attempt_") for f in os.listdir(run_dir))
@@ -375,7 +379,8 @@ def _wedging_pf_worker(run_dir, ranges, cfg, seed, ckpt_every, device,
                              mod.launches_by_shape.items()]
                        for key, mod in (("K1", cuda_edt), ("K2", cuda_match),
                                         ("K3", cuda_scan_match),
-                                        ("K4", cuda_vol_lookup))},
+                                        ("K4", cuda_vol_lookup),
+                                        ("K5", cuda_scan_intake))},
                       f)
 
     if attempt == 1:
@@ -1242,6 +1247,72 @@ def k4_shape_row(label, vols, poses, mode, offs=None, tag="7"
              "library_ms": None, "bytes": n_bytes}, err)
 
 
+def launches_agree(a: dict, b: dict) -> bool:
+    """Two runs' launches by kernel and shape agree: K1-K4 shape by shape,
+    K5 at the same shapes. An eager loop may gate a scan more often than
+    its captured driver (GraphSlam's eager loop gates each scan in
+    ``slam_step`` and again for its keyframe store), so K5's count is held
+    exactly only where both loops gate the same scans (phases 5, 6, 6c)."""
+    return ({k: v for k, v in a.items() if k != "K5"}
+            == {k: v for k, v in b.items() if k != "K5"}
+            and set(a.get("K5", ())) == set(b.get("K5", ())))
+
+
+def k5_shape_row(label, ranges, angles, cfg, tag="7") -> tuple[dict, float]:
+    """The row for K5 at one shape, and its max |kernel - plain| over x and
+    y (0 when they are equal): every field of its scan equal to
+    ``read_scan_plain``'s; its device time (a CUDA graph of raw launches),
+    the profiler's kernel row, the wrapper's and the plain version's times
+    (plain, kernel, kernel, plain) and the bound: the ranges and angles
+    read and x, y, the mask and the size written once, at 3.35 TB/s, or
+    the gate's two comparisons a beam and sincos32's 27 operations and the
+    two products a kept beam at 67 TFLOP/s."""
+    import torch
+
+    from lidar_slam_tpu_torch.core import sensor
+    from lidar_slam_tpu_torch.ops import cuda_scan_intake
+
+    want = sensor.read_scan_plain(ranges, angles, cfg)
+    got = cuda_scan_intake.read_scan_cuda(ranges, angles, cfg)
+    torch.cuda.synchronize()
+    err = max(float((getattr(got, f) - getattr(want, f)).abs().max())
+              for f in ("x", "y"))
+    for f in sensor.Scan._fields:
+        require(torch.equal(getattr(got, f), getattr(want, f)),
+                f"K5 differs from plain at {label}: {f} (max |difference| "
+                f"of x and y {err})")
+    out = sensor.Scan(*(torch.empty_like(t) for t in want))
+    raw = lambda: cuda_scan_intake.launch(  # noqa: E731
+        ranges, angles, cfg, out)
+    device_ms = graph_time_ms(raw)
+    for f in sensor.Scan._fields:
+        require(torch.equal(getattr(out, f), getattr(want, f)),
+                f"raw K5 differs at {label}: {f}")
+    prof_ms = profiler_kernel_ms(raw, K5_KERNEL)
+    wrap = lambda: sensor.read_scan(ranges, angles, cfg)  # noqa: E731
+    plain = lambda: sensor.read_scan_plain(  # noqa: E731
+        ranges, angles, cfg)
+    p1, w1, w2, p2 = (cuda_time_ms(f, iters=50, warmup=5)
+                      for f in (plain, wrap, wrap, plain))
+    n = ranges.shape[0]
+    kept = int(want.size)
+    n_bytes = 4 * n * 2 + 4 * n * 2 + n + 4
+    n_ops = 2 * n + 29 * kept
+    bnd, by = bound_ms(n_bytes, n_ops)
+    print(f"[{tag}] K5 {label}: device {device_ms * 1e3:.2f} us (CUDA graph "
+          f"of {GRAPH_LAUNCHES}; profiler kernel row "
+          f"{'n/a' if prof_ms is None else f'{prof_ms * 1e3:.2f}'} us); "
+          f"wrapper {w1 * 1e3:.1f} / {w2 * 1e3:.1f} us; plain "
+          f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us; bound {bnd * 1e3:.4f} us "
+          f"({by}: {n_bytes} B, {kept} of {n} beams kept), "
+          f"{bnd / device_ms:.2%} of it reached; max |kernel - plain| "
+          f"{err}; library: none", flush=True)
+    return ({"shape": label, "key": (n,), "device_ms": device_ms,
+             "profiler_ms": prof_ms, "wrapper_ms": min(w1, w2),
+             "plain_ms": min(p1, p2), "bound_ms": bnd, "bound_by": by,
+             "library_ms": None, "bytes": n_bytes}, err)
+
+
 def parallel_phases(ctx) -> None:
     """Phases 19-23: the parallel layer on an NCCL world of one (one card:
     NCCL takes one rank a GPU, so every collective runs through the group
@@ -1366,8 +1437,9 @@ def parallel_phases(ctx) -> None:
                 map=dict(mesh.map.launches_by_shape),
                 calls=mesh.particles.calls + mesh.map.calls)
         cap, eag = runs[name, "captured"], runs[name, "eager"]
-        require(ctx.path_counts[cap["label"]] == ctx.path_counts[
-            eag["label"]], f"{name}: K1/K2 launches by shape, captured "
+        require(launches_agree(ctx.path_counts[cap["label"]],
+                               ctx.path_counts[eag["label"]]),
+                f"{name}: launches by shape, captured "
             f"{ctx.path_counts[cap['label']]} against eager "
             f"{ctx.path_counts[eag['label']]}")
         require(cap["particles"] == eag["particles"],
@@ -1720,8 +1792,8 @@ def main() -> int:
     from lidar_slam_tpu_torch.models.submap_graph_slam import SubmapGraphSlam
     from lidar_slam_tpu_torch.utils import paging
     from lidar_slam_tpu_torch.ops import (correlative, cuda_edt, cuda_match,
-                                          cuda_scan_match, cuda_vol_lookup,
-                                          landmarks)
+                                          cuda_scan_intake, cuda_scan_match,
+                                          cuda_vol_lookup, landmarks)
     from lidar_slam_tpu_torch.ops import edt as edt_ops
     from lidar_slam_tpu_torch.ops import scan_odometry
 
@@ -1885,7 +1957,7 @@ def main() -> int:
 
     # ---- 5. fidelity, museum-1000 (main path; counters start here)
     counted = (("K1", cuda_edt), ("K2", cuda_match), ("K3", cuda_scan_match),
-               ("K4", cuda_vol_lookup))
+               ("K4", cuda_vol_lookup), ("K5", cuda_scan_intake))
 
     def reset_counts():
         for _, mod in counted:
@@ -1904,7 +1976,7 @@ def main() -> int:
                     for k in used),
                 f"{title}: launches by shape do not add up")
         print(f"    launches by shape (K1: B,H,W; K2: B,T,half,S; K3: "
-              f"C,N,S; K4: B,K,T,W,levels,mode): {path_counts[title]}",
+              f"C,N,S; K4: B,K,T,W,levels,mode; K5: N): {path_counts[title]}",
               flush=True)
         return used
 
@@ -1932,6 +2004,8 @@ def main() -> int:
     require(used["K3"] == 2 * (len(path) - 1),
             f"fidelity run launched K3 {used['K3']} times, not two a scan "
             f"after scan 0")
+    require(used["K5"] == len(path),
+            f"fidelity run launched K5 {used['K5']} times, not once a scan")
     launches = dict(used)
     fid_seconds = dt
     scans_per_s = {"fidelity museum-1000": len(path) / dt}
@@ -1955,6 +2029,8 @@ def main() -> int:
     require(used["K1"] > 0, "PF run launched K1 no time")
     require(used["K2"] > 0, "PF run launched K2 no time")
     require_k4_two_a_scan("PF-1024 museum-1000", used, len(ppath))
+    require(used["K5"] == len(ppath),
+            f"PF run launched K5 {used['K5']} times, not once a scan")
     for k in used:
         launches[k] += used[k]
     require(np.isfinite(ppath).all(), "PF path has non-finite poses")
@@ -2153,9 +2229,9 @@ def main() -> int:
          (m512, cx13, cy13, scan.valid, 512, 512, half)),
         (f"B=8 T={lc.n_theta} half={lc.window_half} S={lc.raster_size} "
          f"(closures)", k2b_args)]
-    shape_rows = {"K1": [], "K2": [], "K3": [], "K4": []}
+    shape_rows = {"K1": [], "K2": [], "K3": [], "K4": [], "K5": []}
     # device time of one launch by the shape key of launches_by_shape
-    device_by_shape = {"K1": {}, "K2": {}, "K3": {}, "K4": {}}
+    device_by_shape = {"K1": {}, "K2": {}, "K3": {}, "K4": {}, "K5": {}}
     for label, occ in k1_cases:
         row, err = k1_shape_row(label, occ)
         k1_err = max(k1_err, err)
@@ -2347,6 +2423,22 @@ def main() -> int:
               f"distance) == plain at B=1..7; device us by B: " + ", ".join(
                   f"{b}: {t * 1e3:.2f}" for b, t in sweep.items()),
               flush=True)
+    # K5 at the main paths' one shape, N = 1079: the museum's scan 120, and
+    # the same scan with dropouts (0, NaN, +inf, a negative range, one past
+    # usable_range, one at either bound) on every 29th beam
+    k5_err = 0.0
+    r120 = torch.as_tensor(ranges[120], device=dev)
+    drops = np.asarray([0.0, np.nan, np.inf, -2.0, 30.0, cfg.lidar.range_min,
+                        cfg.lidar.usable_range], np.float32)
+    r_drop = r120.clone()
+    r_drop[::29] = torch.as_tensor(np.resize(drops, r_drop[::29].shape[0]),
+                                   device=dev)
+    for label, r5 in ((f"N={r120.shape[0]} museum scan 120", r120),
+                      (f"N={r120.shape[0]} scan 120 with dropouts", r_drop)):
+        row, err = k5_shape_row(label, r5, angles, cfg.lidar)
+        k5_err = max(k5_err, err)
+        shape_rows["K5"].append(row)
+        device_by_shape["K5"][row["key"]] = row["device_ms"]
     print("[7] order of each wrapper/plain pair: plain, kernel, kernel, "
           "plain; device time and bound are per launch", flush=True)
     # the partial batches the closure and refine passes end on (B < 8):
@@ -2754,7 +2846,7 @@ def main() -> int:
     require(np.array_equal(epath, gpath),
             f"{title}: the eager paged loop differs from the captured one: "
             f"max {np.abs(epath - gpath).max()}")
-    require(eager_counts == path_counts[title],
+    require(launches_agree(eager_counts, path_counts[title]),
             f"{title}: launches by shape, eager {eager_counts} against "
             f"captured {path_counts[title]}")
     require((epaged.pages_out, epaged.pages_in,
@@ -2763,7 +2855,9 @@ def main() -> int:
                 gfinal.atlas.active),
             f"{title}: the eager paged loop paged otherwise")
     print(f"[13] {title}: the eager paged loop's path == the captured "
-          f"step's (np.array_equal), launches by shape, pages and slot ints "
+          f"step's (np.array_equal), launches by shape (K5: its shapes, "
+          f"eager {sum(eager_counts['K5'].values())} / captured "
+          f"{sum(path_counts[title]['K5'].values())}), pages and slot ints "
           f"equal; scans/s captured {len(gpath) / dt:.1f} against eager "
           f"{len(epath) / edt:.1f}", flush=True)
     phase_done("13")
@@ -2946,13 +3040,15 @@ def main() -> int:
         require(np.array_equal(epath, graph_path),
                 f"{title}: the eager loop differs from the captured driver: "
                 f"max {np.abs(epath - graph_path).max()}")
-        require(eager_counts == path_counts[title],
+        require(launches_agree(eager_counts, path_counts[title]),
                 f"{title}: launches by shape, eager {eager_counts} against "
                 f"captured {path_counts[title]}")
         drivers14[title] = {"eager": (len(epath) - per_scan) / dt,
                             "graph": scans_per_s[title]}
         print(f"[14c] {title}: the eager loop's path == the captured "
-              f"driver's (np.array_equal), launches by shape equal; "
+              f"driver's (np.array_equal), launches by shape equal (K5: "
+              f"its shapes, eager {sum(eager_counts['K5'].values())} / "
+              f"captured {sum(path_counts[title]['K5'].values())}); "
               f"scans/s captured {scans_per_s[title]:.1f} against eager "
               f"{drivers14[title]['eager']:.1f}", flush=True)
         if title in eager_graphs:
@@ -3213,7 +3309,7 @@ def main() -> int:
     require(np.array_equal(spf, ppath),
             f"{title}: resumed path differs from phase 6's run_pf: max "
             f"{np.abs(spf - ppath).max()}")
-    counts = {"K1": {}, "K2": {}, "K3": {}, "K4": {}}
+    counts = {"K1": {}, "K2": {}, "K3": {}, "K4": {}, "K5": {}}
     for attempt in (1, 2):
         with open(os.path.join(run_dir, f"launches_{attempt}.json")) as f:
             for key, rows in json.load(f).items():
@@ -3410,7 +3506,8 @@ def main() -> int:
             ("K2", "K2 correlation volume", K2_SOURCE, K2_REPLACES, k2_err),
             ("K3", "K3 correlative matcher", K3_SOURCE, K3_REPLACES,
              k3_err),
-            ("K4", "K4 volume lookups", K4_SOURCE, K4_REPLACES, k4_err)):
+            ("K4", "K4 volume lookups", K4_SOURCE, K4_REPLACES, k4_err),
+            ("K5", "K5 scan intake", K5_SOURCE, K5_REPLACES, k5_err)):
         head = shape_rows[key][1 if key == "K1" else 0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -3427,7 +3524,7 @@ def main() -> int:
     # launches by shape times phase 7's device time of that shape
     for p, counts in path_counts.items():
         parts = []
-        for key in ("K1", "K2", "K3", "K4"):
+        for key in ("K1", "K2", "K3", "K4", "K5"):
             known = device_by_shape[key]
             ms = sum(n * known[k] for k, n in counts[key].items() if k in known)
             unmeasured = sum(n for k, n in counts[key].items()

@@ -63,6 +63,9 @@ _SIGNATURES = {
     # (3), stream
     "slam_vol_refine": (_PP, _PP, _PP, _PF, _PF, _I, _I, _I, _I, _P, _P, _I,
                         _P, _P),
+    # ranges f32 (N), angles f32 (N), N, range_min, usable_range, x f32
+    # (N), y f32 (N), valid u8 (N), size i32*, stream
+    "slam_scan_intake": (_P, _P, _I, _F, _F, _P, _P, _P, _P, _P),
     # graph_cond.cu: capture stream, child stream, pred bool*; child stream
     "slam_if_begin": (_P, _P, _P),
     "slam_if_end": (_P,),
@@ -74,6 +77,11 @@ _SIGNATURES = {
 
 def kernel_sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def kernel_headers() -> list[str]:
+    """``csrc/*.cuh``: included by the sources, so a newer one rebuilds."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def find_nvcc() -> str:
@@ -124,7 +132,7 @@ def compile_to(cmd_for, out: str) -> None:
 def build_kernels(force: bool = False) -> str:
     """Compile ``csrc/*.cu`` into ``_build/libslam_kernels.so`` if needed."""
     sources = kernel_sources()
-    if not (force or is_stale(KERNEL_LIB, sources)):
+    if not (force or is_stale(KERNEL_LIB, sources + kernel_headers())):
         return KERNEL_LIB
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -74,7 +74,25 @@ def read_scan(ranges: torch.Tensor, angles: torch.Tensor,
               cfg: LidarConfig) -> Scan:
     """Gate + convert one scan (``readAScan``). Keeps ``range_min <= r <=
     usable_range``, exactly the JAX package's test; compaction preserves
-    beam order."""
+    beam order.
+
+    Device dispatcher: on CUDA tensors one launch of kernel K5
+    (``ops/cuda_scan_intake``), on CPU tensors ``read_scan_plain``. A CUDA
+    tensor never reaches the plain version.
+    """
+    if ranges.is_cuda:
+        from lidar_slam_tpu_torch.ops import cuda_scan_intake
+
+        return cuda_scan_intake.read_scan_cuda(
+            ranges.to(torch.float32).contiguous(),
+            angles.to(torch.float32).contiguous(), cfg)
+    return read_scan_plain(ranges, angles, cfg)
+
+
+def read_scan_plain(ranges: torch.Tensor, angles: torch.Tensor,
+                    cfg: LidarConfig) -> Scan:
+    """``read_scan`` in plain tensor code: the CPU's path, and what K5 is
+    held to with ``torch.equal`` on the card."""
     ranges = ranges.to(torch.float32)
     ok = (ranges >= cfg.range_min) & (ranges <= cfg.usable_range)
     sa, ca = sincos32(angles)

@@ -45,9 +45,9 @@ fails on the card raises, and so does a missing conditional-node binding;
 nothing falls back to the eager step, to a graph per count or to a host
 read of the branch.
 
-The kernel wrappers count launches in Python (``cuda_edt.launches``,
-``cuda_match.launches``, ``cuda_scan_match.launches`` and their
-``launches_by_shape``), so a replay would count nothing. ``LaunchBook``
+The kernel wrappers count launches in Python (``launches`` and
+``launches_by_shape`` of each module in ``COUNTED``), so a replay would
+count nothing. ``LaunchBook``
 takes the counts a capture makes out again: what runs on every replay is
 the graph's delta, added on each replay; what runs in a conditional arm is
 that arm's delta, and the arm adds one to its own device counter inside
@@ -85,13 +85,14 @@ import torch
 
 from lidar_slam_tpu_torch import _build
 from lidar_slam_tpu_torch.device import resolve_device
-from lidar_slam_tpu_torch.ops import (cuda_edt, cuda_match, cuda_scan_match,
-                                      cuda_vol_lookup)
+from lidar_slam_tpu_torch.ops import (cuda_edt, cuda_match, cuda_scan_intake,
+                                      cuda_scan_match, cuda_vol_lookup)
 from lidar_slam_tpu_torch.utils.profiling import span
 from lidar_slam_tpu_torch.utils.tree import map_with_path
 
 # modules with launches, launches_by_shape
-COUNTED = (cuda_edt, cuda_match, cuda_scan_match, cuda_vol_lookup)
+COUNTED = (cuda_edt, cuda_match, cuda_scan_match, cuda_vol_lookup,
+           cuda_scan_intake)
 # the capture's cudaStreamCaptureMode: "thread_local" lets another thread
 # (c10d's NCCL watchdog, which polls the events of earlier collectives)
 # make CUDA calls while a graph that holds collectives is captured

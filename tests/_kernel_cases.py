@@ -1,5 +1,5 @@
-"""Inputs of kernels K1 (clamped EDT), K2 (correlation volume) and K3 (the
-matcher) at the shapes the port's main paths launch them with and at their
+"""Inputs of kernels K1 (clamped EDT), K2 (correlation volume), K3 (the
+matcher), K4 (the volume lookups) and K5 (the scan intake) at the shapes the port's main paths launch them with and at their
 edges, made with numpy from a seed. Shared by the CPU tests of the kernels'
 twins (``test_torch_kernel_twins.py``) and the card's tests
 (``test_torch_cuda.py``); imports neither JAX nor the JAX package."""
@@ -322,3 +322,87 @@ def vols_prefix(vols, b: int):
     """A batched cascade cut to its first ``b`` rows."""
     return [v._replace(scores=v.scores[:b], counts=v.counts[:b],
                        base_pose=v.base_pose[:b]) for v in vols]
+
+
+# K5 (the scan intake). Edge cases of one scan at the museum's 1079 beams:
+# ranges exactly at the gate's bounds and their float32 neighbours, 0,
+# negative ones (-0.0 among them), NaN, +-inf, a scan that keeps no beam and
+# one that keeps every beam
+K5_EDGES = ("range_min", "usable_range", "zero", "negative", "nan", "inf",
+            "all-dropped", "all-valid")
+# beams a scan: 1, a warp's 31, the block's 1024, the museum's 1079, and
+# the most the kernel's block takes (8 a thread)
+K5_BEAMS = (1, 31, 1024, 1079, 8192)
+
+
+def k5_inputs(ranges, n_beams: int = 1079):
+    """``read_scan``'s arguments for K5 on the CPU: (ranges, angles, cfg),
+    the angle table of a sensor of ``n_beams`` beams (the museum's
+    increment: past 1079 the table turns through several quadrants)."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.core.sensor import beam_angles
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG.lidar, n_beams=n_beams)
+    return (torch.as_tensor(np.asarray(ranges, np.float32)),
+            torch.as_tensor(beam_angles(cfg)), cfg)
+
+
+def k5_edge_case(name: str):
+    """One scan of the museum's 1079 beams for a K5 edge case: the edge's
+    values on every third beam, the others in range."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+
+    lc = DEFAULT_CONFIG.lidar
+    n = lc.n_beams
+    rng = _rng("k5-" + name)
+    r = rng.uniform(0.5, 20.0, n).astype(np.float32)
+    f32 = np.float32
+    lo, hi = f32(lc.range_min), f32(lc.usable_range)
+    edge = {
+        "range_min": [np.nextafter(lo, f32(0)), lo, np.nextafter(lo, hi)],
+        "usable_range": [np.nextafter(hi, lo), hi,
+                         np.nextafter(hi, f32(np.inf))],
+        "zero": [0.0],
+        "negative": [-0.0, -lo, -1.0, -hi],
+        "nan": [np.nan],
+        "inf": [np.inf, -np.inf],
+    }
+    if name == "all-dropped":
+        r = np.where(np.arange(n) % 2 == 0, f32(0.0), f32(30.0))
+    elif name == "all-valid":
+        r[::7] = lo
+        r[3::7] = hi
+    else:
+        vals = np.asarray(edge[name], np.float32)
+        r[::3] = vals[np.arange(len(r[::3])) % len(vals)]
+    return k5_inputs(r.astype(np.float32), n)
+
+
+def k5_beams_case(n: int):
+    """One scan of ``n`` beams: uniform ranges from -1 to 30 m (about a
+    fifth gated out), a NaN on every 17th beam."""
+    rng = _rng(f"k5-beams-{n}")
+    r = rng.uniform(-1.0, 30.0, n).astype(np.float32)
+    r[::17] = np.nan
+    return k5_inputs(r, n)
+
+
+def k5_log(n_scans: int = 1000, seed: int = 11):
+    """A museum log of ``n_scans`` scans (T, 1079) float32 with dropouts
+    added to the simulator's: on about 3% of the beams 0, NaN, +inf, a
+    negative range, one past ``usable_range`` or one exactly at either
+    bound."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+
+    lc = DEFAULT_CONFIG.lidar
+    ranges, _ = simulate.generate_dataset(n_scans, seed=seed)
+    ranges = np.array(ranges, np.float32)
+    rng = np.random.default_rng(seed)
+    drop = rng.random(ranges.shape) < 0.03
+    vals = np.asarray([0.0, np.nan, np.inf, -2.0, 30.0, lc.range_min,
+                       lc.usable_range], np.float32)
+    ranges[drop] = vals[rng.integers(0, len(vals), int(drop.sum()))]
+    return ranges

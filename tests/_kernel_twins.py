@@ -1,5 +1,6 @@
 """CPU twins of kernels K1 (``csrc/edt.cu``), K2 (``csrc/corr_volume.cu``),
-K3 (``csrc/scan_match.cu``) and K4 (``csrc/vol_lookup.cu``).
+K3 (``csrc/scan_match.cu``), K4 (``csrc/vol_lookup.cu``) and K5
+(``csrc/scan_intake.cu``).
 
 A CUDA kernel cannot run without a card, so each kernel has a twin here in
 plain PyTorch or numpy that repeats its index math step by step: bit-packed
@@ -9,7 +10,9 @@ bounds test folded in, and window origins for K2; gather tables with the
 bounds test folded in, integer code sums, the penalty after the sum and
 compaction by prefix count for K3; one pose a thread through the
 cascade's levels, stopping at the first window that holds it, and the
-refinement's serial first minimum for K4. ``test_torch_kernel_twins.py`` holds
+refinement's serial first minimum for K4; contiguous runs of beams a
+thread, warp scans of their kept counts and each kept beam's slot and
+quadrant for K5. ``test_torch_kernel_twins.py`` holds
 them to the plain versions; they are slow and only the tests use them.
 """
 
@@ -375,3 +378,56 @@ def vol_refine_twin(vols, est_pose: torch.Tensor, offs: torch.Tensor
                 best, v = j, d[j]
         est = cands[best]
     return torch.as_tensor(est.astype(_F))
+
+
+def scan_intake_twin(ranges: torch.Tensor, angles: torch.Tensor, cfg):
+    """K5's algorithm in numpy: thread t of the block owns the contiguous
+    run of beams [t ipt, (t + 1) ipt) and gates them in float32; each warp
+    scans its threads' kept counts as the shuffles do (lane l adds lane
+    l - o for o = 1, 2, 4, 8, 16), warp 0 scans the warps' totals the same
+    way, and a thread's first kept beam goes to its warp's exclusive offset
+    plus its inclusive count less its own; each kept beam's sin and cos
+    (the kernel's sincos32, quadrant by floor-mod) and x = r cos, y = r sin
+    at its slot; zeros past the size. The same ``Scan`` as
+    ``read_scan_cuda``."""
+    from lidar_slam_tpu_torch.core.sensor import Scan
+    from lidar_slam_tpu_torch.ops import cuda_scan_intake as k5
+
+    r = ranges.numpy().astype(_F)
+    n = r.shape[0]
+    threads, lanes = k5.THREADS, 32
+    ipt = -(-n // threads)
+    assert 1 <= ipt <= k5.PER_THREAD, n
+    lo, hi = (_F(b) for b in k5.gate_bounds(cfg))
+    with np.errstate(invalid="ignore"):
+        ok = (r >= lo) & (r <= hi)
+    b0 = np.minimum(n, np.arange(threads) * ipt)
+    b1 = np.minimum(n, b0 + ipt)
+    kept_before = np.concatenate([[0], np.cumsum(ok)])
+    mine = kept_before[b1] - kept_before[b0]            # a thread's count
+
+    def warp_scan(v):                                   # (warps, 32)
+        v = v.copy()
+        o = 1
+        while o < lanes:
+            up = np.zeros_like(v)
+            up[:, o:] = v[:, :-o]                       # __shfl_up_sync
+            v = v + up
+            o <<= 1
+        return v
+
+    incl = warp_scan(mine.reshape(-1, lanes))
+    totals = warp_scan(incl[:, -1][None, :])[0]         # warp 0's scan
+    offset = totals - incl[:, -1]
+    total = int(totals[-1])
+    first = (offset[:, None] + incl - mine.reshape(-1, lanes)).reshape(-1)
+    beams = np.flatnonzero(ok)
+    owner = beams // ipt
+    slot = first[owner] + (kept_before[beams] - kept_before[b0[owner]])
+    sin, cos = _sincos32_np(angles.numpy()[beams])
+    x, y = np.zeros(n, _F), np.zeros(n, _F)
+    x[slot] = r[beams] * cos
+    y[slot] = r[beams] * sin
+    return Scan(x=torch.as_tensor(x), y=torch.as_tensor(y),
+                valid=torch.as_tensor(np.arange(n) < total),
+                size=torch.tensor(total, dtype=torch.int32))

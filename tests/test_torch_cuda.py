@@ -14,11 +14,13 @@ import pytest
 import torch
 
 from _kernel_cases import (K1_CASES, K2_CASES, K3_CASES, K4_CASES,
-                           K4_REFINE_CASES, batch_prefix, grid_to, k1_case,
-                           k2_case, k3_case, k4_case, k4_refine_case,
-                           sparse_chunk_case, to_device, vols_prefix, vols_to)
-from _kernel_twins import (edt_twin, scan_match_twin, vol_lookup_twin,
-                           vol_refine_twin)
+                           K4_REFINE_CASES, K5_BEAMS, K5_EDGES, batch_prefix,
+                           grid_to, k1_case, k2_case, k3_case, k4_case,
+                           k4_refine_case, k5_beams_case, k5_edge_case,
+                           k5_inputs, k5_log, sparse_chunk_case, to_device,
+                           vols_prefix, vols_to)
+from _kernel_twins import (edt_twin, scan_intake_twin, scan_match_twin,
+                           vol_lookup_twin, vol_refine_twin)
 
 pytestmark = pytest.mark.cuda
 
@@ -2159,3 +2161,100 @@ def test_pf_step_replay_books_two_k4_launches(cuda):
         assert cuda_vol_lookup.launches - before == 2, t
         assert cuda_vol_lookup.launches_by_shape - shapes == want, t
     assert len(step.graphs) == 1
+
+
+# -- K5, the scan intake
+def _scan_equal(got, want) -> bool:
+    from lidar_slam_tpu_torch.core.sensor import Scan
+
+    return all(torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu())
+               for f in Scan._fields)
+
+
+def _k5_holds(args, device) -> None:
+    """K5 on ``device`` == ``read_scan_plain`` there and on the CPU == the
+    twin, with one launch keyed (N,)."""
+    from lidar_slam_tpu_torch.core import sensor
+    from lidar_slam_tpu_torch.ops import cuda_scan_intake
+
+    ranges, angles, cfg = args
+    dr, da = ranges.to(device), angles.to(device)
+    shapes = collections.Counter(cuda_scan_intake.launches_by_shape)
+    got = sensor.read_scan(dr, da, cfg)
+    torch.cuda.synchronize()
+    assert (cuda_scan_intake.launches_by_shape - shapes
+            == {(ranges.shape[0],): 1})
+    assert _scan_equal(got, sensor.read_scan_plain(dr, da, cfg))
+    assert _scan_equal(got, sensor.read_scan_plain(ranges, angles, cfg))
+    assert _scan_equal(got, scan_intake_twin(ranges, angles, cfg))
+
+
+def test_k5_equals_plain_over_a_museum_log(cuda):
+    """Every scan of a 1000-scan museum log with dropouts (0, NaN, +inf,
+    negative, past ``usable_range``, exactly at either bound): K5's scan ==
+    ``read_scan_plain``'s on the card and on the CPU, field by field, one
+    launch a scan."""
+    from lidar_slam_tpu_torch.core import sensor
+    from lidar_slam_tpu_torch.ops import cuda_scan_intake
+
+    log = k5_log()
+    _, angles, cfg = k5_inputs(log[0])
+    dlog, dangles = torch.as_tensor(log, device=cuda), angles.to(cuda)
+    before = cuda_scan_intake.launches
+    for t in range(log.shape[0]):
+        got = sensor.read_scan(dlog[t], dangles, cfg)
+        assert _scan_equal(got, sensor.read_scan_plain(dlog[t], dangles,
+                                                       cfg)), t
+        assert _scan_equal(got, sensor.read_scan_plain(
+            torch.as_tensor(log[t]), angles, cfg)), t
+    assert cuda_scan_intake.launches - before == log.shape[0]
+
+
+@pytest.mark.parametrize("name", K5_EDGES)
+def test_k5_edges_equal_plain(cuda, name):
+    """The gate's edges: exactly ``range_min`` and ``usable_range`` and
+    their float32 neighbours, 0, negative ranges, NaN, +-inf, a scan that
+    keeps no beam and one that keeps every beam."""
+    _k5_holds(k5_edge_case(name), cuda)
+
+
+@pytest.mark.parametrize("n", K5_BEAMS)
+def test_k5_beam_counts_equal_plain(cuda, n):
+    """N = 1, 31, 1024, 1079 and 8192, the most the block takes."""
+    _k5_holds(k5_beams_case(n), cuda)
+
+
+@pytest.mark.parametrize("driver", ["fidelity", "pf"])
+def test_step_replay_books_one_k5_launch(cuda, driver):
+    """A captured ``StepFn`` replay and a captured ``PfStepFn`` replay each
+    book exactly one K5 launch, at N = 1079; the scan 0 and the eager scan
+    1 make one each; the fidelity path equals the CPU's."""
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import fastslam, scan_matcher
+    from lidar_slam_tpu_torch.ops import cuda_scan_intake
+
+    cfg = DEFAULT_CONFIG
+    n = cfg.lidar.n_beams
+    ranges, _ = simulate.generate_dataset(6, seed=3)
+    r = torch.as_tensor(ranges, device=cuda)
+    before = cuda_scan_intake.launches
+    if driver == "fidelity":
+        step = scan_matcher.make_step_fn(cfg, cuda)
+        state = scan_matcher.init_state(r[0], cfg)
+    else:
+        step = fastslam.make_pf_step(cfg, cuda)
+        state = fastslam.init_particles(r[0], cfg, 0)
+    assert cuda_scan_intake.launches - before == 1
+    poses = []
+    for t in range(1, 6):
+        shapes = collections.Counter(cuda_scan_intake.launches_by_shape)
+        before = cuda_scan_intake.launches
+        state, pose = step(state, r[t])
+        poses.append(pose)
+        assert cuda_scan_intake.launches - before == 1, t
+        assert cuda_scan_intake.launches_by_shape - shapes == {(n,): 1}, t
+    assert len(step.graphs) == 1
+    if driver == "fidelity":
+        cpu, _ = scan_matcher.run_scan(ranges, cfg, device="cpu")
+        assert np.array_equal(np.stack(poses), cpu[1:].numpy())

@@ -1,17 +1,19 @@
-"""The index math of kernels K1, K2, K3 and K4, held to their plain
+"""The index math of kernels K1, K2, K3, K4 and K5, held to their plain
 versions on the CPU.
 
 A CUDA kernel cannot run here, so each kernel has a twin that repeats its
 index math step by step (``_kernel_twins.edt_twin``,
 ``_kernel_twins.score_volume_twin``, ``_kernel_twins.scan_match_twin``,
-``_kernel_twins.vol_lookup_twin`` and ``vol_refine_twin``):
+``_kernel_twins.vol_lookup_twin``, ``vol_refine_twin`` and
+``scan_intake_twin``):
 bit-packed rows, bit-scan distances and row bands for K1; beam chunks,
 live-beam compaction, bounding-box tiles and their halving, lattice codes
 with the bounds test folded in, and window origins for K2; gather tables,
 integer code sums, the penalty after the sum, the first minimum and the
 prefix-count compaction for K3; the cascade's float32 operations in order,
-a pose at a time, and the refinement's serial first minimum for K4. The
-twins must equal the plain versions
+a pose at a time, and the refinement's serial first minimum for K4; runs
+of beams a thread, warp scans and each kept beam's slot and quadrant for K5.
+The twins must equal the plain versions
 exactly at the main paths' shapes and at the edges; ``test_torch_cuda.py``
 holds the kernels themselves to the same cases on the card.
 """
@@ -23,14 +25,17 @@ import pytest
 import torch
 
 from _kernel_cases import (K1_CASES, K2_CASES, K3_CASES, K4_CASES,
-                           K4_REFINE_CASES, batch_prefix, k1_case, k2_case,
-                           k3_case, k4_case, k4_refine_case, sparse_chunk_case,
-                           vols_prefix)
-from _kernel_twins import (edt_twin, scan_match_twin, score_volume_twin,
-                           vol_lookup_twin, vol_refine_twin)
+                           K4_REFINE_CASES, K5_BEAMS, K5_EDGES, batch_prefix,
+                           k1_case, k2_case, k3_case, k4_case, k4_refine_case,
+                           k5_beams_case, k5_edge_case, k5_inputs, k5_log,
+                           sparse_chunk_case, vols_prefix)
+from _kernel_twins import (edt_twin, scan_intake_twin, scan_match_twin,
+                           score_volume_twin, vol_lookup_twin,
+                           vol_refine_twin)
+from lidar_slam_tpu_torch.core import sensor
 from lidar_slam_tpu_torch.ops import (correlative, cuda_edt, cuda_match,
-                                      cuda_scan_match, cuda_vol_lookup,
-                                      matching)
+                                      cuda_scan_intake, cuda_scan_match,
+                                      cuda_vol_lookup, matching)
 from lidar_slam_tpu_torch.ops.edt import edt_clamped
 
 torch.set_num_threads(2)
@@ -474,3 +479,97 @@ def test_k4_wrapper_refuses_what_the_kernel_does_not_take():
                      vols, poses[0], poses[:27])):
         with pytest.raises(ValueError, match="CUDA tensors"):
             call()
+
+
+# -- K5, the scan intake -------------------------------------------------------
+def _scan_equal(got, want) -> bool:
+    return all(torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu())
+               for f in sensor.Scan._fields)
+
+
+def test_k5_twin_equals_plain_over_a_museum_log():
+    """K5's algorithm (runs of beams a thread, warp scans of the kept
+    counts, the slots, sincos32 of each kept beam) == ``read_scan_plain`` on
+    every scan of a 1000-scan museum log with dropouts (0, NaN, +inf,
+    negative, past ``usable_range``, exactly at either bound)."""
+    log = k5_log()
+    kept = set()
+    for row in log:
+        args = k5_inputs(row)
+        want = sensor.read_scan_plain(*args)
+        assert _scan_equal(scan_intake_twin(*args), want)
+        kept.add(int(want.size))
+    assert len(kept) > 10 and max(kept) < 1079
+
+
+@pytest.mark.parametrize("name", K5_EDGES)
+def test_k5_twin_equals_plain_at_the_gates_edges(name):
+    """The gate in float32 at its edges: a range exactly at ``range_min``
+    or ``usable_range`` is kept and its float32 neighbours outside them are
+    not; 0, negative ranges, NaN and +-inf are dropped; a scan that keeps
+    no beam has size 0 and all zeros, one that keeps every beam size N."""
+    args = k5_edge_case(name)
+    want = sensor.read_scan_plain(*args)
+    assert _scan_equal(scan_intake_twin(*args), want)
+    n, size = args[0].shape[0], int(want.size)
+    expect = {"all-dropped": 0, "all-valid": n,
+              "range_min": n - len(range(0, n, 9)),
+              "usable_range": n - len(range(6, n, 9))}
+    if name in expect:
+        assert size == expect[name], name
+    elif name in ("zero", "negative", "nan", "inf"):
+        assert size == n - len(range(0, n, 3)), name
+    if name == "all-dropped":
+        assert not want.x.any() and not want.y.any()
+
+
+@pytest.mark.parametrize("n", K5_BEAMS)
+def test_k5_twin_equals_plain_at_every_beam_count(n):
+    """N = 1, a warp's 31, the block's 1024, the museum's 1079 and the
+    most the block takes, 8192 (8 beams a thread, an angle table that turns
+    through several quadrants either way)."""
+    args = k5_beams_case(n)
+    want = sensor.read_scan_plain(*args)
+    assert _scan_equal(scan_intake_twin(*args), want)
+
+
+def test_read_scan_on_the_cpu_never_reaches_the_kernel(monkeypatch):
+    """CPU tensors take the plain version: neither K5's wrapper nor the
+    kernel library is touched and no launch is counted, in ``read_scan``
+    and in a CPU ``run_scan`` and ``run_pf``."""
+    from lidar_slam_tpu_torch import _build
+    from lidar_slam_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_slam_tpu_torch.io import simulate
+    from lidar_slam_tpu_torch.models import fastslam, scan_matcher
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the CPU path reached the kernel")
+
+    for fn in ("read_scan_cuda", "launch"):
+        monkeypatch.setattr(cuda_scan_intake, fn, refuse)
+    monkeypatch.setattr(_build, "load_kernels", refuse)
+    before = (cuda_scan_intake.launches,
+              dict(cuda_scan_intake.launches_by_shape))
+    args = k5_edge_case("nan")
+    assert _scan_equal(sensor.read_scan(*args), sensor.read_scan_plain(*args))
+    ranges, _ = simulate.generate_dataset(6, seed=1)
+    for run in (scan_matcher.run_scan, fastslam.run_pf):
+        path, _ = run(ranges, DEFAULT_CONFIG, device="cpu")
+        assert path.shape == (6, 3)
+    assert (cuda_scan_intake.launches,
+            dict(cuda_scan_intake.launches_by_shape)) == before
+
+
+def test_k5_wrapper_refuses_what_the_kernel_does_not_take():
+    """The wrapper's checks: a 1-D scan of 1 to ``MAX_BEAMS`` beams (one
+    block of 1024 threads, 8 beams a thread), float32, contiguous, on one
+    card; CPU tensors go to the plain version, never to the kernel."""
+    assert cuda_scan_intake.MAX_BEAMS == 8192 == K5_BEAMS[-1]
+    ranges, angles, cfg = k5_beams_case(31)
+    for bad in (torch.zeros(0), torch.zeros(8193), torch.zeros(2, 31)):
+        with pytest.raises(ValueError, match="1 <= N"):
+            cuda_scan_intake.read_scan_cuda(bad, angles, cfg)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_scan_intake.read_scan_cuda(ranges, angles, cfg)
+    assert cuda_scan_intake.gate_bounds(cfg) == (
+        float(np.float32(cfg.range_min)), float(np.float32(cfg.usable_range)))
